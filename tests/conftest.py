@@ -23,3 +23,10 @@ if os.environ.get("OLMOASR_TEST_TPU", "0") != "1":
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (kernels of olmoasr_tpu_torch); skips without one",
+    )

@@ -1,0 +1,273 @@
+"""The port's decoding and audio front end (olmoasr_tpu_torch.decoding,
+olmoasr_tpu_torch.audio) against the JAX package, on the CPU.
+
+The filters and the copied definitions must agree exactly. The whole greedy
+slice runs in fp32 on a micro model with the same weights on both sides and
+must give identical tokens; the test first shows that every step's top-2
+margin exceeds the logit tolerance, so that identity is what the tolerance
+predicts and not luck. That tolerance comes from the encoder: the port's
+attention rounds p to bf16 as the TPU kernel does, the JAX model on the CPU
+runs exact fp32 attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from olmoasr_tpu import audio as jaudio
+from olmoasr_tpu import decoding as jdec
+from olmoasr_tpu.models import whisper as jm
+from olmoasr_tpu.models.dims import ModelDimensions
+from olmoasr_tpu.tokenizer import get_tokenizer
+from olmoasr_tpu_torch import audio, decoding
+from olmoasr_tpu_torch.api import _new_model
+from olmoasr_tpu_torch.models import whisper as tm
+from olmoasr_tpu_torch.models.convert import state_dict_from_jax_params
+
+V = 51864
+TOK = get_tokenizer(False)
+
+
+# ---------------------------------------------------------------------------
+# copies pinned against the originals
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["DecodingOptions", "DecodingResult", "FilterConfig"])
+def test_copied_dataclasses_match(name):
+    port, orig = getattr(decoding, name), getattr(jdec, name)
+    pf, of = dataclasses.fields(port), dataclasses.fields(orig)
+    assert [f.name for f in pf] == [f.name for f in of]
+    for a, b in zip(pf, of):
+        if a.default is not dataclasses.MISSING and not (
+            isinstance(a.default, float) and np.isnan(a.default)
+        ):
+            assert a.default == b.default, a.name
+        assert (a.default_factory is dataclasses.MISSING) == (
+            b.default_factory is dataclasses.MISSING
+        )
+
+
+OPTION_SETS = [
+    {},
+    {"without_timestamps": True},
+    {"suppress_blank": False, "suppress_tokens": "1,2,3", "max_initial_timestamp": None},
+    {"suppress_tokens": [-1, 7], "prompt": "hello there", "prefix": "so", "sample_len": 20},
+]
+
+
+@pytest.mark.parametrize("opts", OPTION_SETS)
+def test_filter_config_and_prompt_match(opts):
+    port = decoding.build_filter_config(TOK, decoding.DecodingOptions(**opts), 3, V)
+    orig = jdec.build_filter_config(TOK, jdec.DecodingOptions(**opts), 3, V)
+    assert dataclasses.asdict(port) == dataclasses.asdict(orig)
+    np.testing.assert_array_equal(port.suppress_mask, orig.suppress_mask)
+    assert decoding._resolve_prompt(TOK, decoding.DecodingOptions(**opts)) == \
+        jdec._resolve_prompt(TOK, jdec.DecodingOptions(**opts))
+
+
+def test_ranker_and_compression_ratio_match():
+    toks = [[[1, 2, 3], [4]], [[5], [6, 7]]]
+    lps = [[-3.0, -1.5], [-0.5, -2.5]]
+    for lp in (None, 1.0):
+        assert decoding.MaximumLikelihoodRanker(lp).rank(toks, lps) == \
+            jdec.MaximumLikelihoodRanker(lp).rank(toks, lps)
+    for text in ("", "a a a a a a a a", "the quick brown fox"):
+        assert decoding.compression_ratio(text) == jdec.compression_ratio(text)
+
+
+def test_audio_copies_match():
+    for name in ("SAMPLE_RATE", "N_FFT", "HOP_LENGTH", "CHUNK_LENGTH", "N_SAMPLES",
+                 "N_FRAMES", "N_SAMPLES_PER_TOKEN", "FRAMES_PER_SECOND", "TOKENS_PER_SECOND"):
+        assert getattr(audio, name) == getattr(jaudio, name), name
+    for n_mels in (80, 128):
+        np.testing.assert_array_equal(audio.mel_filters_np(n_mels), jaudio.mel_filters_np(n_mels))
+    x = np.arange(30, dtype=np.float32).reshape(3, 10)
+    for length in (4, 10, 17):
+        want = jaudio.pad_or_trim(x, length)
+        np.testing.assert_array_equal(audio.pad_or_trim(x, length), want)
+        np.testing.assert_array_equal(audio.pad_or_trim(torch.from_numpy(x), length).numpy(), want)
+        np.testing.assert_array_equal(
+            audio.pad_or_trim(x, length, axis=0), jaudio.pad_or_trim(x, length, axis=0)
+        )
+
+
+def test_load_audio_matches(tmp_path):
+    import scipy.io.wavfile as wavfile
+
+    pcm = (np.random.default_rng(0).standard_normal(8000) * 3000).astype(np.int16)
+    wav, npy = str(tmp_path / "a.wav"), str(tmp_path / "a.npy")
+    wavfile.write(wav, 8000, pcm)  # resampled to 16 kHz on load
+    np.save(npy, pcm)
+    for path in (wav, npy):
+        np.testing.assert_array_equal(audio.load_audio(path), jaudio.load_audio(path))
+
+
+# ---------------------------------------------------------------------------
+# log-mel
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def waveforms():
+    return (np.random.default_rng(3).standard_normal((2, 16000 * 3)) * 0.1).astype(np.float32)
+
+
+def test_log_mel_matches_numpy_and_jax(waveforms):
+    got = audio.log_mel_spectrogram(torch.from_numpy(waveforms)).numpy()
+    np.testing.assert_allclose(got, jaudio.log_mel_spectrogram_np(waveforms), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(jaudio.log_mel_spectrogram(jnp.asarray(waveforms))), atol=1e-4, rtol=0
+    )
+    single = audio.log_mel_spectrogram(waveforms[0], padding=800).numpy()
+    np.testing.assert_allclose(
+        single, jaudio.log_mel_spectrogram_np(waveforms[0], padding=800), atol=1e-4, rtol=0
+    )
+
+
+def test_log_mel_takes_int16_pcm(waveforms):
+    pcm = (waveforms * 32767).astype(np.int16)
+    got = audio.log_mel_spectrogram(pcm).numpy()
+    want = np.asarray(jaudio.log_mel_spectrogram(pcm))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# apply_filters, rule for rule
+# ---------------------------------------------------------------------------
+
+
+def _rings(step: int):
+    """Token rings whose first ``step`` entries exercise every rule."""
+    ts = TOK.timestamp_begin
+    rows = [
+        [11, 12, 13, 14, 15],  # text only
+        [ts + 4, 21, ts + 9, 22, 23],  # ts, text, ts: must close or keep text
+        [21, ts + 3, ts + 3, 22, 23],  # text, ts, ts: no third timestamp
+        [ts + 50, ts + 50, 31, 32, 33],  # monotonic floor from an early ts
+        [ts, 41, 42, 43, TOK.eot],  # eot later in the ring
+        [ts + 2, 51, 52, ts + 30, ts + 30],  # ts late in the ring
+    ]
+    ring = np.full((len(rows), 8), TOK.eot, np.int32)
+    for i, r in enumerate(rows):
+        ring[i, :step] = r[:step]
+    return ring
+
+
+def _logits(seed: int):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((6, V)) * 2).astype(np.float32)
+    logits[1, TOK.timestamp_begin:] += 6.0  # timestamp mass wins rule 4
+    logits[4, TOK.eot] += 25.0  # EOT beats the timestamps in rule 4
+    return logits
+
+
+@pytest.mark.parametrize("opts", OPTION_SETS[:3])
+@pytest.mark.parametrize("step", [0, 1, 2, 3, 5])
+def test_apply_filters_matches(opts, step):
+    cfg_t = decoding.build_filter_config(TOK, decoding.DecodingOptions(**opts), 1, V)
+    cfg_j = jdec.build_filter_config(TOK, jdec.DecodingOptions(**opts), 1, V)
+    logits, ring = _logits(step), _rings(step)
+    want = np.asarray(jdec.apply_filters(jnp.asarray(logits), jnp.asarray(ring),
+                                         jnp.int32(step), cfg_j))
+    got = decoding.apply_filters(torch.from_numpy(logits), torch.from_numpy(ring), step, cfg_t)
+    np.testing.assert_array_equal(np.isneginf(got.numpy()), np.isneginf(want))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+def test_apply_filters_lets_eot_win_rule_4():
+    cfg = decoding.build_filter_config(TOK, decoding.DecodingOptions(), 1, V)
+    out = decoding.apply_filters(torch.from_numpy(_logits(0)), torch.from_numpy(_rings(3)), 3, cfg)
+    assert int(out[4].argmax()) == TOK.eot
+    assert int(out[1].argmax()) >= TOK.timestamp_begin
+
+
+# ---------------------------------------------------------------------------
+# the whole greedy slice
+# ---------------------------------------------------------------------------
+
+DIMS = ModelDimensions(
+    n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
+    n_vocab=V, n_text_ctx=448, n_text_state=64, n_text_head=4, n_text_layer=2,
+)
+# encoder bf16-p rounding carried to the logits: 1.2e-4 measured at the first
+# step (audio features 1.7e-3 apart), held with a wide margin
+LOGIT_TOL = 1e-2
+SAMPLE_LEN = 40
+
+
+@pytest.fixture(scope="module")
+def slice_pair():
+    params = jm.init_params(jax.random.PRNGKey(0), DIMS, include_padding_token=False)
+    model = _new_model(DIMS, False, "cpu", torch.float32)
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params), DIMS))
+    mel = (np.random.default_rng(1).standard_normal((2, 80, 3000)) * 0.5).astype(np.float32)
+    return params, model, mel
+
+
+def test_greedy_slice_matches_jax_decode(slice_pair):
+    params, model, mel = slice_pair
+    opts = dict(fp16=False, sample_len=SAMPLE_LEN)
+    got = decoding.decode(model, mel, decoding.DecodingOptions(**opts))
+    want = jdec.decode(params, DIMS, mel, jdec.DecodingOptions(**opts))
+
+    # teacher-force the port's tokens: every greedy choice had room to spare
+    prompt = decoding._resolve_prompt(TOK, decoding.DecodingOptions(**opts))
+    cfg = decoding.build_filter_config(TOK, decoding.DecodingOptions(**opts), len(prompt), V)
+    feats = tm.encode_audio(model, torch.from_numpy(mel))
+    cache = tm.init_cache(model, feats, max_len=len(prompt) + SAMPLE_LEN)
+    logits = tm.decode_step(model, torch.tensor([prompt] * 2), cache)[:, -1]
+    ring = torch.full((2, SAMPLE_LEN), TOK.eot)
+    for i in range(SAMPLE_LEN):
+        filt = decoding.apply_filters(logits, ring, i, cfg)
+        top2 = filt.topk(2, dim=-1).values
+        for b, r in enumerate(got):
+            if i <= len(r.tokens):  # rows still running
+                tok = r.tokens[i] if i < len(r.tokens) else TOK.eot
+                assert int(filt[b].argmax()) == tok
+                assert float(top2[b, 0] - top2[b, 1]) > LOGIT_TOL, (b, i)
+                ring[b, i] = tok
+        logits = tm.decode_step(model, ring[:, i:i + 1], cache)[:, 0]
+
+    for g, w in zip(got, want):
+        assert g.tokens == w.tokens
+        assert g.text == w.text
+        assert abs(g.no_speech_prob - w.no_speech_prob) < 1e-4
+        assert abs(g.avg_logprob - w.avg_logprob) < 1e-3
+        assert tuple(g.audio_features.shape) == (DIMS.n_audio_ctx, DIMS.n_audio_state)
+
+
+def test_decode_single_window_and_model_entry_point(slice_pair):
+    params, model, mel = slice_pair
+    from olmoasr_tpu_torch.api import OLMoASR
+
+    wrapped = _new_model(DIMS, False, "cpu", torch.float32)
+    assert isinstance(wrapped, OLMoASR)
+    wrapped.load_state_dict(model.state_dict())
+    opts = decoding.DecodingOptions(fp16=False, sample_len=6)
+    one = wrapped.decode(mel[0], opts)
+    assert isinstance(one, decoding.DecodingResult)
+    assert one.tokens == decoding.decode(model, mel[:1], opts)[0].tokens
+    feats = wrapped.embed_audio(torch.from_numpy(mel[:1]))
+    logits = wrapped.logits(torch.tensor([[TOK.sot, 11, 12]]), feats)
+    assert logits.shape == (1, 3, V) and logits.dtype == torch.float32
+
+
+@pytest.mark.parametrize("opts", [{"beam_size": 5}, {"best_of": 5, "temperature": 0.5},
+                                  {"temperature": 0.2}])
+def test_unported_options_raise(slice_pair, opts):
+    _, model, mel = slice_pair
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decoding.decode(model, mel, decoding.DecodingOptions(fp16=False, **opts))
+
+
+def test_decode_refuses_a_dtype_mismatch(slice_pair):
+    _, model, mel = slice_pair
+    with pytest.raises(ValueError):
+        decoding.decode(model, mel, decoding.DecodingOptions(fp16=True))
