@@ -10,7 +10,8 @@ Hand-written CUDA kernels live in ``csrc/`` and build at first use
 from olmoasr_tpu.models.dims import VARIANT_TO_DIMS, ModelDimensions
 from olmoasr_tpu.version import __version__
 
-__all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "build_model", "__version__"]
+__all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "build_model",
+           "transcribe_many", "__version__"]
 
 
 def load_model(*args, **kwargs):
@@ -23,3 +24,9 @@ def build_model(*args, **kwargs):
     from olmoasr_tpu_torch.api import build_model as _build_model
 
     return _build_model(*args, **kwargs)
+
+
+def transcribe_many(*args, **kwargs):
+    from olmoasr_tpu_torch.transcribe import transcribe_many as _transcribe_many
+
+    return _transcribe_many(*args, **kwargs)

@@ -19,8 +19,8 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 
 
 class OLMoASR(model_mod.Whisper):
-    """Whisper-architecture model with ``decode``, ``embed_audio`` and
-    ``logits`` (reference ``OLMoASR`` API)."""
+    """Whisper-architecture model with ``transcribe``, ``decode``,
+    ``embed_audio`` and ``logits`` (reference ``OLMoASR`` API)."""
 
     @property
     def is_multilingual(self) -> bool:
@@ -41,13 +41,19 @@ class OLMoASR(model_mod.Whisper):
         return model_mod.decode_step(self, tokens.to(audio_features.device), cache)
 
     def decode(self, mel, options=None, **kwargs):
-        """Greedy ``decode`` in the model's dtype, which ``options.fp16`` must
-        name (bf16 or fp32)."""
+        """``decoding.decode``: in bf16 when ``options.fp16`` (the default),
+        else in fp32, whatever the weights' dtype."""
         from olmoasr_tpu_torch import decoding
 
         if options is None:
             options = decoding.DecodingOptions(**kwargs)
         return decoding.decode(self, mel, options)
+
+    def transcribe(self, audio, **kwargs):
+        """Long-form ``transcribe.transcribe`` of one file or waveform."""
+        from olmoasr_tpu_torch import transcribe as transcribe_mod
+
+        return transcribe_mod.transcribe(self, audio, **kwargs)
 
 
 def _new_model(dims, include_padding_token, device, dtype) -> OLMoASR:

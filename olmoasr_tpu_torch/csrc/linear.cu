@@ -1,11 +1,15 @@
 // Skinny linear layer for the decode step: out = epilogue(A @ W^T), and the
 // row LayerNorm that feeds it.
 //
-// Used by two ported TPU kernels (olmoasr_tpu/ops/attention.py):
+// Used by four ported TPU kernels (olmoasr_tpu/ops/attention.py):
 //   * mlp_block (_mlp_kernel): LN, then W1 + b1 + exact GELU, then W2 + b2 +
 //     residual;
 //   * cross_block_decode (_cross_block_kernel): LN, then the q projection,
-//     and the output projection + bias + residual.
+//     and the output projection + bias + residual;
+//   * ln_matmul (_ln_matmul_kernel): LN, then the fused QKV projection with
+//     N = 3D;
+//   * matmul_residual (_matmul_residual_kernel): the self-attention output
+//     projection + bias + residual.
 //
 // Shapes on the decode path: A is (B, K) with B = batch rows (64 at the
 // slice's size), W is (N, K) in torch's (out, in) layout. At B = 64 the

@@ -1,4 +1,5 @@
-"""Greedy decoding with whisper-compatible logit filters and scoring.
+"""Greedy and temperature-sampled decoding with whisper-compatible logit
+filters and scoring.
 
 Counterpart of ``olmoasr_tpu/decoding.py``. That module imports jax at its
 top, so ``DecodingOptions``, ``DecodingResult``, ``compression_ratio``,
@@ -6,10 +7,12 @@ top, so ``DecodingOptions``, ``DecodingResult``, ``compression_ratio``,
 fields and defaults (tests pin them against the originals).
 
 The step loop runs on the host in eager PyTorch: per step ``apply_filters``,
-argmax and one ``decode_step``. Finished rows keep emitting EOT; every
-``EXIT_CHECK_EVERY`` steps the host reads the finished flags and stops once
-every row has finished, as the JAX loop does between its compiled chunks.
-Beam search, best_of and temperature sampling raise NotImplementedError.
+argmax (or a draw from softmax(logits / T) at temperature T > 0) and one
+``decode_step``. Finished rows keep emitting EOT; every ``EXIT_CHECK_EVERY``
+steps the host reads the finished flags and stops once every row has
+finished, as the JAX loop does between its compiled chunks. ``best_of``
+samples ride as extra token rows over one encode and one shared cross cache.
+Beam search raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -232,8 +235,18 @@ def apply_filters(
 # ---------------------------------------------------------------------------
 
 
+def _next_tokens(filt: torch.Tensor, temperature: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Argmax at temperature 0; else one draw per row from
+    softmax(filt / T), as the JAX step's categorical over filt / max(T, 1e-6)."""
+    if temperature == 0:
+        return filt.argmax(dim=-1)
+    probs = torch.softmax(filt / max(temperature, 1e-6), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 @torch.no_grad()
-def _decode_greedy(
+def _decode_sample(
     model: model_mod.Whisper,
     mel: torch.Tensor,  # (B, n_mels, N_FRAMES)
     prompt: List[int],
@@ -241,28 +254,34 @@ def _decode_greedy(
     sample_len: int,
     sot_index: int,
     kv_quant: bool,
+    temperature: float = 0.0,
+    n_groups: int = 1,
+    generator: Optional[torch.Generator] = None,
 ):
-    """Encoder + prompt prefill + greedy steps; returns the sampled token
-    ring (B, sample_len), the summed log-probs, the probabilities at the sot
-    position and the audio features."""
+    """Encoder + prompt prefill + sampling steps for ``n_groups`` token rows
+    per window (row b * n_groups + g), all reading the window's one cross
+    cache; returns the sampled token ring (B * n_groups, sample_len), the
+    summed log-probs, the probabilities at the sot position and the (B, ...)
+    audio features."""
     audio_features = model_mod.encode_audio(model, mel)
-    B = audio_features.shape[0]
+    rows = audio_features.shape[0] * n_groups
     dev = audio_features.device
     cache = model_mod.init_cache(
-        model, audio_features, max_len=len(prompt) + sample_len, quantize_cross=kv_quant
+        model, audio_features, max_len=len(prompt) + sample_len, quantize_cross=kv_quant,
+        self_batch=rows,
     )
-    prompt_t = torch.tensor([prompt] * B, dtype=torch.long, device=dev)
+    prompt_t = torch.tensor([prompt] * rows, dtype=torch.long, device=dev)
     logits_all = model_mod.decode_step(model, prompt_t, cache)
     # no-speech probability at the sot position ([pip:whisper] _main_loop)
     probs_at_sot = torch.softmax(logits_all[:, sot_index], dim=-1)
     logits = logits_all[:, -1]
 
-    tokens = torch.full((B, sample_len), cfg.eot, dtype=torch.long, device=dev)
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-    sum_logprobs = torch.zeros((B,), dtype=torch.float32, device=dev)
+    tokens = torch.full((rows, sample_len), cfg.eot, dtype=torch.long, device=dev)
+    finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
+    sum_logprobs = torch.zeros((rows,), dtype=torch.float32, device=dev)
     for i in range(sample_len):
         filt = apply_filters(logits, tokens, i, cfg)
-        tok = torch.where(finished, cfg.eot, filt.argmax(dim=-1))
+        tok = torch.where(finished, cfg.eot, _next_tokens(filt, temperature, generator))
         tok_logprob = torch.log_softmax(filt, dim=-1).gather(1, tok[:, None])[:, 0]
         sum_logprobs += torch.where(finished, 0.0, tok_logprob)
         tokens[:, i] = tok
@@ -321,13 +340,10 @@ def _resolve_prompt(tokenizer: Tokenizer, options: DecodingOptions) -> List[int]
 
 
 def _check_supported(options: DecodingOptions) -> None:
-    if options.beam_size is not None or options.best_of is not None:
+    # the JAX package takes its beam path only at temperature 0
+    if options.beam_size is not None and options.temperature == 0:
         raise NotImplementedError(
-            "beam search and best_of are not ported yet (ROADMAP Queue 1 item 7)"
-        )
-    if options.temperature > 0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (ROADMAP Queue 1 item 2)"
+            "beam search is not ported yet (ROADMAP Queue 1 item 7)"
         )
 
 
@@ -335,18 +351,21 @@ def decode(
     model: model_mod.Whisper,
     mel: Union[np.ndarray, torch.Tensor],
     options: DecodingOptions = DecodingOptions(),
+    *,
+    generator: Optional[torch.Generator] = None,
 ) -> Union[DecodingResult, List[DecodingResult]]:
     """Whisper-compatible ``decode``: batched 30 s windows in, results out.
 
-    Runs on ``model``'s device in its dtype, which must be the one
-    ``options.fp16`` asks for (bf16 or fp32); ``OLMoASR.decode`` casts."""
+    Runs on ``model``'s device and computes in bf16 when ``options.fp16``,
+    else in fp32, from a copy of the weights in that dtype when the model's
+    differ (``Whisper.in_dtype``), as the JAX package computes from its fp32
+    params. Sampling at temperature > 0 draws from ``generator``, a
+    ``torch.Generator`` on the model's device, seeded 0 when none is given
+    (the JAX package's ``PRNGKey(0)``)."""
     _check_supported(options)
-    want = torch.bfloat16 if options.fp16 else torch.float32
-    if model.dtype != want:
-        raise ValueError(
-            f"the model's weights are {model.dtype} but DecodingOptions(fp16="
-            f"{options.fp16}) asks for {want}; cast the model first"
-        )
+    model = model.in_dtype(torch.bfloat16 if options.fp16 else torch.float32)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
     mel = torch.as_tensor(mel)
     single = mel.ndim == 2
     if single:
@@ -375,16 +394,24 @@ def decode(
     sot_index = prompt.index(tokenizer.sot)
     cfg = build_filter_config(tokenizer, options, len(prompt), dims.n_vocab)
 
-    tokens, sum_logprobs, probs_at_sot, audio_features = _decode_greedy(
-        model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant
+    # best_of samples ride as extra token rows over one encode per window
+    n_groups = options.best_of if (options.best_of and options.temperature > 0) else 1
+    tokens, sum_logprobs, probs_at_sot, audio_features = _decode_sample(
+        model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
+        options.temperature, n_groups, generator,
     )
-    no_speech_probs = probs_at_sot[:, tokenizer.no_speech].cpu().numpy()
+    # the groups of a window share its audio, so their no-speech probs agree
+    no_speech_probs = probs_at_sot[::n_groups, tokenizer.no_speech].cpu().numpy()
+    seqs, lps = tokens.cpu().tolist(), sum_logprobs.cpu().tolist()
     token_lists, lp_lists = [], []
-    for seq, lp in zip(tokens.cpu().tolist(), sum_logprobs.cpu().tolist()):
-        if tokenizer.eot in seq:
-            seq = seq[: seq.index(tokenizer.eot)]
-        token_lists.append([seq])
-        lp_lists.append([lp])
+    for b in range(mel.shape[0]):
+        group_tokens = []
+        for seq in seqs[b * n_groups:(b + 1) * n_groups]:
+            if tokenizer.eot in seq:
+                seq = seq[: seq.index(tokenizer.eot)]
+            group_tokens.append(seq)
+        token_lists.append(group_tokens)
+        lp_lists.append(lps[b * n_groups:(b + 1) * n_groups])
     return _finalize_results(
         token_lists, lp_lists, no_speech_probs, tokenizer, options,
         audio_features, language, single,

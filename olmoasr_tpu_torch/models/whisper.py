@@ -8,13 +8,16 @@ as they are; the forward passes are plain functions over those modules.
 Numerics follow the JAX model: fp32 LayerNorm islands cast back, q and k each
 scaled by dh^-0.25 with an fp32 softmax in the plain attention, exact (erf)
 GELU, products in the weights' dtype, logits through the tied token embedding
-returned in fp32. Three kernels serve the inference path: the encoder's
-self-attention (``ops.train_attention``) and, at S=1 decode steps, the cross
-sub-block and the MLP (``ops.attention``).
+returned in fp32. Six kernels serve the inference path: the encoder's
+self-attention (``ops.train_attention``) and, at S=1 decode steps, the whole
+decoder layer (``ops.attention``): ``ln_matmul`` (fused QKV),
+``self_attend_decode``, ``matmul_residual``, ``cross_block_decode`` and
+``mlp_block``.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,8 +30,11 @@ from olmoasr_tpu.models.dims import ModelDimensions
 from olmoasr_tpu_torch.ops.attention import (
     cross_block_decode,
     cross_block_decode_plain,
+    ln_matmul,
+    matmul_residual,
     mlp_block,
     mlp_block_plain,
+    self_attend_decode,
 )
 from olmoasr_tpu_torch.ops.train_attention import enc_self_attention
 
@@ -111,17 +117,67 @@ class Whisper(nn.Module):
 
     ``include_padding_token`` adds the training vocabulary's extra embedding
     row (id 51864); inference checkpoints do not have it.
+
+    Inference keeps derived weights beside the parameters, each made on first
+    use: a copy of the model per compute dtype (``in_dtype``) and the decode
+    step's fused QKV projection (``fused_qkv``). ``load_state_dict`` and
+    ``.to()`` (any ``_apply``) drop them; an in-place edit of a parameter
+    does not, so call ``drop_derived()`` after one.
     """
 
     def __init__(self, dims: ModelDimensions, include_padding_token: bool = False,
                  device=None, dtype=None):
         super().__init__()
         self.dims = dims
+        self._derived: dict = {}
         factory = dict(device=device, dtype=dtype)
         self.encoder = AudioEncoder(dims, **factory)
         self.decoder = TextDecoder(dims, dims.n_vocab + int(include_padding_token), **factory)
         if self.encoder.positional_embedding.device.type != "meta":
             self.reset_positional_embedding()
+
+    def drop_derived(self) -> None:
+        self._derived = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        self.drop_derived()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self.drop_derived()
+        return super().load_state_dict(*args, **kwargs)
+
+    @torch.no_grad()
+    def in_dtype(self, dtype: torch.dtype) -> "Whisper":
+        """This model with its weights in ``dtype``: itself when they are,
+        else a copy made on first use and reused by later calls (the
+        kernels take weights in the activation dtype)."""
+        if self.dtype == dtype:
+            return self
+        if dtype not in self._derived:
+            derived, self._derived = self._derived, {}
+            try:
+                twin = copy.deepcopy(self).to(dtype)
+            finally:
+                self._derived = derived
+            self._derived[dtype] = twin
+        return self._derived[dtype]
+
+    @torch.no_grad()
+    def fused_qkv(self):
+        """The decoder's self-attention projections fused per layer, stacked:
+        weights (L, 3D, D) = [Wq; Wk; Wv] and biases (L, 3D) = [bq, 0, bv]
+        (the key projection has no bias). Built once, as the JAX package's
+        scan-invariant concat is hoisted out of its decode loop."""
+        if "qkv" not in self._derived:
+            attn = [blk.attn for blk in self.decoder.blocks]
+            self._derived["qkv"] = (
+                torch.stack([torch.cat([a.query.weight, a.key.weight, a.value.weight])
+                             for a in attn]),
+                torch.stack([torch.cat([a.query.bias, torch.zeros_like(a.query.bias),
+                                        a.value.bias]) for a in attn]),
+            )
+        return self._derived["qkv"]
 
     def reset_positional_embedding(self) -> None:
         pos = self.encoder.positional_embedding
@@ -251,19 +307,34 @@ def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class KVCache:
-    """Decoder state. ``self_k``/``self_v``: (L, B, C, D) rings, positions
-    below ``index`` valid, written in place by ``decode_step``. ``cross_k``/
-    ``cross_v``: (L, B, T, D) projections of the audio features, in the
-    activation dtype or int8; ``cross_*_scale``: (L, B, 1, T) fp32 per-position
-    scales, ones when the cross cache is not quantized."""
+    """Decoder state. ``self_kv``: (2, L, R, C, D), the key rings then the
+    value rings (``self_k``, ``self_v``) of R token rows, positions below
+    ``index`` valid, written in place by ``decode_step``; one storage lets a
+    step write a layer's new key and value with one copy. ``cross_k``/
+    ``cross_v``: (L, B, T, D) projections of the B audio windows' features,
+    in the activation dtype or int8; ``cross_*_scale``: (L, B, 1, T) fp32
+    per-position scales, ones when the cross cache is not quantized. R is a
+    multiple of B: token row r reads window r // (R // B)."""
 
-    self_k: torch.Tensor
-    self_v: torch.Tensor
+    self_kv: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
     cross_k_scale: torch.Tensor
     cross_v_scale: torch.Tensor
     index: int = 0
+
+    @property
+    def self_k(self) -> torch.Tensor:
+        return self.self_kv[0]
+
+    @property
+    def self_v(self) -> torch.Tensor:
+        return self.self_kv[1]
+
+    @property
+    def kv_group(self) -> int:
+        """Token rows per audio window."""
+        return self.self_kv.shape[2] // self.cross_k.shape[1]
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -281,12 +352,20 @@ def init_cache(
     max_len: Optional[int] = None,
     *,
     quantize_cross: bool = False,
+    self_batch: Optional[int] = None,
 ) -> KVCache:
     """Allocate the self rings and project every layer's cross K/V once per
-    audio window (optionally int8 with per-position scales)."""
+    audio window (optionally int8 with per-position scales).
+
+    ``self_batch`` sizes the self rings apart from the cross cache: best_of
+    sampling decodes ``self_batch = B * G`` token rows over the same B
+    windows, which share one cross cache instead of G copies."""
     dec = model.decoder
     L = model.dims.n_text_layer
     B, T, D = audio_features.shape
+    rows = self_batch or B
+    if rows % B:
+        raise ValueError(f"self_batch {rows} is not a multiple of the {B} audio windows")
     n_ctx = max_len or model.dims.n_text_ctx
     kw = dict(device=audio_features.device)
     dtype = audio_features.dtype
@@ -304,8 +383,7 @@ def init_cache(
         cross_k[i] = k
         cross_v[i] = v
     return KVCache(
-        self_k=torch.zeros((L, B, n_ctx, D), dtype=dtype, **kw),
-        self_v=torch.zeros((L, B, n_ctx, D), dtype=dtype, **kw),
+        self_kv=torch.zeros((2, L, rows, n_ctx, D), dtype=dtype, **kw),
         cross_k=cross_k,
         cross_v=cross_v,
         cross_k_scale=k_scale,
@@ -314,12 +392,10 @@ def init_cache(
 
 
 def _attend_cached(q, k, v, offset: int, n_head: int) -> torch.Tensor:
-    """Self-attention of S queries at positions offset.. over the ring's
+    """Self-attention of S > 1 queries at positions offset.. over the ring's
     first offset+S positions (this call's keys included), causal among the
     new ones."""
     S, C = q.shape[1], k.shape[1]
-    if S == 1:  # the one query sees every key of the prefix
-        return sdpa(q, k, v, n_head)
     query_pos = offset + torch.arange(S, device=q.device)[:, None]
     future = torch.arange(C, device=q.device)[None, :] > query_pos
     mask = torch.zeros((S, C), dtype=torch.float32, device=q.device)
@@ -328,43 +404,61 @@ def _attend_cached(q, k, v, offset: int, n_head: int) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
-    """Run the decoder on ``tokens`` (B, S) at positions ``cache.index``..;
-    returns fp32 logits (B, S, n_vocab) and advances the cache in place.
+    """Run the decoder on ``tokens`` (R, S) at positions ``cache.index``..;
+    returns fp32 logits (R, S, n_vocab) and advances the cache in place.
 
-    S=1 steps run the cross sub-block and the MLP through the hand-written
-    kernels (``ops.attention``); the self sub-block, and every sub-block of a
-    prefill (S>1), is plain tensor code.
+    S=1 steps run every sub-block through the hand-written kernels
+    (``ops.attention``): ``ln_matmul`` (fused QKV), ``self_attend_decode``
+    over the read-only rings, ``matmul_residual``, then the new key and value
+    go into the rings, then ``cross_block_decode`` and ``mlp_block``. A
+    prefill (S>1) is plain tensor code, as in the JAX package.
+    ``decode_step.single_steps`` counts the S=1 calls.
     """
     dec = model.decoder
     dims = model.dims
     n_head = dims.n_text_head
-    B, S = tokens.shape
+    R, S = tokens.shape
+    D = dims.n_text_state
     offset = cache.index
     end = offset + S
     if end > cache.self_k.shape[2]:
         raise ValueError(f"positions {offset}..{end - 1} exceed the cache's {cache.self_k.shape[2]}")
+    G = cache.kv_group
     dtype = cache.self_k.dtype
     x = F.embedding(tokens, dec.token_embedding.weight).to(dtype)
     x = x + dec.positional_embedding[offset:end].to(dtype)
     single = S == 1
+    if single:
+        w_qkv, b_qkv = model.fused_qkv()
+        decode_step.single_steps += 1
     cross = cross_block_decode if single else cross_block_decode_plain
     mlp = mlp_block if single else mlp_block_plain
     for i, blk in enumerate(dec.blocks):
-        h = layer_norm(x, blk.attn_ln)
-        q = _linear(h, blk.attn.query)
-        # the new k/v go into the ring in place, then the ring's valid prefix
-        # (this step's positions included) is attended
-        cache.self_k[i, :, offset:end] = _linear(h, blk.attn.key)
-        cache.self_v[i, :, offset:end] = _linear(h, blk.attn.value)
-        attn = _attend_cached(
-            q, cache.self_k[i, :, :end], cache.self_v[i, :, :end], offset, n_head
-        )
-        x = x + _linear(attn, blk.attn.out)
+        if single:
+            qkv = ln_matmul(x, blk.attn_ln.weight, blk.attn_ln.bias, w_qkv[i], b_qkv[i])
+            attn = self_attend_decode(
+                qkv[..., :D], cache.self_k, cache.self_v, qkv[..., D:2 * D], qkv[..., 2 * D:],
+                offset, i, n_head=n_head,
+            )
+            x = matmul_residual(attn, x, blk.attn.out.weight, blk.attn.out.bias)
+            # after the attention, this step's key and value into the rings
+            cache.self_kv[:, i, :, offset].copy_(qkv[:, 0, D:].unflatten(-1, (2, D)).transpose(0, 1))
+        else:
+            h = layer_norm(x, blk.attn_ln)
+            q = _linear(h, blk.attn.query)
+            # the prefill writes its keys first and attends the ring's valid
+            # prefix (its own positions included) under a causal mask
+            cache.self_k[i, :, offset:end] = _linear(h, blk.attn.key)
+            cache.self_v[i, :, offset:end] = _linear(h, blk.attn.value)
+            attn = _attend_cached(
+                q, cache.self_k[i, :, :end], cache.self_v[i, :, :end], offset, n_head
+            )
+            x = x + _linear(attn, blk.attn.out)
         ca, cln = blk.cross_attn, blk.cross_attn_ln
         x = cross(
             x, cln.weight, cln.bias, ca.query.weight, ca.query.bias, ca.out.weight,
             ca.out.bias, cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
-            cache.cross_v_scale[i], n_head,
+            cache.cross_v_scale[i], n_head, kv_group=G,
         )
         x = mlp(
             x, blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp[0].weight, blk.mlp[0].bias,
@@ -373,3 +467,6 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.T
     cache.index = end
     x = layer_norm(x, dec.ln)
     return F.linear(x, dec.token_embedding.weight.to(x.dtype)).float()
+
+
+decode_step.single_steps = 0

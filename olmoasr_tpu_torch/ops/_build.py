@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``olmoasr_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with :mod:`ctypes`. The
-library is built at first use into ``build/olmoasr_tpu_torch/`` at the root
-of the checkout, under a name that carries the hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects link into one shared
+library with a plain C interface, loaded with :mod:`ctypes`. The library is
+built at first use into ``build/olmoasr_tpu_torch/`` at the root of the
+checkout, under a name that carries the hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import: ``nvcc``, ``ctypes`` and the library are touched
 only when a kernel wrapper is handed a CUDA tensor.
@@ -25,7 +26,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "olmoasr_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # element-type codes of the C interface (csrc/common.cuh: olm::DType)
@@ -33,18 +34,24 @@ F32, BF16, I8 = 0, 1, 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # a, w, bias, resid, out, ws, M, N, K, splits, dtype, out_f32, gelu, stream
     "olm_linear": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, g, b, out, M, K, eps, dtype, stream
     "olm_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_dtype,
-    # out_dtype, qscale, stream
+    # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_group,
+    # kv_dtype, out_dtype, qscale, stream
     "olm_cross_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    "olm_cross_attention_chunks": (_I,),
+    # q, k_new, v_new, row_stride, k_ring, v_ring, m_part, l_part, acc_part,
+    # out, L, layer, B, C, offset, D, H, dtype, qscale, stream
+    "olm_self_attention": (
+        _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    "olm_decode_attention_chunks": (_I,),
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
@@ -75,24 +82,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libolmoasr_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel and wait for every one; raise on the
+    first that failed, with its messages; return all messages."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Tuple[Path, str]:
     """Compile the kernels unless this exact build exists; returns the
     library's path and the compiler's messages (``-Xptxas -v`` register and
-    spill report when ``verbose``)."""
+    spill report when ``verbose``). One ``nvcc`` per source runs in
+    parallel, then one links."""
     out = library_path()
     if out.exists() and not verbose:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    log = _run_all([
+        [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(srcs, objs)
+    ])
+    tmp = out.with_name(f"{tag}.so.tmp")
+    log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out, proc.stdout + proc.stderr
+    return out, log
 
 
 def lib() -> ctypes.CDLL:

@@ -1,0 +1,413 @@
+"""Long-form transcription: sliding 30 s windows with temperature fallback and
+timestamp-token segmentation, batched across files.
+
+Counterpart of ``olmoasr_tpu/transcribe.py``. That module imports jax at its
+top, so ``_FileState`` (the per-file seek state machine), ``_needs_fallback``
+and ``_decode_batch_with_fallback`` are copied here; the tests pin each to
+the original. The reference's inert prompt conditioning is kept:
+``condition_on_previous_text`` only moves ``prompt_reset_since``.
+
+``transcribe_many`` computes each file's log-mel on the model's device with
+30 s of padding, and every round slices and pads one window per active file
+there; the windows of a round decode as one batch, and only the windows that
+fail the fallback gates decode again, at the next temperature. Not ported
+here: the streamed-upload transport (``_StreamedMelGroup``,
+``_gather_windows_norm``, ``log_mel_chunk_unnorm``; bit-equal to this path
+by design, ROADMAP Queue 1 item 6), word timestamps and the
+hallucination-silence heuristic (item 8), language detection (item 2) and
+the CLI (item 6).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from olmoasr_tpu.tokenizer import get_tokenizer
+from olmoasr_tpu.utils import exact_div, format_timestamp, make_safe
+from olmoasr_tpu_torch.audio import (
+    FRAMES_PER_SECOND,
+    HOP_LENGTH,
+    N_FRAMES,
+    N_SAMPLES,
+    SAMPLE_RATE,
+    log_mel_spectrogram,
+)
+from olmoasr_tpu_torch.decoding import DecodingOptions, DecodingResult
+
+DEFAULT_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+
+class _FileState:
+    """Per-file long-form state machine: the reference's sliding-window seek
+    loop split into ``current_window()`` (the next 30 s mel window, or None
+    when done) and ``consume(result)`` (advance seek, cut timestamp segments,
+    apply the no-speech skip), so that a driver can decode one window of
+    every active file as one batch."""
+
+    def __init__(
+        self,
+        model,
+        audio: Union[str, np.ndarray, torch.Tensor],
+        tokenizer,
+        *,
+        verbose: Optional[bool],
+        logprob_threshold: Optional[float],
+        no_speech_threshold: Optional[float],
+        condition_on_previous_text: bool,
+        initial_prompt: Optional[str],
+        clip_timestamps: Union[str, List[float]],
+        language: str,
+    ):
+        self.tokenizer = tokenizer
+        self.verbose = verbose
+        self.logprob_threshold = logprob_threshold
+        self.no_speech_threshold = no_speech_threshold
+        self.condition_on_previous_text = condition_on_previous_text
+        self.language = language
+
+        # 30 s of silence padded to the input audio, for slicing; the mel
+        # stays on the model's device
+        self.mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES,
+                                       device=model.device)
+        self.content_frames = self.mel.shape[-1] - N_FRAMES
+
+        if isinstance(clip_timestamps, str):
+            clip_timestamps = [
+                float(ts) for ts in (clip_timestamps.split(",") if clip_timestamps else [])
+            ]
+        seek_points = [round(ts * FRAMES_PER_SECOND) for ts in clip_timestamps]
+        if len(seek_points) == 0:
+            seek_points.append(0)
+        if len(seek_points) % 2 == 1:
+            seek_points.append(self.content_frames)
+        self.seek_clips: List[Tuple[int, int]] = list(zip(seek_points[::2], seek_points[1::2]))
+
+        self.clip_idx = 0
+        self.seek = self.seek_clips[0][0]
+        self.input_stride = exact_div(N_FRAMES, model.dims.n_audio_ctx)
+        self.time_precision = self.input_stride * HOP_LENGTH / SAMPLE_RATE
+        self.all_tokens: List[int] = []
+        self.all_segments: List[dict] = []
+        self.prompt_reset_since = 0
+
+        if initial_prompt is not None:
+            self.initial_prompt_tokens = tokenizer.encode(" " + initial_prompt.strip())
+            self.all_tokens.extend(self.initial_prompt_tokens)
+        else:
+            self.initial_prompt_tokens = []
+
+        self._segment_size = 0  # of the window last emitted
+
+    # -- window emission -----------------------------------------------------
+
+    def advance_window(self) -> Optional[Tuple[int, int]]:
+        """Advance clip bookkeeping; return (seek, segment_size) for the next
+        30 s window, or None when the file is exhausted."""
+        while self.clip_idx < len(self.seek_clips):
+            seek_clip_start, seek_clip_end = self.seek_clips[self.clip_idx]
+            if self.seek < seek_clip_start:
+                self.seek = seek_clip_start
+            if self.seek >= seek_clip_end:
+                self.clip_idx += 1
+                if self.clip_idx < len(self.seek_clips):
+                    self.seek = self.seek_clips[self.clip_idx][0]
+                continue
+            segment_size = min(N_FRAMES, self.content_frames - self.seek,
+                               seek_clip_end - self.seek)
+            self._segment_size = segment_size
+            return self.seek, segment_size
+        return None
+
+    def current_window(self) -> Optional[torch.Tensor]:
+        """The next (n_mels, N_FRAMES) fp32 mel window on the mel's device,
+        zero-padded past the segment (advancing clip bookkeeping), or None."""
+        spec = self.advance_window()
+        if spec is None:
+            return None
+        seek, segment_size = spec
+        mel_segment = self.mel[:, seek: seek + segment_size]
+        if segment_size < N_FRAMES:
+            mel_segment = F.pad(mel_segment, (0, N_FRAMES - segment_size))
+        return mel_segment.float()
+
+    @property
+    def done(self) -> bool:
+        return self.clip_idx >= len(self.seek_clips)
+
+    # -- result consumption ---------------------------------------------------
+
+    def consume(self, result: DecodingResult) -> None:
+        """Apply a decode result for the window last emitted by
+        ``current_window()``."""
+        tokenizer = self.tokenizer
+        segment_size = self._segment_size
+        seek = self.seek
+        time_offset = float(seek * HOP_LENGTH / SAMPLE_RATE)
+        segment_duration = segment_size * HOP_LENGTH / SAMPLE_RATE
+        tokens = np.array(result.tokens)
+
+        def new_segment(*, start, end, tokens_, result):
+            tokens_ = [int(t) for t in tokens_]
+            text_tokens = [t for t in tokens_ if t < tokenizer.eot]
+            return {
+                "seek": seek,
+                "start": start,
+                "end": end,
+                "text": tokenizer.decode(text_tokens),
+                "tokens": tokens_,
+                "temperature": result.temperature,
+                "avg_logprob": result.avg_logprob,
+                "compression_ratio": result.compression_ratio,
+                "no_speech_prob": result.no_speech_prob,
+            }
+
+        if self.no_speech_threshold is not None:
+            # no voice activity check
+            should_skip = result.no_speech_prob > self.no_speech_threshold
+            if self.logprob_threshold is not None and result.avg_logprob > self.logprob_threshold:
+                should_skip = False
+            if should_skip:
+                self.seek += segment_size  # fast-forward to the next boundary
+                return
+
+        current_segments: List[dict] = []
+        timestamp_tokens = tokens >= tokenizer.timestamp_begin
+        single_timestamp_ending = (
+            len(timestamp_tokens) >= 2 and timestamp_tokens[-2:].tolist() == [False, True]
+        )
+
+        consecutive = np.where(timestamp_tokens[:-1] & timestamp_tokens[1:])[0] + 1
+        if len(consecutive) > 0:
+            # output contains two consecutive timestamp tokens
+            slices = consecutive.tolist()
+            if single_timestamp_ending:
+                slices.append(len(tokens))
+            last_slice = 0
+            for current_slice in slices:
+                sliced_tokens = tokens[last_slice:current_slice]
+                start_timestamp_pos = int(sliced_tokens[0]) - tokenizer.timestamp_begin
+                end_timestamp_pos = int(sliced_tokens[-1]) - tokenizer.timestamp_begin
+                current_segments.append(
+                    new_segment(
+                        start=time_offset + start_timestamp_pos * self.time_precision,
+                        end=time_offset + end_timestamp_pos * self.time_precision,
+                        tokens_=sliced_tokens,
+                        result=result,
+                    )
+                )
+                last_slice = current_slice
+            if single_timestamp_ending:
+                # no speech after the last timestamp
+                self.seek += segment_size
+            else:
+                # ignore the unfinished segment; seek to the last timestamp
+                last_timestamp_pos = int(tokens[last_slice - 1]) - tokenizer.timestamp_begin
+                self.seek += last_timestamp_pos * self.input_stride
+        else:
+            duration = segment_duration
+            timestamps = tokens[np.nonzero(timestamp_tokens)[0]]
+            if len(timestamps) > 0 and int(timestamps[-1]) != tokenizer.timestamp_begin:
+                last_timestamp_pos = int(timestamps[-1]) - tokenizer.timestamp_begin
+                duration = last_timestamp_pos * self.time_precision
+            current_segments.append(
+                new_segment(start=time_offset, end=time_offset + duration, tokens_=tokens,
+                            result=result)
+            )
+            self.seek += segment_size
+
+        if self.verbose:
+            for segment in current_segments:
+                start, end, text = segment["start"], segment["end"], segment["text"]
+                line = f"[{format_timestamp(start)} --> {format_timestamp(end)}] {text}"
+                print(make_safe(line))
+
+        # an instantaneous or empty segment is cleared
+        for segment in current_segments:
+            if segment["start"] == segment["end"] or segment["text"].strip() == "":
+                segment["text"] = ""
+                segment["tokens"] = []
+                segment["words"] = []
+
+        self.all_segments.extend(
+            {"id": i, **segment}
+            for i, segment in enumerate(current_segments, start=len(self.all_segments))
+        )
+        self.all_tokens.extend(token for segment in current_segments for token in segment["tokens"])
+
+        if not self.condition_on_previous_text or result.temperature > 0.5:
+            self.prompt_reset_since = len(self.all_tokens)
+
+    def finalize(self) -> dict:
+        return dict(
+            text=self.tokenizer.decode(self.all_tokens[len(self.initial_prompt_tokens):]),
+            segments=self.all_segments,
+            language=self.language,
+        )
+
+
+def _resolve_language(model, decode_options: dict) -> str:
+    if decode_options.get("language", None) is None:
+        if model.is_multilingual:
+            raise NotImplementedError(
+                "language detection is not ported yet (ROADMAP Queue 1 item 2): "
+                "pass language= for a multilingual model"
+            )
+        decode_options["language"] = "en"
+    return decode_options["language"]
+
+
+def _needs_fallback(
+    result: DecodingResult,
+    compression_ratio_threshold: Optional[float],
+    logprob_threshold: Optional[float],
+    no_speech_threshold: Optional[float],
+) -> bool:
+    """Fallback gates of the reference's transcribe loop."""
+    needs = False
+    if (
+        compression_ratio_threshold is not None
+        and result.compression_ratio > compression_ratio_threshold
+    ):
+        needs = True  # too repetitive
+    if logprob_threshold is not None and result.avg_logprob < logprob_threshold:
+        needs = True  # average log probability too low
+    if (
+        no_speech_threshold is not None
+        and result.no_speech_prob > no_speech_threshold
+        and logprob_threshold is not None
+        and result.avg_logprob < logprob_threshold
+    ):
+        needs = False  # silence
+    return needs
+
+
+def _decode_batch_with_fallback(
+    model,
+    windows: List[torch.Tensor],
+    temperatures: List[float],
+    decode_options: dict,
+    *,
+    compression_ratio_threshold: Optional[float],
+    logprob_threshold: Optional[float],
+    no_speech_threshold: Optional[float],
+) -> List[DecodingResult]:
+    """Batched temperature-fallback ladder: decode ALL windows at the first
+    temperature in one batched call, then re-queue only the failures at each
+    higher temperature. Rounds are not padded to a fixed row count (the JAX
+    package pads for its compiled shapes; eager PyTorch compiles nothing)."""
+    results: List[Optional[DecodingResult]] = [None] * len(windows)
+    pending = list(range(len(windows)))
+    for ti, t in enumerate(temperatures):
+        if not pending:
+            break
+        kwargs = {**decode_options}
+        if t > 0:
+            kwargs.pop("beam_size", None)
+            kwargs.pop("patience", None)
+        else:
+            kwargs.pop("best_of", None)
+        options = DecodingOptions(**kwargs, temperature=t)
+
+        out = model.decode(torch.stack([windows[i] for i in pending]), options)
+
+        still = []
+        last = ti == len(temperatures) - 1
+        for i, r in zip(pending, out):
+            results[i] = r
+            if not last and _needs_fallback(
+                r, compression_ratio_threshold, logprob_threshold, no_speech_threshold,
+            ):
+                still.append(i)
+        pending = still
+    return results  # type: ignore[return-value]
+
+
+def transcribe(model, audio: Union[str, np.ndarray, torch.Tensor], **kwargs) -> dict:
+    """Transcribe audio of any length: ``transcribe_many`` of one file, with
+    the same keyword arguments. Returns ``{text, segments, language}``."""
+    return transcribe_many(model, [audio], batch_size=1, **kwargs)[0]
+
+
+def transcribe_many(
+    model,
+    audios: List[Union[str, np.ndarray, torch.Tensor]],
+    *,
+    batch_size: int = 8,
+    verbose: Optional[bool] = None,
+    temperature: Union[float, Tuple[float, ...]] = DEFAULT_TEMPERATURES,
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    condition_on_previous_text: bool = True,
+    initial_prompt: Optional[str] = None,
+    carry_initial_prompt: bool = False,
+    word_timestamps: bool = False,
+    prepend_punctuations: str = "\"'“¿([{-",
+    append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+    clip_timestamps: Union[str, List[float]] = "0",
+    hallucination_silence_threshold: Optional[float] = None,
+    **decode_options,
+) -> List[dict]:
+    """Batched long-form transcription of many files on one device.
+
+    Every active file contributes its current 30 s window, the windows of up
+    to ``batch_size`` files decode as one batch (windows of different files
+    are independent), and only the windows that fail the fallback gates
+    decode again at the next temperature. Per-file output is that of
+    ``transcribe``: the seek state machines are independent. The signature
+    is the JAX package's; ``carry_initial_prompt`` and the punctuation sets
+    are accepted and, as there without word timestamps, unused.
+    """
+    if word_timestamps:
+        raise NotImplementedError("word timestamps are not ported yet (ROADMAP Queue 1 item 8)")
+    if hallucination_silence_threshold is not None:
+        raise NotImplementedError(
+            "hallucination_silence_threshold is not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
+
+    states: List[_FileState] = []
+    for audio in audios:
+        opts = dict(decode_options)
+        language = _resolve_language(model, opts)
+        tokenizer = get_tokenizer(
+            model.is_multilingual, num_languages=model.num_languages, language=language,
+            task=opts.get("task", "transcribe"),
+        )
+        states.append(_FileState(
+            model, audio, tokenizer,
+            verbose=verbose,
+            logprob_threshold=logprob_threshold,
+            no_speech_threshold=no_speech_threshold,
+            condition_on_previous_text=condition_on_previous_text,
+            initial_prompt=initial_prompt,
+            clip_timestamps=clip_timestamps,
+            language=language,
+        ))
+
+    # each round batches the current window of up to batch_size active
+    # files; languages may differ per file, so windows group by language
+    active = list(range(len(states)))
+    while active:
+        by_lang: dict = {}
+        for i in active[:batch_size]:
+            window = states[i].current_window()
+            if window is not None:
+                ws, ids = by_lang.setdefault(states[i].language, ([], []))
+                ws.append(window)
+                ids.append(i)
+        for lang, (ws, ids) in by_lang.items():
+            results = _decode_batch_with_fallback(
+                model, ws, temperatures, {**decode_options, "language": lang},
+                compression_ratio_threshold=compression_ratio_threshold,
+                logprob_threshold=logprob_threshold,
+                no_speech_threshold=no_speech_threshold,
+            )
+            for i, r in zip(ids, results):
+                states[i].consume(r)
+        active = [i for i in active if not states[i].done]
+    return [s.finalize() for s in states]

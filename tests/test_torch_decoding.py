@@ -259,15 +259,105 @@ def test_decode_single_window_and_model_entry_point(slice_pair):
     assert logits.shape == (1, 3, V) and logits.dtype == torch.float32
 
 
-@pytest.mark.parametrize("opts", [{"beam_size": 5}, {"best_of": 5, "temperature": 0.5},
-                                  {"temperature": 0.2}])
+@pytest.mark.parametrize("opts", [{"beam_size": 5}, {"beam_size": 2, "best_of": 5},
+                                  {"beam_size": 5, "patience": 2.0}])
 def test_unported_options_raise(slice_pair, opts):
+    """Beam search (the JAX package's path at temperature 0) is not ported."""
     _, model, mel = slice_pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decoding.decode(model, mel, decoding.DecodingOptions(fp16=False, **opts))
 
 
 def test_decode_refuses_a_dtype_mismatch(slice_pair):
+    """A mismatch between the weights' dtype and ``fp16`` is no longer
+    refused: fp16=False on a bf16 model computes in fp32 from an fp32 copy,
+    as the JAX package's ``_linear`` casts weights to the activation dtype."""
     _, model, mel = slice_pair
-    with pytest.raises(ValueError):
-        decoding.decode(model, mel, decoding.DecodingOptions(fp16=True))
+    bf16 = _new_model(DIMS, False, "cpu", torch.bfloat16)
+    bf16.load_state_dict(model.state_dict())
+    opts = decoding.DecodingOptions(fp16=False, sample_len=6)
+    got = decoding.decode(bf16, mel, opts)
+    fp32 = _new_model(DIMS, False, "cpu", torch.float32)
+    fp32.load_state_dict(bf16.state_dict())  # the bf16 values, widened
+    want = decoding.decode(fp32, mel, opts)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [r.avg_logprob for r in got] == [r.avg_logprob for r in want]
+    assert got[0].audio_features.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+
+
+def test_default_options_decode_fp32_weights_in_bf16(slice_pair):
+    """DecodingOptions() has fp16=True: an fp32 model decodes in bf16, the
+    same as the explicitly bf16-cast model, through decode and OLMoASR.decode."""
+    _, model, mel = slice_pair
+    opts = decoding.DecodingOptions(sample_len=6)
+    got = decoding.decode(model, mel, opts)
+    cast = _new_model(DIMS, False, "cpu", torch.float32)
+    cast.load_state_dict(model.state_dict())
+    want = decoding.decode(cast.to(torch.bfloat16), mel, opts)
+    for g, w in zip(got, want):
+        assert g.tokens == w.tokens and g.avg_logprob == w.avg_logprob
+        assert g.no_speech_prob == w.no_speech_prob
+        assert g.audio_features.dtype == torch.bfloat16
+        assert torch.equal(g.audio_features, w.audio_features)
+    assert model.dtype == torch.float32
+    assert cast.decode(mel[0], opts).tokens == want[0].tokens
+
+
+# ---------------------------------------------------------------------------
+# temperature sampling and best_of
+# ---------------------------------------------------------------------------
+
+
+def test_sampler_draws_from_softmax_over_temperature():
+    """Counts of 40000 draws from one filtered logit row against
+    softmax(filt / T): chi-square at p > 1e-3 (df 5), suppressed tokens never
+    drawn. Torch's random bits are not JAX's, so the distributions are
+    compared, not the draws."""
+    from scipy.stats import chi2
+
+    row = torch.tensor([1.0, -np.inf, 0.5, 2.0, -1.0, -np.inf, 0.0, 1.5])
+    n, T = 40000, 0.7
+    gen = torch.Generator().manual_seed(0)
+    toks = decoding._next_tokens(row.expand(n, -1), T, gen)
+    counts = np.bincount(toks.numpy(), minlength=row.numel())
+    probs = torch.softmax(row / T, dim=-1).numpy()
+    assert counts[~np.isfinite(row.numpy())].sum() == 0
+    live = probs > 0
+    stat = float((((counts - n * probs) ** 2)[live] / (n * probs[live])).sum())
+    assert chi2.sf(stat, live.sum() - 1) > 1e-3, (counts, probs)
+    assert decoding._next_tokens(row[None], 0.0, None).tolist() == [3]
+
+
+def test_best_of_samples_share_the_window_and_are_ranked(slice_pair, monkeypatch):
+    """best_of=3 at T=0.6: one encode, 3 token rows per window over the
+    window's cross cache (equal no-speech probs within a group), results
+    chosen by MaximumLikelihoodRanker; a decode without a generator is
+    seeded 0, so it repeats."""
+    _, model, mel = slice_pair
+    seen = []
+    orig = decoding._decode_sample
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(decoding, "_decode_sample", spy)
+    opts = decoding.DecodingOptions(fp16=False, temperature=0.6, best_of=3, sample_len=8)
+    got = decoding.decode(model, mel, opts)
+    (args, (tokens, lps, probs_at_sot, feats)), = seen
+    assert args[8] == 3 and tokens.shape == (6, 8) and feats.shape[0] == 2
+    p_ns = probs_at_sot[:, TOK.no_speech].view(2, 3)
+    torch.testing.assert_close(p_ns, p_ns[:, :1].expand(2, 3), atol=1e-6, rtol=0)
+    for b, r in enumerate(got):
+        cands = []
+        for g in range(3):
+            seq = tokens[3 * b + g].tolist()
+            seq = seq[: seq.index(TOK.eot)] if TOK.eot in seq else seq
+            cands.append((float(lps[3 * b + g]) / len(seq), seq, float(lps[3 * b + g])))
+        score, seq, lp = max(cands, key=lambda c: c[0])
+        assert r.tokens == seq and r.temperature == 0.6
+        assert r.avg_logprob == pytest.approx(lp / (len(seq) + 1))
+        assert r.no_speech_prob == pytest.approx(float(p_ns[b, 0]))
+    again = decoding.decode(model, mel, opts)
+    assert [r.tokens for r in again] == [r.tokens for r in got]

@@ -23,9 +23,7 @@ def _port_modules():
     return names
 
 
-def test_port_never_imports_jax():
-    names = _port_modules()
-    assert "olmoasr_tpu_torch.ops.attention" in names and len(names) >= 10
+def _assert_imports_no_jax(names):
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -36,6 +34,24 @@ def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+def test_port_never_imports_jax():
+    names = _port_modules()
+    assert "olmoasr_tpu_torch.ops.attention" in names and len(names) >= 11
+    assert "olmoasr_tpu_torch.transcribe" in names
+    _assert_imports_no_jax(names)
+
+
+def test_long_form_entry_points_import_no_jax():
+    """The long-form engine on its own (its JAX counterpart imports jax at
+    its top): the module, and the package's lazy ``transcribe_many``."""
+    _assert_imports_no_jax(["olmoasr_tpu_torch.transcribe"])
+    import olmoasr_tpu_torch
+    from olmoasr_tpu_torch import transcribe
+
+    assert olmoasr_tpu_torch.transcribe_many.__module__ == "olmoasr_tpu_torch"
+    assert callable(transcribe.transcribe_many)
 
 
 def _run_smoke(cwd):

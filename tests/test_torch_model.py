@@ -108,6 +108,54 @@ def test_decode_step_prefill_and_steps_match(pair, audio_features, quantize):
                                np.asarray(jcache.self_k)[:, :, :5], atol=ATOL, rtol=0)
 
 
+def test_decode_step_with_shared_cross_cache_matches(pair, audio_features):
+    """best_of layout: two token rows per audio window (self_batch = 2B) over
+    one cross cache; prefill of 3 tokens, then 2 single-token steps, which run
+    every sub-block through the kernel wrappers (here their plain twins)."""
+    params, model = pair
+    G = 2
+    jcache = jm.init_cache(params, DIMS, jnp.asarray(audio_features), max_len=12,
+                           self_batch=2 * G)
+    tcache = tm.init_cache(model, torch.from_numpy(audio_features), max_len=12, self_batch=2 * G)
+    assert tuple(tcache.self_k.shape) == tuple(jcache.self_k.shape) == (3, 2 * G, 12, 64)
+    assert tcache.kv_group == G and tuple(tcache.cross_k.shape[:2]) == (3, 2)
+    rng = np.random.default_rng(3)
+    steps_before = tm.decode_step.single_steps
+    for width in (3, 1, 1):
+        toks = rng.integers(0, DIMS.n_vocab, (2 * G, width))
+        want, jcache = jm.decode_step(params, DIMS, jnp.asarray(toks, jnp.int32), jcache)
+        got = tm.decode_step(model, torch.from_numpy(toks), tcache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert tm.decode_step.single_steps == steps_before + 2
+    np.testing.assert_allclose(tcache.self_v[:, :, :5].numpy(),
+                               np.asarray(jcache.self_v)[:, :, :5], atol=ATOL, rtol=0)
+
+
+def test_derived_weights_follow_the_model():
+    """The per-dtype copy and the fused QKV are made once and dropped when
+    load_state_dict or .to() changes the model."""
+    model = tm.init_params(_new_model(DIMS, False, "cpu", torch.float32),
+                           torch.Generator().manual_seed(0))
+    assert model.in_dtype(torch.float32) is model
+    bf16 = model.in_dtype(torch.bfloat16)
+    assert bf16.dtype == torch.bfloat16 and model.in_dtype(torch.bfloat16) is bf16
+    assert model.dtype == torch.float32
+    w, b = model.fused_qkv()
+    assert w.shape == (3, 3 * 64, 64) and b.shape == (3, 3 * 64)
+    blk = model.decoder.blocks[1].attn
+    assert torch.equal(w[1, 64:128], blk.key.weight) and not b[1, 64:128].any()
+    assert torch.equal(b[1, 128:], blk.value.bias)
+    assert model.fused_qkv()[0] is w
+    sd = {k: v + 1 for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    assert model.fused_qkv()[0] is not w
+    assert torch.equal(model.fused_qkv()[0][1, :64], blk.query.weight)
+    assert model.in_dtype(torch.bfloat16) is not bf16
+    copy = model.in_dtype(torch.bfloat16)
+    model.to(torch.float32)
+    assert model.in_dtype(torch.bfloat16) is not copy
+
+
 def test_decode_step_refuses_positions_past_the_cache(pair, audio_features):
     _, model = pair
     cache = tm.init_cache(model, torch.from_numpy(audio_features), max_len=2)
