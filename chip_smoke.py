@@ -7,23 +7,45 @@ printed line each (or a few):
    versions, the kernels compiled from ``olmoasr_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch twin at the slices' shapes, with
    the tolerance and the device times of both (CUDA events around replays of
-   a CUDA graph of one call, median of 11 runs);
+   a CUDA graph of one call, median of 11 runs): the beam-ancestry
+   ``self_attend_decode``, the fused ``layer_block_decode`` (beside the time
+   of the split kernels it replaces) and the int8 q.K ``cross_block_decode``
+   included, the last also on a case where the int8 and the exact q.K
+   products land far apart, so that a kernel computing the wrong one fails;
 3. the short-form slice: small.en at full width with seeded random weights,
    64 windows of 30 s noise, GPU log-mel, greedy ``decode`` with bf16 and
-   with int8 cross K/V; wall time, audio-seconds per second, kernel launch
-   counts;
-4. the long-form slice: small.en in bf16, 16 files of 40-75 s of seeded
-   noise through ``transcribe_many(batch_size=16)`` with the default
-   temperature ladder and thresholds and best_of=5 (random weights fail the
-   gates, so every window climbs the whole ladder); wall time,
-   audio-seconds per second, windows per temperature, single-token steps,
-   every kernel's launches, the results' schema;
-5. a teacher-forced fp32 check, 2 windows with 2 token rows each (the shared
-   cross cache): the same weights and tokens through the port on the GPU
-   (kernels) and on the CPU (plain twins).
+   with int8 cross K/V (the fused self + cross launch); then beam search, 32
+   windows x ``beam_size=5``, in bf16 and int8; for each the host time of
+   one step against its summed kernel time (``torch.profiler``), wall time,
+   audio-seconds per second, kernel launch counts;
+4. the long-form slice at the CLI's defaults: small.en in bf16, 16 files of
+   40-75 s of seeded noise through ``transcribe_many(batch_size=16)`` with
+   ``beam_size=5`` at temperature 0, the default ladder and thresholds and
+   best_of=5 above it (random weights fail the gates, so every window climbs
+   the whole ladder); wall time, audio-seconds per second, windows per
+   temperature, single-token steps, every kernel's launches, the results'
+   schema; then the server's default traffic in this process: the port's
+   ``BatchingService`` with int8 cross K/V and no beam, 8 requests at once
+   (greedy at t=0, one sample per window above, every step fused);
+5. a teacher-forced fp32 check: the same weights and tokens through the
+   port on the GPU (kernels) and on the CPU (plain twins), 2 windows with 2
+   token rows each (the shared cross cache), then 2 windows over an int8
+   cross cache (the fused launch);
+6. the entry points: the seeded small.en written as a reference ``.pt``;
+   the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
+   files, and the HTTP server (``python -m olmoasr_tpu_torch.serve``, int8
+   cross K/V and ``beam_size=5``) answering 4 concurrent requests, each in
+   its own process.
 
 Each slice sets every launch count to 0 before it runs and reads them after;
-the ``launches`` of the kernels line are the long-form slice's.
+the ``launches`` of the kernels line are those of the path that runs the
+kernel: the long-form slice's, and the server traffic's for the fused launch.
+
+``python3 chip_smoke.py --ab TREE`` instead compares the kernels of another
+checkout (for example the parent commit, unpacked with ``git archive`` into a
+directory that ``.gitignore`` lists) with this one's on chosen cases, in the
+order TREE, this, this, TREE, each in its own process on the same inputs;
+see :func:`kernel_ab`.
 
 The next-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -33,9 +55,13 @@ either is printed; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 
@@ -172,17 +198,136 @@ def check_cross(gen) -> list:
         cases.append(_case("cross_block_decode", (act, kv), got, want,
                            lambda: cross_block_decode(*args),
                            lambda: cross_block_decode_plain(*args)))
-    # best_of: 5 token rows over each of 16 cache rows
+    # best_of samples and beams: 5 token rows over each of 16 cache rows, in
+    # bf16 and over the int8 cache of a served request (int8 q.K)
     G, Bc = 5, 16
     x = torch.randn(Bc * G, 1, D, generator=gen).to("cuda", torch.bfloat16)
-    ck, cv = (torch.randn(Bc, T, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
+    ck, cv = (torch.randn(Bc, T, D, generator=gen).to("cuda") for _ in range(2))
     ones = torch.ones(Bc, 1, T, device="cuda")
-    args = (x, *[t.to(torch.bfloat16) for t in w], ck, cv, ones, ones, H)
-    kw = dict(kv_group=G)
-    got, want = cross_block_decode(*args, **kw), cross_block_decode_plain(*args, **kw)
-    cases.append(_case("cross_block_decode", (torch.bfloat16, f"kv_group={G}, {Bc * G} rows"),
-                       got, want, lambda: cross_block_decode(*args, **kw),
-                       lambda: cross_block_decode_plain(*args, **kw)))
+    (ck8, ks), (cv8, vs) = _quantize_rows(ck), _quantize_rows(cv)
+    for kv, cache in ((torch.bfloat16, (ck.to(torch.bfloat16), cv.to(torch.bfloat16), ones, ones)),
+                      (torch.int8, (ck8, cv8, ks[:, None].contiguous(), vs[:, None].contiguous()))):
+        args = (x, *[t.to(torch.bfloat16) for t in w], *cache, H)
+        kw = dict(kv_group=G)
+        got, want = cross_block_decode(*args, **kw), cross_block_decode_plain(*args, **kw)
+        what = (torch.bfloat16, kv, f"kv_group={G}, {Bc * G} rows")
+        cases.append(_case("cross_block_decode", what, got, want,
+                           lambda: cross_block_decode(*args, **kw),
+                           lambda: cross_block_decode_plain(*args, **kw)))
+    return cases
+
+
+def outlier_q_case(gen, B, T, D, H, G=1):
+    """Cross sub-block inputs on which the int8 q.K product and the exact one
+    land far apart: wq = 0, so q = bq, one lane of 100 per head and +-0.35 on
+    the others, which round to 0 against the head's int8 scale; lane 0 of
+    every head holds 3.0 in every key (its row's largest magnitude, so it
+    quantizes exactly): the int8 logits are equal and the weights uniform.
+    The exact product also sees the small lanes, which key T // 3 lines up
+    (2.9 * their signs), so it takes most of the weight; its value is 3.0 in
+    every lane. G query rows per cache row."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    dh = D // H
+    sign = torch.where(torch.randn(D, generator=gen) >= 0, 1.0, -1.0)
+    bq = 0.35 * sign
+    bq[::dh] = 100.0
+    k = torch.rand(B, T, D, generator=gen) * 2 - 1
+    k[:, T // 3] = 2.9 * sign
+    k[:, :, ::dh] = 3.0
+    v = torch.rand(B, T, D, generator=gen) * 2 - 1
+    v[:, T // 3] = 3.0
+    (ck, ks), (cv, vs) = _quantize_rows(k.cuda()), _quantize_rows(v.cuda())
+    params = [torch.ones(D), torch.zeros(D), torch.zeros(D, D), bq,
+              torch.randn(D, D, generator=gen) * D ** -0.5, torch.zeros(D)]
+    bf = lambda t: t.to("cuda", torch.bfloat16)
+    return (bf(torch.randn(B * G, 1, D, generator=gen)), *map(bf, params), ck, cv,
+            ks[:, None].contiguous(), vs[:, None].contiguous(), H)
+
+
+def check_int8_qk(gen) -> list:
+    """The int8 q.K product on the card: on ``outlier_q_case`` the kernel
+    must sit within tolerance of the int8 twin and far outside it against the
+    exact-q twin (a kernel that skipped the q rounding, the integer dot or
+    the head's scale lands near the exact one)."""
+    from olmoasr_tpu_torch.ops.attention import cross_block_decode, cross_block_decode_plain
+
+    cases = []
+    for B, G in ((64, 1), (16, 5)):
+        args, kw = outlier_q_case(gen, B, 1500, 768, 12, G), dict(kv_group=G)
+        got = cross_block_decode(*args, **kw)
+        exact = cross_block_decode_plain(*args, **kw, quantize_q=False)
+        case = _case("cross_block_decode", (torch.bfloat16, torch.int8,
+                                            f"outlier q, kv_group={G}, {B * G} rows"),
+                     got, cross_block_decode_plain(*args, **kw),
+                     lambda: cross_block_decode(*args, **kw),
+                     lambda: cross_block_decode_plain(*args, **kw))
+        case["exact_q_err"] = max_err(got, exact)
+        print(f"    against the exact-q twin: max_abs_err {case['exact_q_err']:.3e} "
+              f"(must exceed {EXACT_Q_MARGIN} x tol)")
+        if not case["exact_q_err"] > EXACT_Q_MARGIN * case["tol"]:
+            fail(f"int8 q.K, kv_group={G}: the kernel is {case['exact_q_err']} from the exact-q "
+                 f"twin, within {EXACT_Q_MARGIN} x tol {case['tol']}: it did not take the int8 product")
+        cases.append(case)
+    return cases
+
+
+EXACT_Q_MARGIN = 8
+
+
+def layer_block_args(gen, dtype, B=64, L=12, C=225, T=1500, D=768, H=12):
+    """layer_block_decode's inputs but offset and layer: x, the self and
+    cross sub-blocks' parameters, the rings and an int8 cross cache."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to("cuda", dtype)
+    sub = lambda n: [1 + r(D, scale=0.1), r(D, scale=0.1), _weights(gen, n * D, D, fan_in=D,
+                                                                   dtype=dtype),
+                     r(n * D, scale=0.02), _weights(gen, D, D, fan_in=D, dtype=dtype),
+                     r(D, scale=0.02)]
+    rings = [r(L, B, C, D), r(L, B, C, D)]
+    (ck, ks), (cv, vs) = (_quantize_rows(torch.randn(B, T, D, generator=gen).cuda())
+                          for _ in range(2))
+    return (r(B, 1, D), *sub(3), *sub(1), *rings, ck, cv, ks[:, None].contiguous(),
+            vs[:, None].contiguous())
+
+
+def _chain(args, offset, layer, H):
+    """The split kernels that layer_block_decode replaces, on its inputs:
+    ln_matmul, self_attend_decode, matmul_residual, cross_block_decode."""
+    from olmoasr_tpu_torch.ops import attention as A
+
+    x, g1, b1, wqkv, bqkv, wo1, bo1, g2, b2, wq, bq, wo2, bo2, kr, vr, ck, cv, ks, vs = args
+    D = x.shape[-1]
+    qkv = A.ln_matmul(x, g1, b1, wqkv, bqkv)
+    a = A.self_attend_decode(qkv[..., :D], kr, vr, qkv[..., D:2 * D], qkv[..., 2 * D:], offset,
+                             layer, n_head=H)
+    x = A.matmul_residual(a, x, wo1, bo1)
+    return A.cross_block_decode(x, g2, b2, wq, bq, wo2, bo2, ck, cv, ks, vs, H)
+
+
+def check_layer_block(gen) -> list:
+    """The fused self + cross sub-blocks at the greedy int8 step's shapes
+    (B=64, rings L=12 C=225, layer 7, T=1500), out and the new key and value
+    held to the twin; beside them, the time of the split kernels' chain that
+    the fused launch replaces."""
+    from olmoasr_tpu_torch.ops.attention import layer_block_decode, layer_block_decode_plain
+
+    H, layer, cases = 12, 7, []
+    for dtype, offsets in ((torch.bfloat16, (224, 100, 1)), (torch.float32, (100,))):
+        args = layer_block_args(gen, dtype)
+        for offset in offsets:
+            full = (*args, offset, layer)
+            got = torch.cat([t.flatten() for t in layer_block_decode(*full, n_head=H)])
+            want = torch.cat([t.flatten() for t in layer_block_decode_plain(*full, n_head=H)])
+            case = _case("layer_block_decode", (dtype, f"int8 cross, B=64 T=1500, rings L=12 "
+                                                       f"C=225 layer {layer} offset {offset}"),
+                         got, want, lambda: layer_block_decode(*full, n_head=H),
+                         lambda: layer_block_decode_plain(*full, n_head=H))
+            case["chain_ms"] = timed_ms(lambda: _chain(args, offset, layer, H))
+            print(f"    the split kernels' chain at the same shapes: {case['chain_ms']:.4f} ms")
+            cases.append(case)
+        del args
     return cases
 
 
@@ -259,11 +404,40 @@ def check_self_sub_block(gen) -> dict:
     return cases
 
 
+def check_self_ancestry(gen) -> list:
+    """Beam-search self attention: 32 windows x 5 beams over full-size rings,
+    a random ancestry map, q, k_new and v_new as row views of a fused
+    projection."""
+    from olmoasr_tpu_torch.ops.attention import self_attend_decode, self_attend_decode_plain
+
+    K, D, H, L, C, layer = 5, 768, 12, 12, 225, 7
+    B = 32 * K
+    anc = torch.randint(0, K, (B, C), generator=gen, dtype=torch.int32).cuda()
+    cases = []
+    for dtype, offsets in ((torch.bfloat16, (224, 100)), (torch.float32, (100,))):
+        qkv = torch.randn(B, 1, 3 * D, generator=gen).to("cuda", dtype)
+        q, kn, vn = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        rings = [torch.randn(L, B, C, D, generator=gen).to("cuda", dtype) for _ in range(2)]
+        for offset in offsets:
+            sa = (q, *rings, kn, vn, offset, layer)
+            kw = dict(n_head=H, beam_anc=anc, beam_k=K)
+            cases.append(_case(
+                "self_attend_decode_beam",
+                (dtype, f"ring L={L} B={B} ({B // K} windows x {K} beams) C={C} layer {layer} "
+                        f"offset {offset}"),
+                self_attend_decode(*sa, **kw), self_attend_decode_plain(*sa, **kw),
+                lambda: self_attend_decode(*sa, **kw),
+                lambda: self_attend_decode_plain(*sa, **kw)))
+        del rings
+    return cases
+
+
 # p is rounded to bf16 before P.V in kernel and twin alike; where their fp32
 # scores differ in the last bit that rounding can flip by one bf16 step,
 # which moves an output by up to p/l * 2^-8 * |v| (about 1e-4 at these shapes)
 FP32_TOL = {"mlp_block": 1e-4, "cross_block_decode": 1e-4, "train_attention_fwd": 1e-3,
-            "ln_matmul": 1e-4, "matmul_residual": 1e-4, "self_attend_decode": 1e-4}
+            "ln_matmul": 1e-4, "matmul_residual": 1e-4, "self_attend_decode": 1e-4,
+            "self_attend_decode_beam": 1e-4, "layer_block_decode": 1e-4}
 
 
 def _case(name, what, got, want, kernel_fn, plain_fn) -> dict:
@@ -285,10 +459,12 @@ def phase_kernels() -> dict:
     print("kernels vs plain twins:")
     gen = torch.Generator().manual_seed(0)
     return {
-        "cross_block_decode": check_cross(gen),
+        "cross_block_decode": check_cross(gen) + check_int8_qk(gen),
+        "layer_block_decode": check_layer_block(gen),
         "mlp_block": check_mlp(gen),
         "train_attention_fwd": check_attention(gen),
         **check_self_sub_block(gen),
+        "self_attend_decode_beam": check_self_ancestry(gen),
     }
 
 
@@ -298,7 +474,12 @@ def phase_kernels() -> dict:
 
 
 DECODE_KERNELS = ("ln_matmul", "self_attend_decode", "matmul_residual", "cross_block_decode",
-                  "mlp_block")
+                  "layer_block_decode", "mlp_block")
+# the single-token step's launches per layer: the split kernels, or over an
+# int8 cross cache with one token row per window the fused self + cross launch
+SPLIT_STEP = ("ln_matmul", "self_attend_decode", "matmul_residual", "cross_block_decode",
+              "mlp_block")
+FUSED_STEP = ("layer_block_decode", "mlp_block")
 
 
 def _counters():
@@ -316,18 +497,30 @@ def _reset_counts():
     kernels, step = _counters()
     for fn in kernels.values():
         fn.launches = 0
+    kernels["self_attend_decode"].beam_launches = 0
     step.single_steps = 0
 
 
 def _read_counts():
+    """Launches by kernel (``self_attend_decode_beam``: those of the ancestry
+    variant, a subset of ``self_attend_decode``'s) and single-token steps."""
     kernels, step = _counters()
-    return {name: fn.launches for name, fn in kernels.items()}, step.single_steps
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    counts["self_attend_decode_beam"] = kernels["self_attend_decode"].beam_launches
+    return counts, step.single_steps
 
 
-def _check_decode_counts(label: str, counts: dict, steps: int, L: int) -> None:
+def _check_decode_counts(label: str, counts: dict, steps: int, L: int,
+                         fused: bool = False) -> None:
+    """Every kernel of the step launched once per layer and single-token
+    step, and the others not at all."""
+    step = FUSED_STEP if fused else SPLIT_STEP
     for name in DECODE_KERNELS:
-        if counts[name] != L * steps:
-            fail(f"{label}: {name} launched {counts[name]} times, expected {L} x {steps}")
+        want = L * steps if name in step else 0
+        if counts[name] != want:
+            fail(f"{label}: {name} launched {counts[name]} times, expected {want} "
+                 f"({L} layers x {steps} steps)" if want else
+                 f"{label}: {name} launched {counts[name]} times, expected none")
 
 
 def _single_token_steps(results, prompt_len: int, sample_len: int, every: int) -> int:
@@ -381,23 +574,152 @@ def phase_slice() -> dict:
         label = "int8" if kv_quant else "bf16"
         print(f"  {label} cross K/V: {steps} decode steps, wall {wall:.3f} s, "
               f"{B * 30 / wall:.1f} audio-s/s, launches {counts}")
-        if len(results) != B:
-            fail(f"{label}: {len(results)} results for {B} windows")
-        for r in results:
-            ok = (np.isfinite(r.avg_logprob) and 0.0 <= r.no_speech_prob <= 1.0
-                  and all(0 <= t < dims.n_vocab for t in r.tokens)
-                  and tuple(r.audio_features.shape) == (dims.n_audio_ctx, dims.n_audio_state)
-                  and bool(torch.isfinite(r.audio_features).all()))
-            if not ok:
-                fail(f"{label}: malformed result {r.tokens[:8]} {r.avg_logprob} {r.no_speech_prob}")
+        _check_results(label, results, B, dims)
         if single_steps != steps:
             fail(f"{label}: decode_step counted {single_steps} single-token steps, expected {steps}")
-        _check_decode_counts(label, counts, steps, dims.n_text_layer)
+        # int8 cross K/V, one row per window: the fused self + cross launch
+        _check_decode_counts(label, counts, steps, dims.n_text_layer, fused=kv_quant)
         if counts["train_attention_fwd"] != dims.n_audio_layer:
             fail(f"{label}: encoder attention launched {counts['train_attention_fwd']} times")
         out[label] = {"steps": steps, "wall_s": wall, "audio_s_per_s": B * 30 / wall,
-                      "launches": counts}
+                      "launches": counts,
+                      "step_profile": _profile_greedy_step(model, mel, options)}
+    out.update(phase_beam(model, mel[:BEAM_WINDOWS]))
     return out
+
+
+BEAM_WINDOWS, BEAM_SIZE = 32, 5
+
+
+def _check_results(label: str, results, n: int, dims) -> None:
+    if len(results) != n:
+        fail(f"{label}: {len(results)} results for {n} windows")
+    for r in results:
+        ok = (np.isfinite(r.avg_logprob) and 0.0 <= r.no_speech_prob <= 1.0
+              and all(0 <= t < dims.n_vocab for t in r.tokens)
+              and tuple(r.audio_features.shape) == (dims.n_audio_ctx, dims.n_audio_state)
+              and bool(torch.isfinite(r.audio_features).all()))
+        if not ok:
+            fail(f"{label}: malformed result {r.tokens[:8]} {r.avg_logprob} {r.no_speech_prob}")
+
+
+def phase_beam(model, mel) -> dict:
+    """Beam search, BEAM_WINDOWS windows x BEAM_SIZE beams, bf16 and int8
+    cross K/V: the wall and the launch counts of one ``decode``, then one
+    beam step on the host clock against its kernels under the profiler."""
+    from olmoasr_tpu_torch.decoding import DecodingOptions
+
+    dims, B, K = model.dims, mel.shape[0], BEAM_SIZE
+    model.decode(mel, DecodingOptions(language="en", beam_size=K, sample_len=4))  # warm-up
+    out = {}
+    for kv_quant in (False, True):
+        label = f"beam{K} " + ("int8" if kv_quant else "bf16")
+        options = DecodingOptions(language="en", beam_size=K, kv_quant=kv_quant)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = model.decode(mel, options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, steps = _read_counts()
+        print(f"  {label}, {B} windows x {K} beams: {steps} decode steps, wall {wall:.3f} s, "
+              f"{B * 30 / wall:.1f} audio-s/s, launches {counts}")
+        _check_results(label, results, B, dims)
+        _check_decode_counts(label, counts, steps, dims.n_text_layer)
+        # the one-token prefill reads no map; every later step does
+        if counts["self_attend_decode_beam"] != dims.n_text_layer * (steps - 1) or steps < 2:
+            fail(f"{label}: {counts['self_attend_decode_beam']} ancestry launches in {steps} steps")
+        out[label] = {"steps": steps, "wall_s": wall, "audio_s_per_s": B * 30 / wall,
+                      "launches": counts, "step_profile": _profile_beam_step(model, mel, options)}
+    return out
+
+
+def _kernel_base_name(name: str) -> str:
+    """``void ns::(anonymous namespace)::kernel<T>(args)`` -> ``kernel``."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.sub(r"<.*", "", re.sub(r"\(.*", "", name)).split("::")[-1] or name
+
+
+def _profile_beam_step(model, mel, options) -> dict:
+    """One step of the beam loop: ``_beam_step`` and a ``decode_step`` that
+    reads the ancestry map."""
+    from olmoasr_tpu_torch import decoding as dec
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    tok = dec.get_tokenizer(multilingual=False)
+    prompt = dec._resolve_prompt(tok, options)
+    cfg = dec.build_filter_config(tok, options, len(prompt), model.dims.n_vocab)
+    sample_len = min(model.dims.n_text_ctx // 2, model.dims.n_text_ctx - len(prompt))
+    cache, st, _, _ = dec._beam_prefill(model, mel, prompt, cfg, sample_len,
+                                        prompt.index(tok.sot), options.kv_quant,
+                                        options.beam_size, None)
+
+    def step(i):
+        t = dec._beam_step(st, i, cfg, cache.index)
+        st.logits = model_mod.decode_step(model, t[:, None], cache, beam_anc=st.anc)[:, 0]
+
+    return _profile_step("beam", step, len(prompt))
+
+
+def _profile_greedy_step(model, mel, options) -> dict:
+    """One greedy step: ``decode_step`` over one token row per window, then
+    the argmax (the filters left out)."""
+    from olmoasr_tpu_torch import decoding as dec
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    prompt = dec._resolve_prompt(dec.get_tokenizer(multilingual=False), options)
+    feats = model_mod.encode_audio(model, mel)
+    cache = model_mod.init_cache(model, feats, max_len=len(prompt) + 224,
+                                 quantize_cross=options.kv_quant)
+    tokens = torch.tensor([prompt] * mel.shape[0], device=mel.device)
+    state = {"logits": model_mod.decode_step(model, tokens, cache)[:, -1]}
+
+    def step(i):
+        t = state["logits"].argmax(-1)
+        state["logits"] = model_mod.decode_step(model, t[:, None], cache)[:, 0]
+
+    return _profile_step("greedy", step, len(prompt))
+
+
+def _profile_step(what: str, step, prompt_len: int, warm: int = 40, timed: int = 20,
+                  profiled: int = 5) -> dict:
+    """``step(i)`` at offset prompt_len + ``warm``: its host-clock time,
+    averaged over ``timed`` steps ending in a synchronize, against the device
+    time of the kernels it runs, summed over ``profiled`` steps under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warm):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warm, warm + timed):
+        step(i)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / timed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(warm + timed, warm + timed + profiled):
+            step(i)
+        torch.cuda.synchronize()
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = _kernel_base_name(e.name)
+            ms, n = by_kernel.get(name, (0.0, 0))
+            by_kernel[name] = (ms + e.time_range.elapsed_us() / 1e3 / profiled, n + 1)
+    kernel_ms = sum(ms for ms, _ in by_kernel.values())
+    launches = sum(n for _, n in by_kernel.values()) / profiled
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    print(f"    one {what} step at offset {warm + prompt_len}: host {host_ms:.3f} ms, kernels "
+          f"{kernel_ms:.3f} ms ({launches:.1f} device launches), device idle "
+          f"{100 * (1 - kernel_ms / host_ms):.1f}%" if kernel_ms else
+          f"    one {what} step: host {host_ms:.3f} ms, kernel time not measured "
+          f"(the profiler recorded no device events)")
+    for name, (ms, n) in top:
+        print(f"      {name}: {ms:.4f} ms, {n / profiled:.1f} launches per step")
+    return {"host_ms": host_ms, "kernel_ms": kernel_ms or None,
+            "device_launches": launches, "by_kernel_ms": {k: v[0] for k, v in top}}
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +732,7 @@ def phase_long_form() -> dict:
     from olmoasr_tpu_torch.audio import SAMPLE_RATE
     from olmoasr_tpu_torch.transcribe import DEFAULT_TEMPERATURES
 
-    n_files, best_of = 16, 5
+    n_files, best_of, beam_size = 16, 5, 5  # the CLI's defaults
     model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
     dims = model.dims
     rng = np.random.default_rng(2)
@@ -419,7 +741,7 @@ def phase_long_form() -> dict:
               for s in seconds]
     audio_s = float(seconds.sum())
     transcribe_many(model, audios[:1], batch_size=1, sample_len=4, temperature=(0.0, 1.0),
-                    best_of=best_of)  # warm-up: sampling, groups, FFT plans; not counted
+                    best_of=best_of, beam_size=beam_size)  # warm-up; not counted
 
     windows_at = {}  # temperature -> windows decoded
     decode = model.decode
@@ -434,19 +756,23 @@ def phase_long_form() -> dict:
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = transcribe_many(model, audios, batch_size=n_files, best_of=best_of)
+    results = transcribe_many(model, audios, batch_size=n_files, best_of=best_of,
+                              beam_size=beam_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, steps = _read_counts()
     del model.decode
     print(f"long-form: small.en bf16, {n_files} files, {audio_s:.0f} s of audio, "
-          f"batch_size={n_files}, best_of={best_of}: wall {wall:.3f} s, "
+          f"batch_size={n_files}, beam_size={beam_size}, best_of={best_of}: wall {wall:.3f} s, "
           f"{audio_s / wall:.1f} audio-s/s, {steps} single-token steps")
     print(f"  windows per temperature {windows_at}; launches {counts}")
     ladder = sorted(windows_at)
     if ladder != list(DEFAULT_TEMPERATURES) or len(set(windows_at.values())) != 1:
         fail(f"long-form: the ladder did not run whole for every window: {windows_at}")
     _check_decode_counts("long-form", counts, steps, dims.n_text_layer)
+    if not 0 < counts["self_attend_decode_beam"] < counts["self_attend_decode"]:
+        fail(f"long-form: {counts['self_attend_decode_beam']} ancestry launches of "
+             f"{counts['self_attend_decode']}: the t=0 windows did not take the beam loop")
     if counts["train_attention_fwd"] != dims.n_audio_layer * len(calls):  # one encode a call
         fail(f"long-form: encoder attention launched {counts['train_attention_fwd']} times "
              f"in {len(calls)} decode calls")
@@ -468,6 +794,61 @@ def phase_long_form() -> dict:
             "launches": counts}
 
 
+def phase_server_traffic() -> dict:
+    """The server's default path in this process, where its launches can be
+    counted: the port's BatchingService with ``serve.main``'s defaults (int8
+    cross K/V, no beam, no best_of) and 8 requests of 12-26 s submitted at
+    once. Windows decode greedily at t=0 and sample one row each above it, so
+    every single-token step takes the fused self + cross launch."""
+    from olmoasr_tpu_torch import build_model
+    from olmoasr_tpu_torch.audio import SAMPLE_RATE
+    from olmoasr_tpu_torch.serve import BatchingService
+    from olmoasr_tpu_torch.transcribe import DEFAULT_TEMPERATURES
+
+    model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+    dims = model.dims
+    rng = np.random.default_rng(4)
+    seconds = [12 + 2 * k for k in range(8)]
+    audios = [torch.from_numpy((rng.standard_normal(s * SAMPLE_RATE) * 0.1).astype(np.float32))
+              for s in seconds]
+    defaults = {"kv_quant": True}  # serve.main without --no-kv-quant or --beam-size
+    with BatchingService(model, max_batch=32, max_wait_ms=1000, default_options=defaults) as svc:
+        svc.submit(audios[0], temperature=(0.0, 1.0)).result()  # warm-up; not counted
+        windows_at = {}
+        decode = model.decode
+
+        def counting_decode(mel, options):
+            windows_at[options.temperature] = windows_at.get(options.temperature, 0) + mel.shape[0]
+            return decode(mel, options)
+
+        model.decode = counting_decode
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futures = [svc.submit(a) for a in audios]
+        results = [f.result() for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, steps = _read_counts()
+        del model.decode
+        stats = dict(svc.stats)
+    audio_s = float(sum(seconds))
+    print(f"server traffic in process: small.en bf16, int8 cross K/V, {len(audios)} requests, "
+          f"{audio_s:.0f} s of audio: wall {wall:.3f} s, {audio_s / wall:.1f} audio-s/s, "
+          f"{steps} single-token steps")
+    print(f"  windows per temperature {windows_at}; stats {stats}; launches {counts}")
+    if sorted(windows_at) != list(DEFAULT_TEMPERATURES):
+        fail(f"server traffic: the ladder did not run whole: {windows_at}")
+    _check_decode_counts("server traffic", counts, steps, dims.n_text_layer, fused=True)
+    if stats["batches"] != 2:  # the warm-up, then the 8 requests as one batch
+        fail(f"server traffic: {stats['batches'] - 1} batches for {len(audios)} requests")
+    for k, r in enumerate(results):
+        _check_transcript(f"server traffic request {k}", r)
+    return {"requests": len(audios), "audio_s": audio_s, "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "single_steps": steps,
+            "windows_per_temperature": windows_at, "launches": counts}
+
+
 # ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
@@ -476,38 +857,367 @@ LOGIT_TOL = 2e-3  # fp32 on both sides; sums in another order, exp in another li
 
 
 def phase_teacher_forced() -> float:
+    """The same weights and tokens through the port on the GPU (kernels) and
+    on the CPU (plain twins), fp32: 2 windows x 2 token rows over the shared
+    cross cache (the split kernels), then 2 windows x 1 row over an int8
+    cross cache (the fused self + cross launch), which both sides take from
+    the GPU's quantization so that they read the same int8 values."""
     from olmoasr_tpu_torch import build_model
     from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
     from olmoasr_tpu_torch.decoding import get_tokenizer
     from olmoasr_tpu_torch.models import whisper as model_mod
 
-    B, G, steps = 2, 2, 8  # 2 windows, 2 token rows each over the shared cross cache
+    B, steps = 2, 8
     rng = np.random.default_rng(1)
     audio = torch.from_numpy(rng.standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1)
     mel = log_mel_spectrogram(audio)
     sot = get_tokenizer(multilingual=False).sot
-    tokens = torch.from_numpy(rng.integers(0, 50000, (B * G, steps))).long()
-    logits = {}
-    for device in ("cuda", "cpu"):
-        model = build_model("small.en", seed=0, device=device, dtype=torch.float32)
-        with torch.no_grad():
-            feats = model_mod.encode_audio(model, mel.to(device))
-            cache = model_mod.init_cache(model, feats, max_len=1 + steps, self_batch=B * G)
-            first = torch.full((B * G, 1), sot, device=device)
-            step_logits = [model_mod.decode_step(model, first, cache)]
-            for i in range(steps - 1):
-                step_logits.append(model_mod.decode_step(model, tokens[:, i:i + 1].to(device), cache))
-        logits[device] = (feats.cpu(), torch.cat(step_logits, dim=1).cpu())
-        del model, cache
-    feat_err = max_err(logits["cuda"][0], logits["cpu"][0])
-    err = max_err(logits["cuda"][1], logits["cpu"][1])
-    scale = float(logits["cpu"][1].abs().max())
-    print(f"teacher-forced fp32 B={B} windows x {G} rows, {steps} steps: audio features "
-          f"max_abs_err {feat_err:.3e}, logits max_abs_err {err:.3e} (tol {LOGIT_TOL}, "
-          f"max |logit| {scale:.2f})")
-    if not err <= LOGIT_TOL:
-        fail(f"teacher-forced logits disagree: {err} > {LOGIT_TOL}")
-    return err
+    models = {d: build_model("small.en", seed=0, device=d, dtype=torch.float32)
+              for d in ("cuda", "cpu")}
+    worst = 0.0
+    for G, quantize in ((2, False), (1, True)):
+        tokens = torch.from_numpy(rng.integers(0, 50000, (B * G, steps))).long()
+        logits, cross = {}, None
+        for device, model in models.items():
+            with torch.no_grad():
+                feats = model_mod.encode_audio(model, mel.to(device))
+                cache = model_mod.init_cache(model, feats, max_len=1 + steps, self_batch=B * G,
+                                             quantize_cross=quantize)
+                if quantize and cross is None:
+                    cross = [getattr(cache, n).cpu() for n in
+                             ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale")]
+                elif quantize:
+                    cache.cross_k, cache.cross_v, cache.cross_k_scale, cache.cross_v_scale = cross
+                _reset_counts()
+                first = torch.full((B * G, 1), sot, device=device)
+                step_logits = [model_mod.decode_step(model, first, cache)]
+                for i in range(steps - 1):
+                    step_logits.append(
+                        model_mod.decode_step(model, tokens[:, i:i + 1].to(device), cache))
+                if device == "cuda":
+                    _check_decode_counts(f"teacher-forced G={G}", _read_counts()[0], steps,
+                                         model.dims.n_text_layer, fused=quantize)
+            logits[device] = (feats.cpu(), torch.cat(step_logits, dim=1).cpu())
+            del cache
+        feat_err = max_err(logits["cuda"][0], logits["cpu"][0])
+        err = max_err(logits["cuda"][1], logits["cpu"][1])
+        scale = float(logits["cpu"][1].abs().max())
+        print(f"teacher-forced fp32 B={B} windows x {G} rows, "
+              f"{'int8' if quantize else 'fp32'} cross K/V, {steps} steps: audio features "
+              f"max_abs_err {feat_err:.3e}, logits max_abs_err {err:.3e} (tol {LOGIT_TOL}, "
+              f"max |logit| {scale:.2f})")
+        if not err <= LOGIT_TOL:
+            fail(f"teacher-forced logits disagree (G={G}, int8 {quantize}): {err} > {LOGIT_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+SEGMENT_KEYS = {"id", "seek", "start", "end", "text", "tokens", "temperature", "avg_logprob",
+                "compression_ratio", "no_speech_prob"}
+
+
+def _check_transcript(label: str, result: dict) -> None:
+    segs = result.get("segments") if isinstance(result, dict) else None
+    if set(result) != {"text", "segments", "language"} or not isinstance(result["text"], str) \
+            or not segs or not all(SEGMENT_KEYS <= set(seg) for seg in segs):
+        fail(f"{label}: malformed result {str(result)[:300]}")
+
+
+def _write_wav(path: str, seconds: int, rng) -> None:
+    import scipy.io.wavfile as wavfile
+
+    pcm = (rng.standard_normal(seconds * 16000) * 3000).astype(np.int16)
+    wavfile.write(path, 16000, pcm)
+
+
+def _run(cmd, timeout: float, **kw) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, **kw)
+    if proc.returncode != 0:
+        fail(f"{' '.join(cmd)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    return proc
+
+
+def phase_entry_points() -> dict:
+    """The seeded small.en as a reference .pt; the CLI on two files in one
+    process; the HTTP server in another, with 4 concurrent requests."""
+    import dataclasses
+    import urllib.request
+
+    from olmoasr_tpu_torch import build_model
+
+    out = {}
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+        ckpt = os.path.join(tmp, "small.en.pt")
+        torch.save({"dims": dataclasses.asdict(model.dims),
+                    "model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   ckpt)
+        del model
+        torch.cuda.empty_cache()
+        wavs = []
+        for name, seconds in (("a", 35), ("b", 50)):
+            wavs.append(os.path.join(tmp, f"{name}.wav"))
+            _write_wav(wavs[-1], seconds, rng)
+
+        out_dir = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "olmoasr_tpu_torch.transcribe", *wavs, "--model", ckpt,
+               "-o", out_dir, "--temperature_increment_on_fallback", "None", "--batch_size", "2",
+               "--verbose", "False"]
+        t0 = time.perf_counter()
+        _run(cmd, 600)
+        cli_s = time.perf_counter() - t0
+        want = sorted(f"{n}.{e}" for n in ("a", "b") for e in ("txt", "vtt", "srt", "tsv", "json"))
+        if sorted(os.listdir(out_dir)) != want:
+            fail(f"CLI wrote {sorted(os.listdir(out_dir))}, expected {want}")
+        for name in ("a", "b"):
+            with open(os.path.join(out_dir, f"{name}.json"), encoding="utf-8") as f:
+                _check_transcript(f"CLI {name}.json", json.load(f))
+        print(f"entry points: CLI (beam_size=5, t=0, batch_size=2) on 35 s + 50 s in its own "
+              f"process: {cli_s:.1f} s, five outputs for each file")
+        out["cli_s"] = cli_s
+
+        reqs = []
+        for k in range(4):
+            reqs.append(os.path.join(tmp, f"req{k}.wav"))
+            _write_wav(reqs[-1], 12 + 4 * k, rng)
+        with open(os.path.join(tmp, "server.err"), "w+") as err:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "olmoasr_tpu_torch.serve", "--model", ckpt, "--host",
+                 "127.0.0.1", "--port", "0", "--beam-size", "5", "--max-wait-ms", "1000"],
+                stdout=subprocess.PIPE, stderr=err, text=True,
+            )
+            try:
+                out.update(_drive_server(server, reqs, err, urllib.request))
+            finally:
+                server.terminate()
+                try:
+                    server.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    server.kill()
+                    server.wait()
+    return out
+
+
+def _server_port(server, err, timeout: float = 300) -> int:
+    """The port from the line the server prints once it listens."""
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.append(server.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout)
+    found = re.search(r" on [^ ]*:(\d+) ", lines[0]) if lines else None
+    if found is None:
+        err.seek(0)
+        fail(f"server did not start within {timeout} s: {lines} {err.read()[-4000:]}")
+    return int(found.group(1))
+
+
+def _drive_server(server, reqs, err, urllib_request) -> dict:
+    base = f"http://127.0.0.1:{_server_port(server, err)}"
+    answers = [None] * len(reqs)
+
+    def post(k):
+        with open(reqs[k], "rb") as f:
+            req = urllib_request.Request(f"{base}/v1/transcribe?temperature=0", data=f.read(),
+                                         method="POST", headers={"X-Filename": "req.wav"})
+        try:
+            with urllib_request.urlopen(req, timeout=600) as r:
+                answers[k] = (r.status, json.loads(r.read()))
+        except Exception as exc:  # noqa: BLE001 -- reported below as a failed request
+            answers[k] = (None, repr(exc))
+
+    threads = [threading.Thread(target=post, args=(k,)) for k in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for k, (status, body) in enumerate(answers):
+        if status != 200:
+            fail(f"server request {k}: {status} {str(body)[:500]}")
+        _check_transcript(f"server request {k}", body)
+    with urllib_request.urlopen(f"{base}/healthz", timeout=30) as r:
+        stats = json.loads(r.read())["stats"]
+    print(f"  server (int8 cross K/V, beam_size=5): {len(reqs)} of {len(reqs)} concurrent "
+          f"requests answered 200 in {wall:.1f} s; /healthz {stats}")
+    if stats["requests"] != len(reqs) or not stats["batches"] < stats["requests"]:
+        fail(f"server: {stats['batches']} batches for {stats['requests']} requests")
+    return {"server_wall_s": wall, "server_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# --ab: the kernels of two trees on the same inputs
+# ---------------------------------------------------------------------------
+
+
+def _ab_inputs(gen) -> dict:
+    """name -> (kind, args, keyword args) of the compared cases: the int8
+    cross pass (served requests, and their beams), the outlier-q case of
+    both, the self pass at 160 rows without a map, with the identity map and
+    with a random one, and the self + cross sub-blocks of a greedy int8 step.
+    Rings are one layer deep: a call reads one layer."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    D, H, T, K, C = 768, 12, 1500, 5, 225
+    out = {}
+    for B, G in ((64, 1), (16, K)):
+        x = torch.randn(B * G, 1, D, generator=gen).to("cuda", torch.bfloat16)
+        w = [(1 + 0.1 * torch.randn(D, generator=gen)), 0.1 * torch.randn(D, generator=gen),
+             torch.randn(D, D, generator=gen) * (2 / D) ** 0.5,
+             0.02 * torch.randn(D, generator=gen),
+             torch.randn(D, D, generator=gen) * (2 / D) ** 0.5,
+             0.02 * torch.randn(D, generator=gen)]
+        (ck, ks), (cv, vs) = (_quantize_rows(torch.randn(B, T, D, generator=gen).cuda())
+                              for _ in range(2))
+        out[f"cross int8, {B * G} rows over {B}"] = (
+            "cross", (x, *[t.to("cuda", torch.bfloat16) for t in w], ck, cv,
+                      ks[:, None].contiguous(), vs[:, None].contiguous(), H), {"kv_group": G})
+        out[f"cross int8 outlier q, {B * G} rows over {B}"] = (
+            "cross", outlier_q_case(gen, B, T, D, H, G), {"kv_group": G})
+    rows = 32 * K
+    qkv = torch.randn(rows, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+    rings = [torch.randn(1, rows, C, D, generator=gen).to("cuda", torch.bfloat16)
+             for _ in range(2)]
+    self_args = (qkv, *rings, C - 1, 0)  # q, k_new, v_new: views of qkv, see _self_views
+    ident = (torch.arange(rows, dtype=torch.int32) % K)[:, None].expand(rows, C).contiguous()
+    maps = {"no map": None, "identity map": ident,
+            "random map": torch.randint(0, K, (rows, C), generator=gen, dtype=torch.int32)}
+    for label, anc in maps.items():
+        kw = {"n_head": H} if anc is None else {"n_head": H, "beam_anc": anc.cuda(), "beam_k": K}
+        out[f"self bf16, {rows} rows, offset {C - 1}, {label}"] = ("self", self_args, kw)
+    out["self + cross int8, 64 rows, offset 224"] = (
+        "layer", (*layer_block_args(gen, torch.bfloat16, L=1), 224, 0), {"n_head": H})
+    return out
+
+
+def _self_views(args):
+    """self_attend_decode's arguments from (qkv, k_ring, v_ring, offset,
+    layer): q, k_new and v_new as row views of the fused projection, as
+    decode_step passes them."""
+    qkv, k_ring, v_ring, offset, layer = args
+    D = k_ring.shape[-1]
+    return qkv[..., :D], k_ring, v_ring, qkv[..., D:2 * D], qkv[..., 2 * D:], offset, layer
+
+
+def _ab_call(A, kind, args, kw):
+    """The tree's kernel for a case (module A is its ops.attention), or None
+    where the tree does not have it; "layer" falls back to the split chain
+    and returns the residual only."""
+    import inspect
+
+    if kind == "cross":
+        return lambda: A.cross_block_decode(*args, **kw)
+    if kind == "self":
+        if "beam_anc" in kw and "beam_anc" not in inspect.signature(A.self_attend_decode).parameters:
+            return None
+        return lambda: A.self_attend_decode(*_self_views(args), **kw)
+    if hasattr(A, "layer_block_decode"):
+        return lambda: A.layer_block_decode(*args, **kw)[0]
+    return lambda: _chain(args[:-2], args[-2], args[-1], kw["n_head"])
+
+
+def kernel_cases(root: str, inputs: str, out: str) -> None:
+    """``--kernel-cases ROOT INPUTS OUT``: the kernels of the checkout at
+    ROOT on the saved inputs; outputs and device times saved to OUT."""
+    sys.path.insert(0, os.path.abspath(root))
+    from olmoasr_tpu_torch.ops import attention as A
+
+    if not os.path.abspath(A.__file__).startswith(os.path.abspath(root)):
+        fail(f"imported {A.__file__}, not the tree at {root}")
+    results = {}
+    for name, (kind, args, kw) in torch.load(inputs).items():
+        to = lambda a: a.cuda() if torch.is_tensor(a) else a
+        args, kw = [to(a) for a in args], {k: to(v) for k, v in kw.items()}
+        fn = _ab_call(A, kind, args, kw)
+        results[name] = None if fn is None else {"out": fn().cpu(), "ms": timed_ms(fn)}
+    results[GREEDY_INT8_STEP] = _greedy_int8_step()
+    torch.save(results, out)
+
+
+GREEDY_INT8_STEP = "greedy int8 step, 64 rows"
+
+
+def _greedy_int8_step() -> dict:
+    """One greedy step of small.en over 64 windows' int8 cross cache, host
+    clock against kernel time (the served path, end to end of the step)."""
+    from olmoasr_tpu_torch import build_model
+    from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from olmoasr_tpu_torch.decoding import DecodingOptions
+
+    model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+    audio = np.random.default_rng(0).standard_normal((64, N_SAMPLES)).astype(np.float32) * 0.1
+    mel = log_mel_spectrogram(torch.from_numpy(audio).cuda())
+    return _profile_greedy_step(model, mel, DecodingOptions(language="en", kv_quant=True))
+
+
+def kernel_ab(tree: str) -> None:
+    """``--ab TREE``: the cases of :func:`_ab_inputs` through the kernels of
+    the checkout at TREE and of this one, in the order TREE, this, this, TREE,
+    each run in its own process on the same saved inputs; each output held to
+    this checkout's twins (the int8 cross cases also to the exact-q twin).
+    Each process also profiles one greedy step over an int8 cross cache.
+    Fails if this checkout's kernels leave the tolerance."""
+    from olmoasr_tpu_torch.ops import attention as A
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    cases = _ab_inputs(torch.Generator().manual_seed(0))
+    refs = {}
+    for name, (kind, args, kw) in cases.items():
+        if kind == "cross":
+            refs[name] = (A.cross_block_decode_plain(*args, **kw),
+                          A.cross_block_decode_plain(*args, **kw, quantize_q=False))
+        elif kind == "self":
+            refs[name] = (A.self_attend_decode_plain(*_self_views(args), **kw), None)
+        else:
+            refs[name] = (A.layer_block_decode_plain(*args, **kw)[0], None)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
+        torch.save({k: (kind, [cpu(a) for a in args], {n: cpu(v) for n, v in kw.items()})
+                    for k, (kind, args, kw) in cases.items()}, inputs)
+        for label, root in (("tree", tree), ("this", here), ("this", here), ("tree", tree)):
+            out = os.path.join(tmp, f"run{len(runs)}.pt")
+            _run([sys.executable, os.path.abspath(__file__), "--kernel-cases", root, inputs, out],
+                 900)
+            runs.append((label, torch.load(out)))
+    report, bad = {}, []
+    for name, (want, exact) in refs.items():
+        tol = bf16_tol(want)
+        report[name] = []
+        for label, results in runs:
+            r = results[name]
+            if r is None:
+                print(f"  {name} [{label}]: not in this tree")
+                report[name].append(None)
+                continue
+            err = max_err(r["out"], want.cpu())
+            row = {"tree": label, "ms": r["ms"], "max_abs_err": err, "tol": tol}
+            line = f"  {name} [{label}]: {r['ms']:.4f} ms, max_abs_err {err:.3e} (tol {tol:.3e})"
+            if exact is not None:
+                row["exact_q_err"] = max_err(r["out"], exact.cpu())
+                line += f", against the exact-q twin {row['exact_q_err']:.3e}"
+            print(line)
+            report[name].append(row)
+            if label == "this" and not err <= tol:
+                bad.append(f"{name}: {err} > {tol}")
+    report[GREEDY_INT8_STEP] = []
+    for label, results in runs:
+        r = results[GREEDY_INT8_STEP]
+        print(f"  {GREEDY_INT8_STEP} [{label}]: host {r['host_ms']:.3f} ms, kernels "
+              f"{r['kernel_ms'] or float('nan'):.3f} ms, {r['device_launches']:.1f} device launches")
+        report[GREEDY_INT8_STEP].append({"tree": label, **r})
+    print(json.dumps({"ab": report}))
+    if bad:
+        fail("this checkout's kernels left the tolerance: " + "; ".join(bad))
 
 
 def main() -> None:
@@ -524,13 +1234,17 @@ def main() -> None:
     cases = phase_kernels()
     short = phase_slice()
     long_form = phase_long_form()
+    server = phase_server_traffic()
     phase_teacher_forced()
+    phase_entry_points()
     if "jax" in sys.modules:
         fail("jax was imported")
 
     sources = {
         "cross_block_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
                                "olmoasr_tpu/ops/attention.py:986"),
+        "layer_block_decode": ("olmoasr_tpu_torch/csrc/layer_block.cu",
+                               "olmoasr_tpu/ops/attention.py:1228"),
         "mlp_block": ("olmoasr_tpu_torch/csrc/linear.cu", "olmoasr_tpu/ops/attention.py:669"),
         "train_attention_fwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
                                 "olmoasr_tpu/ops/train_attention.py:222"),
@@ -539,14 +1253,21 @@ def main() -> None:
                             "olmoasr_tpu/ops/attention.py:412"),
         "self_attend_decode": ("olmoasr_tpu_torch/csrc/self_attention.cu",
                                "olmoasr_tpu/ops/attention.py:495"),
+        "self_attend_decode_beam": ("olmoasr_tpu_torch/csrc/self_attention.cu",
+                                    "olmoasr_tpu/ops/attention.py:254"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         main_case = cases[name][0]  # the main path's shape and dtype
+        # launches on the path that runs the kernel: the long-form slice at the
+        # CLI's defaults, or for the fused launch the server's default traffic
+        path = server if name == "layer_block_decode" else long_form
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": long_form["launches"][name],
-            "launches_short_form": {k: short[k]["launches"][name] for k in ("bf16", "int8")},
+            "launches": path["launches"][name],
+            "launches_long_form": long_form["launches"][name],
+            "launches_server_traffic": server["launches"][name],
+            "launches_short_form": {k: v["launches"][name] for k, v in short.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "cases": cases[name],
@@ -559,4 +1280,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        if not torch.cuda.is_available():
+            fail("no CUDA device")
+        if sys.argv[1] == "--ab" and len(sys.argv) == 3:
+            kernel_ab(sys.argv[2])
+        elif sys.argv[1] == "--kernel-cases" and len(sys.argv) == 5:
+            kernel_cases(*sys.argv[2:])
+        else:
+            fail(f"usage: {sys.argv[0]} [--ab TREE]")
+    else:
+        main()

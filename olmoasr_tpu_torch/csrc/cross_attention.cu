@@ -8,9 +8,12 @@
 //   w        = softmax_t(logit)            (fp32)
 //   attn_h   = sum_t w[t] * vs[b / G, t] * v[b / G, t, h]
 // K/V are bf16, fp32 or int8 with per-position fp32 scales (ones when the
-// cache is not quantized). q stays unquantized: the TPU kernel's int8 q.K
-// product (q quantized per head) is a matrix-unit rate device, and the port
-// keeps the exact product of its fp32 path.
+// cache is not quantized). With int8 keys under bf16 activations (the output
+// type) the logit is the TPU kernel's int8 q.K product (_qk_logits): q
+// rounded per head to int8 with scale amax(|q_h|) / 127, an s32 dot product
+// with the int8 keys (__dp4a), times that scale, times ks[t]. fp32
+// activations keep the exact product of the widened keys, as the TPU
+// kernel's fp32 path does.
 //
 // What bounds it: every decode step reads the whole cross cache of every
 // layer, B * T * D * 2 elements per layer for B cache rows (small.en, B = 64,
@@ -36,8 +39,23 @@ extern "C" int olm_cross_attention(const float* q, const void* k, const void* v,
                                    void* stream) {
   using namespace olm;
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return cudaErrorInvalidValue;
-  const DecodeAttnArgs p{q,     D,     k, v, ks, vs, m_part, l_part, acc_part, T, T, D, H,
-                         olm_decode_attention_chunks(T), kv_group, qscale};
+  DecodeAttnArgs p;
+  p.q = q;
+  p.q_stride = D;
+  p.k = k;
+  p.v = v;
+  p.ks = ks;
+  p.vs = vs;
+  p.m_part = m_part;
+  p.l_part = l_part;
+  p.acc_part = acc_part;
+  p.T = p.row_keys = T;
+  p.D = D;
+  p.H = H;
+  p.nchunks = olm_decode_attention_chunks(T);
+  p.kv_group = kv_group;
+  p.qscale = qscale;
+  p.quant_q = kv_dtype == kI8 && out_dtype == kBF16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* none = nullptr;  // no new key: cross attention sees the cache only
   auto run = [&](auto* o) -> int {

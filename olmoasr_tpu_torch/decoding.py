@@ -1,5 +1,5 @@
-"""Greedy and temperature-sampled decoding with whisper-compatible logit
-filters and scoring.
+"""Greedy, temperature-sampled and beam-search decoding with
+whisper-compatible logit filters and scoring.
 
 Counterpart of ``olmoasr_tpu/decoding.py``. That module imports jax at its
 top, so ``DecodingOptions``, ``DecodingResult``, ``compression_ratio``,
@@ -12,7 +12,14 @@ argmax (or a draw from softmax(logits / T) at temperature T > 0) and one
 steps the host reads the finished flags and stops once every row has
 finished, as the JAX loop does between its compiled chunks. ``best_of``
 samples ride as extra token rows over one encode and one shared cross cache.
-Beam search raises NotImplementedError.
+
+``beam_size`` at temperature 0 takes the beam loop (``_decode_beam``): K
+beams per window as token rows over the window's shared cross cache, the
+top 2K candidates per window each step, EOT candidates into a finished pool
+of ``round(K * patience)``, and an ancestry map that ``decode_step`` reads
+instead of reordering the self rings; the host stops every
+``EXIT_CHECK_EVERY`` steps once every window's worst finished score beats
+its best live one.
 """
 
 from __future__ import annotations
@@ -294,6 +301,145 @@ def _decode_sample(
     return tokens, sum_logprobs, probs_at_sot, audio_features
 
 
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+_BEAM_NEG = -1e30  # score of an empty slot (finished pool) or a masked beam
+
+
+@dataclass
+class _BeamState:
+    """The beam loop's device state for B windows of K beams: the token
+    history (B*K, sample_len), the live scores (B, K), the finished pool
+    (B, N, sample_len) with its scores (B, N), the last logits (B*K, V) and
+    the ancestry map (B*K, C) int32."""
+
+    tokens: torch.Tensor
+    beam_lp: torch.Tensor
+    fin_tokens: torch.Tensor
+    fin_lp: torch.Tensor
+    logits: torch.Tensor
+    anc: torch.Tensor
+
+
+def _beam_step(st: _BeamState, i: int, cfg: FilterConfig, index: int) -> torch.Tensor:
+    """One beam-search step, in place on ``st`` (whisper BeamSearchDecoder
+    semantics, the JAX package's ``_beam_step``): per window the K best
+    unfinished hypotheses continue and EOT candidates enter the finished
+    pool. ``index`` is the position this step's tokens are written at.
+    Returns the (B*K,) tokens to feed the next ``decode_step``."""
+    B, K = st.beam_lp.shape
+    V = st.logits.shape[-1]
+    L = st.tokens.shape[1]
+    C = st.anc.shape[1]
+    dev = st.logits.device
+    filt = apply_filters(st.logits, st.tokens, i, cfg)
+    cand = st.beam_lp[:, :, None] + torch.log_softmax(filt, dim=-1).view(B, K, V)
+    if i == 0:  # every beam holds the prompt: keep beam 0's candidates only
+        cand[:, 1:] = _BEAM_NEG
+    # the top 2K, so that EOT candidates cannot starve the live beams
+    top_lp, top_idx = cand.view(B, K * V).topk(2 * K, dim=-1)
+    src_beam = top_idx // V
+    tok = top_idx % V
+    is_eot = tok == cfg.eot
+
+    # finished pool: the best of the pool and this step's EOT candidates
+    src_tokens = st.tokens.view(B, K, L).gather(1, src_beam[:, :, None].expand(B, 2 * K, L))
+    src_tokens[:, :, i] = cfg.eot
+    merged_lp = torch.cat([st.fin_lp, torch.where(is_eot, top_lp, _BEAM_NEG)], dim=1)
+    merged_tokens = torch.cat([st.fin_tokens, src_tokens], dim=1)
+    st.fin_lp, best = merged_lp.topk(st.fin_lp.shape[1], dim=-1)
+    st.fin_tokens = merged_tokens.gather(1, best[:, :, None].expand(-1, -1, L))
+
+    # live beams: the best K non-EOT candidates; the token history follows
+    # its source beam, the rings stay and the ancestry map is permuted
+    st.beam_lp, best = torch.where(is_eot, _BEAM_NEG, top_lp).topk(K, dim=-1)
+    live_beam = src_beam.gather(1, best)
+    live_tok = tok.gather(1, best).reshape(-1)
+    rows = (torch.arange(B, device=dev)[:, None] * K + live_beam).reshape(-1)
+    st.tokens = st.tokens[rows]
+    st.tokens[:, i] = live_tok
+    anc = st.anc.view(B, K, C).gather(1, live_beam[:, :, None].expand(B, K, C))
+    # positions from this step on are each row's own (its next key is
+    # written to its own ring row)
+    anc[:, :, index:] = torch.arange(K, device=dev, dtype=anc.dtype)[None, :, None]
+    st.anc = anc.view(B * K, C)
+    return live_tok
+
+
+@torch.no_grad()
+def _beam_prefill(model, mel, prompt, cfg, sample_len, sot_index, kv_quant, beam_size,
+                  patience):
+    """Encoder and prompt prefill of the beam loop: K = ``beam_size`` token
+    rows per window, row b * K + k, over the window's one cross cache; an
+    empty finished pool of N = max(round(K * patience), 1) slots; the
+    identity ancestry map (every row wrote its own prompt keys). Returns the
+    cache, the state, the probabilities at the sot position (B, V) and the
+    audio features."""
+    K = beam_size
+    n_fin = max(int(round(K * (patience or 1.0))), 1)
+    audio_features = model_mod.encode_audio(model, mel)
+    B = audio_features.shape[0]
+    dev = audio_features.device
+    cache = model_mod.init_cache(
+        model, audio_features, max_len=len(prompt) + sample_len, quantize_cross=kv_quant,
+        self_batch=B * K,
+    )
+    logits_all = model_mod.decode_step(
+        model, torch.tensor([prompt] * (B * K), dtype=torch.long, device=dev), cache
+    )
+    probs_at_sot = torch.softmax(logits_all[::K, sot_index], dim=-1)
+    C = cache.self_k.shape[2]
+    st = _BeamState(
+        tokens=torch.full((B * K, sample_len), cfg.eot, dtype=torch.long, device=dev),
+        beam_lp=torch.zeros((B, K), dtype=torch.float32, device=dev),
+        fin_tokens=torch.full((B, n_fin, sample_len), cfg.eot, dtype=torch.long, device=dev),
+        fin_lp=torch.full((B, n_fin), _BEAM_NEG, dtype=torch.float32, device=dev),
+        logits=logits_all[:, -1],
+        anc=(torch.arange(B * K, device=dev, dtype=torch.int32) % K)[:, None]
+        .expand(B * K, C).contiguous(),
+    )
+    return cache, st, probs_at_sot, audio_features
+
+
+@torch.no_grad()
+def _decode_beam(
+    model: model_mod.Whisper,
+    mel: torch.Tensor,  # (B, n_mels, N_FRAMES)
+    prompt: List[int],
+    cfg: FilterConfig,
+    sample_len: int,
+    sot_index: int,
+    kv_quant: bool,
+    beam_size: int,
+    patience: Optional[float],
+):
+    """The beam loop (the JAX package's ``_decode_beam_jit``): the prefill,
+    then per step ``_beam_step`` and one ``decode_step`` that reads the
+    ancestry map. Returns every window's finished and live hypotheses
+    (B, N + K, sample_len) with their scores (B, N + K), the probabilities
+    at the sot position (B, V) and the audio features."""
+    cache, st, probs_at_sot, audio_features = _beam_prefill(
+        model, mel, prompt, cfg, sample_len, sot_index, kv_quant, beam_size, patience,
+    )
+    B, K = st.beam_lp.shape
+    for i in range(sample_len):
+        tok = _beam_step(st, i, cfg, cache.index)
+        if i == sample_len - 1:
+            break
+        # stop once no live continuation can still enter any window's pool
+        if (i + 1) % EXIT_CHECK_EVERY == 0 and bool(
+            (st.fin_lp.amin(dim=1) >= st.beam_lp.amax(dim=1)).all()
+        ):
+            break
+        st.logits = model_mod.decode_step(model, tok[:, None], cache, beam_anc=st.anc)[:, 0]
+    # live beams count as hypotheses too (whisper finalizes them with EOT)
+    all_tokens = torch.cat([st.fin_tokens, st.tokens.view(B, K, sample_len)], dim=1)
+    all_lp = torch.cat([st.fin_lp, st.beam_lp], dim=1)
+    return all_tokens, all_lp, probs_at_sot, audio_features
+
+
 class MaximumLikelihoodRanker:
     """Pick the highest log-prob sequence, normalized by length or the Google
     NMT length penalty ([pip:whisper] decoding.MaximumLikelihoodRanker)."""
@@ -339,14 +485,6 @@ def _resolve_prompt(tokenizer: Tokenizer, options: DecodingOptions) -> List[int]
     return tokens
 
 
-def _check_supported(options: DecodingOptions) -> None:
-    # the JAX package takes its beam path only at temperature 0
-    if options.beam_size is not None and options.temperature == 0:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP Queue 1 item 7)"
-        )
-
-
 def decode(
     model: model_mod.Whisper,
     mel: Union[np.ndarray, torch.Tensor],
@@ -361,8 +499,8 @@ def decode(
     differ (``Whisper.in_dtype``), as the JAX package computes from its fp32
     params. Sampling at temperature > 0 draws from ``generator``, a
     ``torch.Generator`` on the model's device, seeded 0 when none is given
-    (the JAX package's ``PRNGKey(0)``)."""
-    _check_supported(options)
+    (the JAX package's ``PRNGKey(0)``). ``beam_size`` at temperature 0
+    takes the beam loop, whatever ``best_of`` says."""
     model = model.in_dtype(torch.bfloat16 if options.fp16 else torch.float32)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -394,6 +532,17 @@ def decode(
     sot_index = prompt.index(tokenizer.sot)
     cfg = build_filter_config(tokenizer, options, len(prompt), dims.n_vocab)
 
+    if options.beam_size is not None and options.temperature == 0:
+        all_tokens, all_lp, probs_at_sot, audio_features = _decode_beam(
+            model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
+            options.beam_size, options.patience,
+        )
+        token_lists, lp_lists = _beam_hypotheses(all_tokens, all_lp, tokenizer.eot)
+        return _finalize_results(
+            token_lists, lp_lists, probs_at_sot[:, tokenizer.no_speech].cpu().numpy(),
+            tokenizer, options, audio_features, language, single,
+        )
+
     # best_of samples ride as extra token rows over one encode per window
     n_groups = options.best_of if (options.best_of and options.temperature > 0) else 1
     tokens, sum_logprobs, probs_at_sot, audio_features = _decode_sample(
@@ -416,6 +565,26 @@ def decode(
         token_lists, lp_lists, no_speech_probs, tokenizer, options,
         audio_features, language, single,
     )
+
+
+def _beam_hypotheses(all_tokens: torch.Tensor, all_lp: torch.Tensor, eot: int):
+    """Per window, the hypotheses of the pool and the live beams that hold a
+    score (empty slots, at -1e30, are dropped), each cut at its first EOT;
+    a window with none keeps one empty hypothesis."""
+    seqs, lps = all_tokens.cpu().tolist(), all_lp.cpu().tolist()
+    token_lists, lp_lists = [], []
+    for window_seqs, window_lps in zip(seqs, lps):
+        group_tokens, group_lps = [], []
+        for seq, lp in zip(window_seqs, window_lps):
+            if lp <= -1e29:
+                continue
+            group_tokens.append(seq[: seq.index(eot)] if eot in seq else seq)
+            group_lps.append(lp)
+        if not group_tokens:
+            group_tokens, group_lps = [[]], [window_lps[0]]
+        token_lists.append(group_tokens)
+        lp_lists.append(group_lps)
+    return token_lists, lp_lists
 
 
 def _finalize_results(

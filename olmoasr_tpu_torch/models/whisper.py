@@ -30,6 +30,7 @@ from olmoasr_tpu.models.dims import ModelDimensions
 from olmoasr_tpu_torch.ops.attention import (
     cross_block_decode,
     cross_block_decode_plain,
+    layer_block_decode,
     ln_matmul,
     matmul_residual,
     mlp_block,
@@ -403,16 +404,27 @@ def _attend_cached(q, k, v, offset: int, n_head: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.Tensor:
+def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache,
+                beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the decoder on ``tokens`` (R, S) at positions ``cache.index``..;
     returns fp32 logits (R, S, n_vocab) and advances the cache in place.
 
     S=1 steps run every sub-block through the hand-written kernels
     (``ops.attention``): ``ln_matmul`` (fused QKV), ``self_attend_decode``
     over the read-only rings, ``matmul_residual``, then the new key and value
-    go into the rings, then ``cross_block_decode`` and ``mlp_block``. A
-    prefill (S>1) is plain tensor code, as in the JAX package.
+    go into the rings, then ``cross_block_decode`` and ``mlp_block``. Over an
+    int8 cross cache with one token row per window and no ancestry map, the
+    self and cross sub-blocks run as one ``layer_block_decode`` launch, as
+    the JAX step takes its layer block there (whisper.py, use_layer_block).
+    A prefill (S>1) is plain tensor code, as in the JAX package.
     ``decode_step.single_steps`` counts the S=1 calls.
+
+    ``beam_anc`` (R, C) int32, beam search: the rings are not reordered when
+    beams are re-ranked; ``beam_anc[r, t]`` names the ring row within r's
+    group of ``cache.kv_group`` rows that holds r's key and value at position
+    t. It needs S=1 and a shared cross cache (kv_group > 1). This step's key
+    and value still go to row r's own position ``cache.index``: the caller
+    keeps the map the identity from there on.
     """
     dec = model.decoder
     dims = model.dims
@@ -424,6 +436,9 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.T
     if end > cache.self_k.shape[2]:
         raise ValueError(f"positions {offset}..{end - 1} exceed the cache's {cache.self_k.shape[2]}")
     G = cache.kv_group
+    if beam_anc is not None and not (S == 1 and G > 1):
+        raise ValueError(f"ancestry mode needs S=1 and a shared cross cache, got S={S}, "
+                         f"kv_group={G}")
     dtype = cache.self_k.dtype
     x = F.embedding(tokens, dec.token_embedding.weight).to(dtype)
     x = x + dec.positional_embedding[offset:end].to(dtype)
@@ -431,14 +446,25 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.T
     if single:
         w_qkv, b_qkv = model.fused_qkv()
         decode_step.single_steps += 1
+    fused = single and beam_anc is None and G == 1 and cache.cross_k.dtype == torch.int8
     cross = cross_block_decode if single else cross_block_decode_plain
     mlp = mlp_block if single else mlp_block_plain
     for i, blk in enumerate(dec.blocks):
-        if single:
+        ca, cln = blk.cross_attn, blk.cross_attn_ln
+        if fused:
+            x, kv_new = layer_block_decode(
+                x, blk.attn_ln.weight, blk.attn_ln.bias, w_qkv[i], b_qkv[i],
+                blk.attn.out.weight, blk.attn.out.bias, cln.weight, cln.bias, ca.query.weight,
+                ca.query.bias, ca.out.weight, ca.out.bias, cache.self_k, cache.self_v,
+                cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
+                cache.cross_v_scale[i], offset, i, n_head=n_head,
+            )
+            cache.self_kv[:, i, :, offset].copy_(kv_new[:, :, 0])
+        elif single:
             qkv = ln_matmul(x, blk.attn_ln.weight, blk.attn_ln.bias, w_qkv[i], b_qkv[i])
             attn = self_attend_decode(
                 qkv[..., :D], cache.self_k, cache.self_v, qkv[..., D:2 * D], qkv[..., 2 * D:],
-                offset, i, n_head=n_head,
+                offset, i, n_head=n_head, beam_anc=beam_anc, beam_k=G,
             )
             x = matmul_residual(attn, x, blk.attn.out.weight, blk.attn.out.bias)
             # after the attention, this step's key and value into the rings
@@ -454,12 +480,12 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache) -> torch.T
                 q, cache.self_k[i, :, :end], cache.self_v[i, :, :end], offset, n_head
             )
             x = x + _linear(attn, blk.attn.out)
-        ca, cln = blk.cross_attn, blk.cross_attn_ln
-        x = cross(
-            x, cln.weight, cln.bias, ca.query.weight, ca.query.bias, ca.out.weight,
-            ca.out.bias, cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
-            cache.cross_v_scale[i], n_head, kv_group=G,
-        )
+        if not fused:
+            x = cross(
+                x, cln.weight, cln.bias, ca.query.weight, ca.query.bias, ca.out.weight,
+                ca.out.bias, cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
+                cache.cross_v_scale[i], n_head, kv_group=G,
+            )
         x = mlp(
             x, blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp[0].weight, blk.mlp[0].bias,
             blk.mlp[2].weight, blk.mlp[2].bias,

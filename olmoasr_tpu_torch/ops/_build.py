@@ -46,15 +46,24 @@ _SIGNATURES = {
     "olm_cross_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # q, k_new, v_new, row_stride, k_ring, v_ring, m_part, l_part, acc_part,
-    # out, L, layer, B, C, offset, D, H, dtype, qscale, stream
+    # q, k_new, v_new, row_stride, k_ring, v_ring, anc, m_part, l_part,
+    # acc_part, out, L, layer, B, C, offset, D, H, beam_k, dtype, qscale, stream
     "olm_self_attention": (
-        _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P,
     ),
     "olm_decode_attention_chunks": (_I,),
+    # x, ln1_g, ln1_b, wqkv, bqkv, wo1, bo1, ln2_g, ln2_b, wq, bq, wo2, bo2,
+    # k_ring, v_ring, ck, cv, cks, cvs, out, kv_new, scratch, L, layer, B, C,
+    # offset, D, H, T, dtype, qscale, stream
+    "olm_layer_block": (*(_P,) * 22, *(_I,) * 9, _F, _P),
+    # B, D, H, T, offset, dtype -> scratch floats
+    "olm_layer_block_scratch": (_I, _I, _I, _I, _I, _I),
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
+
+_RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong}  # the others return c_int
 
 _lock = threading.Lock()
 _loaded: Optional[ctypes.CDLL] = None
@@ -128,7 +137,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             handle.olm_error_string.argtypes = [ctypes.c_int]
             handle.olm_error_string.restype = ctypes.c_char_p
             _loaded = handle

@@ -3,16 +3,18 @@
 Counterpart of ``olmoasr_tpu/ops/attention.py`` for the self sub-block
 (``ln_matmul``, ``self_attend_decode``, ``matmul_residual``), the cross
 sub-block (``cross_block_decode``: non-transposed keys, ``kv_group`` query
-rows per cache row) and ``mlp_block``. Each function takes ONE layer's
+rows per cache row), both in one launch (``layer_block_decode``, over an
+int8 cross cache) and ``mlp_block``. Each function takes ONE layer's
 tensors in torch's weight layout (``(out, in)``); activations keep the JAX
 layout: ``x`` is ``(B, 1, D)``, the cross cache ``(B, T, D)`` with
 per-position scales ``(B, 1, T)`` (ones when unquantized), the self rings the
 stacked ``(L, B, C, D)`` tensors indexed by layer.
 
 Dispatch: a CUDA tensor launches the hand-written kernel (``csrc/linear.cu``,
-``csrc/cross_attention.cu``, ``csrc/self_attention.cu``) or raises; a CPU
-tensor runs the plain PyTorch twin below. There is no fallback from one to
-the other. Each wrapper counts its launches in ``<function>.launches``.
+``csrc/cross_attention.cu``, ``csrc/self_attention.cu``,
+``csrc/layer_block.cu``) or raises; a CPU tensor runs the plain PyTorch twin
+below. There is no fallback from one to the other. Each wrapper counts its launches in ``<function>.launches``;
+``self_attend_decode.beam_launches`` counts those with an ancestry map.
 
 Precision contract, shared by kernel and twin: LayerNorm in fp32 (eps 1e-5),
 operands of every product rounded to the weight type, products accumulated
@@ -23,6 +25,7 @@ With fp32 weights this is the JAX fp32 path exactly.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -261,31 +264,66 @@ def _partials(B: int, n_head: int, nchunks: int, dh: int, device):
     return torch.empty((n,), **f32), torch.empty((n,), **f32), torch.empty((n * dh,), **f32)
 
 
+def quantizes_q(k_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
+    """Whether the cross q.K product is the int8 one: int8 keys under bf16
+    activations, as the TPU kernel's ``_qk_logits`` decides."""
+    return k_dtype == torch.int8 and x_dtype == torch.bfloat16
+
+
+def qk_logits(q: torch.Tensor, k: torch.Tensor, quantize_q: bool) -> torch.Tensor:
+    """Per-head logits before the per-key scale: q (B, S, H, dh) fp32,
+    already scaled by dh^-0.5; k (B, T, H, dh) in the cache's dtype;
+    (B, H, S, T) fp32 out.
+
+    ``quantize_q`` (int8 keys): q is rounded per head and row to int8 with
+    the scale max(amax(|q_h|), 1e-20) / 127 (half to even, clipped to
+    +-127), the dot product with the int8 keys is taken in integers, and the
+    result is multiplied by that scale: ``_qk_logits`` of
+    ``olmoasr_tpu/ops/attention.py``. The integer sums are below 2^24, so the
+    fp32 einsum holds them exactly in any order."""
+    if not quantize_q:
+        return torch.einsum("bshd,bthd->bhst", q, k.float())
+    scale = q.abs().amax(dim=-1, keepdim=True).clamp_min(1e-20) / 127.0  # (B, S, H, 1)
+    q8 = torch.clamp(torch.round(q / scale), -127, 127)
+    acc = torch.einsum("bshd,bthd->bhst", q8, k.float())
+    return acc * scale.permute(0, 2, 1, 3)
+
+
+def _cross_attend_plain(q, ck, cv, ck_scale, cv_scale, n_head: int, quantize_q: bool):
+    """Cross attention of q (B, S, D) fp32, already scaled by dh^-0.5, over
+    the cache rows (B, T, D) with their (B, 1, T) scales; (B, S, D) fp32."""
+    B, S, D = q.shape
+    T = ck.shape[1]
+    dh = D // n_head
+    logits = qk_logits(q.view(B, S, n_head, dh), ck.view(B, T, n_head, dh), quantize_q)
+    logits = logits * ck_scale.float().reshape(B, 1, 1, T)
+    w = torch.softmax(logits, dim=-1) * cv_scale.float().reshape(B, 1, 1, T)
+    return torch.einsum("bhst,bthd->bshd", w, cv.float().view(B, T, n_head, dh)).reshape(B, S, D)
+
+
 def cross_block_decode_plain(
     x, ln_g, ln_b, wq, bq, wo, bo, ck, cv, ck_scale, cv_scale, n_head: int,
-    kv_group: int = 1,
+    kv_group: int = 1, *, quantize_q: Optional[bool] = None,
 ) -> torch.Tensor:
     """Cross sub-block for any number S of query rows (the prefill uses S>1).
     With ``kv_group`` G, the G query rows of one cache row fold into its
-    query sequence: cross attention is position-independent per query."""
+    query sequence: cross attention is position-independent per query.
+    The q.K product is the int8 one (:func:`qk_logits`) when ``quantize_q``,
+    which by default is decided as the TPU kernel decides it: int8 keys under
+    bf16 activations (:func:`quantizes_q`)."""
+    if quantize_q is None:
+        quantize_q = quantizes_q(ck.dtype, x.dtype)
     if kv_group > 1:
         Bq, S, D = x.shape
         out = cross_block_decode_plain(
             x.reshape(Bq // kv_group, kv_group * S, D), ln_g, ln_b, wq, bq, wo, bo,
-            ck, cv, ck_scale, cv_scale, n_head,
+            ck, cv, ck_scale, cv_scale, n_head, quantize_q=quantize_q,
         )
         return out.reshape(Bq, S, D)
-    B, S, D = x.shape
-    T = ck.shape[1]
-    dh = D // n_head
+    dh = x.shape[-1] // n_head
     h = _ln_f32(x, ln_g, ln_b).to(wq.dtype)
     q = _linear_f32(h, wq, bq) * _q_scale(dh)  # (B, S, D) fp32
-    k = ck.float().view(B, T, n_head, dh)
-    v = cv.float().view(B, T, n_head, dh)
-    logits = torch.einsum("bshd,bthd->bhst", q.view(B, S, n_head, dh), k)
-    logits = logits * ck_scale.float().reshape(B, 1, 1, T)
-    w = torch.softmax(logits, dim=-1) * cv_scale.float().reshape(B, 1, 1, T)
-    attn = torch.einsum("bhst,bthd->bshd", w, v).reshape(B, S, D).to(wo.dtype)
+    attn = _cross_attend_plain(q, ck, cv, ck_scale, cv_scale, n_head, quantize_q).to(wo.dtype)
     return (x.float() + _linear_f32(attn, wo, bo)).to(x.dtype)
 
 
@@ -317,7 +355,9 @@ def cross_block_decode(
     one block per 128-key chunk, head and query row, 16-byte loads, so the
     cache read spreads over every SM; a group's rows are grid neighbours and
     share the read through L2); the output projection with bias + residual
-    (``csrc/linear.cu``). q is not quantized (see the kernel source).
+    (``csrc/linear.cu``). int8 keys under bf16 activations take the TPU
+    kernel's int8 q.K product (q rounded per head, ``__dp4a``;
+    :func:`qk_logits`); fp32 activations keep the exact product.
     """
     if not x.is_cuda:
         return cross_block_decode_plain(
@@ -371,16 +411,34 @@ cross_block_decode.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _ancestry_rows(beam_anc: torch.Tensor, beam_k: int) -> torch.Tensor:
+    """(B, P) ring rows from a (B, P) ancestry map: row b, position t reads
+    ring row (b // beam_k) * beam_k + beam_anc[b, t]; an entry outside
+    [0, beam_k) reads the group's first row, as the TPU kernel's masked pick
+    (``_anc_kv_select``) does."""
+    anc = beam_anc.long()
+    anc = torch.where((anc >= 0) & (anc < beam_k), anc, 0)
+    group0 = torch.arange(anc.shape[0], device=anc.device) // beam_k * beam_k
+    return group0[:, None] + anc
+
+
 def self_attend_decode_plain(
-    q, k_ring, v_ring, k_new, v_new, offset: int, layer_idx: int, *, n_head: int
+    q, k_ring, v_ring, k_new, v_new, offset: int, layer_idx: int, *, n_head: int,
+    beam_anc=None, beam_k: int = 1,
 ) -> torch.Tensor:
     """Single-query attention over ring positions < offset of one layer plus
-    this step's own key and value, fp32 throughout, one rounding at the end."""
+    this step's own key and value, fp32 throughout, one rounding at the end.
+    With ``beam_anc`` the ring positions are gathered by ancestry first."""
     B, _, D = q.shape
     dh = D // n_head
     heads = lambda t: t.float().reshape(B, -1, n_head, dh)
     qh = heads(q)[:, 0] * _q_scale(dh)  # (B, H, dh)
-    k, v = heads(k_ring[layer_idx, :, :offset]), heads(v_ring[layer_idx, :, :offset])
+    k, v = k_ring[layer_idx, :, :offset], v_ring[layer_idx, :, :offset]
+    if beam_anc is not None:
+        rows = _ancestry_rows(beam_anc[:, :offset], beam_k)
+        pos = torch.arange(offset, device=q.device)
+        k, v = k[rows, pos], v[rows, pos]
+    k, v = heads(k), heads(v)
     logits = torch.cat([
         torch.einsum("bhd,bthd->bht", qh, k),
         (qh * heads(k_new)[:, 0]).sum(-1, keepdim=True),
@@ -400,24 +458,37 @@ def self_attend_decode(
     layer_idx: int,
     *,
     n_head: int,
+    beam_anc: Optional[torch.Tensor] = None,  # (B, C) int32 within-group ring rows
+    beam_k: int = 1,
 ) -> torch.Tensor:
     """Decode-step self attention of layer ``layer_idx`` over the read-only
     rings, the new key always visible; (B, 1, D) in q's dtype.
 
     Replaces ``olmoasr_tpu/ops/attention.py::self_attend_decode``
-    (``_self_decode_kernel``, body ``_self_decode_body``; bf16 or fp32 rings,
-    no ancestry). Bound on the card: the ring read, 2*B*offset*D elements per
-    layer and step (small.en, B=64, offset 224, bf16: 44 MB). The kernel
+    (``_self_decode_kernel``, body ``_self_decode_body``; bf16 or fp32 rings)
+    and, with ``beam_anc``, its beam-search mode (``_self_decode_kernel_beam``
+    with ``_anc_kv_select``): rows come in groups of ``beam_k`` beams, the
+    rings are never reordered, and row b reads position t from ring row
+    ``(b // beam_k) * beam_k + beam_anc[b, t]``; its new key and value are
+    its own. Ancestry needs unquantized rings, as the JAX wrapper asserts.
+
+    Bound on the card: the ring read, 2*B*offset*D elements per layer and
+    step (small.en, B=64, offset 224, bf16: 44 MB). The kernel
     (``csrc/self_attention.cu``) is the cross kernel's split-position pass
     over the ring (row stride C, the layer chosen by pointer), and a combine
-    launch that folds in the new key and value. The caller writes k_new and
-    v_new into the rings afterwards.
+    launch that folds in the new key and value. With ancestry each block
+    loads its chunk's map once and reads every key from its ancestor row; a
+    group's blocks are grid neighbours, so the ancestors' repeats come from
+    L2. The caller writes k_new and v_new into the rings afterwards.
     """
+    what = "self_attend_decode"
+    if beam_anc is not None:
+        _require(k_ring.dtype != torch.int8, what, "beam ancestry needs unquantized rings")
     if not q.is_cuda:
         return self_attend_decode_plain(
-            q, k_ring, v_ring, k_new, v_new, offset, layer_idx, n_head=n_head
+            q, k_ring, v_ring, k_new, v_new, offset, layer_idx, n_head=n_head,
+            beam_anc=beam_anc, beam_k=beam_k,
         )
-    what = "self_attend_decode"
     B, S, D = q.shape
     _require(S == 1, what, f"the kernel takes one query row per batch row, got S={S}")
     _require(q.dtype in (torch.float32, torch.bfloat16), what, f"q is {q.dtype}")
@@ -437,18 +508,170 @@ def self_attend_decode(
                  f"{name}: rows must be contiguous and strided as q's")
         _require(t.data_ptr() % 16 == 0 and stride * t.element_size() % 16 == 0, what,
                  f"{name} rows must be 16-byte aligned")
+    if beam_anc is None:
+        beam_k = 1
+    else:
+        _require(beam_k >= 1 and B % beam_k == 0, what, f"{B} rows are not groups of {beam_k}")
+        _require(beam_anc.dtype == torch.int32 and tuple(beam_anc.shape) == (B, C)
+                 and beam_anc.is_contiguous() and beam_anc.device == q.device, what,
+                 f"beam_anc must be contiguous int32 ({B}, {C}) on {q.device}, got "
+                 f"{beam_anc.dtype} {tuple(beam_anc.shape)} on {beam_anc.device}")
     lib, stream = _build.lib(), _build.stream_ptr(q.device)
     m_part, l_part, acc_part = _partials(
         B, n_head, lib.olm_decode_attention_chunks(offset), dh, q.device)
     out = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
     _build.check(lib.olm_self_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), stride, k_ring.data_ptr(),
-        v_ring.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), L, layer_idx, B, C, offset, D, n_head, _build.dtype_code(q.dtype),
-        _q_scale(dh), stream,
+        v_ring.data_ptr(), None if beam_anc is None else beam_anc.data_ptr(), m_part.data_ptr(),
+        l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), L, layer_idx, B, C, offset, D,
+        n_head, beam_k, _build.dtype_code(q.dtype), _q_scale(dh), stream,
     ), what)
     self_attend_decode.launches += 1
+    self_attend_decode.beam_launches += beam_anc is not None
     return out
 
 
 self_attend_decode.launches = 0
+self_attend_decode.beam_launches = 0  # the launches with an ancestry map
+
+
+# ---------------------------------------------------------------------------
+# layer_block_decode
+# ---------------------------------------------------------------------------
+
+
+def layer_block_decode_plain(
+    x, attn_ln_g, attn_ln_b, w_qkv, b_qkv, attn_o_w, attn_o_b,
+    cross_ln_g, cross_ln_b, cross_q_w, cross_q_b, cross_o_w, cross_o_b,
+    k_ring, v_ring, ck, cv, ck_scale, cv_scale, offset: int, layer_idx: int, *, n_head: int,
+):
+    """The self and cross sub-blocks of one layer, the residual and the
+    projections in fp32 between them; (out, kv_new) as the kernel returns
+    them."""
+    D = x.shape[-1]
+    wdt = w_qkv.dtype
+    qkv = _linear_f32(_ln_f32(x, attn_ln_g, attn_ln_b).to(wdt), w_qkv, b_qkv)  # (B, 1, 3D)
+    q, k_new, v_new = qkv.split(D, dim=-1)
+    a = self_attend_decode_plain(q, k_ring, v_ring, k_new, v_new, offset, layer_idx,
+                                 n_head=n_head)  # fp32, as its q
+    x1 = x.float() + _linear_f32(a.to(wdt), attn_o_w, attn_o_b)
+    qc = _linear_f32(_ln_f32(x1, cross_ln_g, cross_ln_b).to(wdt), cross_q_w, cross_q_b)
+    c = _cross_attend_plain(qc * _q_scale(D // n_head), ck, cv, ck_scale, cv_scale, n_head,
+                            quantizes_q(ck.dtype, x.dtype))
+    out = (x1 + _linear_f32(c.to(wdt), cross_o_w, cross_o_b)).to(x.dtype)
+    return out, torch.stack([k_new, v_new]).to(x.dtype)
+
+
+def layer_block_decode(
+    x: torch.Tensor,  # (B, 1, D) residual stream
+    attn_ln_g: torch.Tensor,  # (D,) self sub-block
+    attn_ln_b: torch.Tensor,
+    w_qkv: torch.Tensor,  # (3D, D), the fused [Wq; Wk; Wv]
+    b_qkv: torch.Tensor,  # (3D,), [bq, 0, bv]
+    attn_o_w: torch.Tensor,  # (D, D)
+    attn_o_b: torch.Tensor,
+    cross_ln_g: torch.Tensor,  # (D,) cross sub-block
+    cross_ln_b: torch.Tensor,
+    cross_q_w: torch.Tensor,  # (D, D)
+    cross_q_b: torch.Tensor,
+    cross_o_w: torch.Tensor,  # (D, D)
+    cross_o_b: torch.Tensor,
+    k_ring: torch.Tensor,  # (L, B, C, D), positions < offset valid; read only
+    v_ring: torch.Tensor,
+    ck: torch.Tensor,  # (B, T, D) int8 cross cache of this layer
+    cv: torch.Tensor,
+    ck_scale: torch.Tensor,  # (B, 1, T) fp32
+    cv_scale: torch.Tensor,
+    offset: int,
+    layer_idx: int,
+    *,
+    n_head: int,
+):
+    """The self and cross sub-blocks of decoder layer ``layer_idx`` for one
+    decode step, in one launch: ``(out, kv_new)`` with out (B, 1, D) and this
+    step's key and value as ``kv_new`` (2, B, 1, D), for the caller to write
+    into the rings at ``offset``.
+
+    Replaces ``olmoasr_tpu/ops/attention.py::layer_block_decode``
+    (``_layer_block_impl``) in its default "sc" mode: self + cross, the MLP
+    after it as ``mlp_block``. The JAX package takes it for S=1 steps over an
+    int8 cross cache with one token row per window and no beam ancestry, and
+    so does ``decode_step``: greedy decoding and samples without best_of under
+    ``kv_quant``, the server's default. Its TPU-only forms are not ported: the
+    transposed key layout (the port keeps (B, T, D)), ``include_mlp=True``
+    (the whole layer, over the TPU's VMEM budget at small.en, off by default)
+    and ``rows``/``wv_mode``.
+
+    It computes what the chain ``ln_matmul`` -> ``self_attend_decode`` ->
+    ``matmul_residual`` -> ``cross_block_decode`` computes, but, as the TPU
+    kernel, keeps the residual and the projections in fp32 inside the layer
+    and rounds once at the store. The kernel (``csrc/layer_block.cu``) is a
+    cooperative launch whose blocks run the split kernels' block bodies as
+    thirteen phases with grid-wide barriers between them: one launch where
+    the chain takes fourteen, but on the card slower than the chain in a
+    CUDA graph, bound by its dependent phases rather than its bytes.
+    """
+    if not x.is_cuda:
+        return layer_block_decode_plain(
+            x, attn_ln_g, attn_ln_b, w_qkv, b_qkv, attn_o_w, attn_o_b, cross_ln_g, cross_ln_b,
+            cross_q_w, cross_q_b, cross_o_w, cross_o_b, k_ring, v_ring, ck, cv, ck_scale,
+            cv_scale, offset, layer_idx, n_head=n_head,
+        )
+    what = "layer_block_decode"
+    B, S, D = x.shape
+    _require(S == 1, what, f"the kernel takes one query row per batch row, got S={S}")
+    _require(x.dtype in (torch.float32, torch.bfloat16), what, f"x is {x.dtype}")
+    _check_head(what, D, n_head)
+    _check_operands(what, x.dtype, x.device, x=x, attn_ln_g=attn_ln_g, attn_ln_b=attn_ln_b,
+                    w_qkv=w_qkv, b_qkv=b_qkv, attn_o_w=attn_o_w, attn_o_b=attn_o_b,
+                    cross_ln_g=cross_ln_g, cross_ln_b=cross_ln_b, cross_q_w=cross_q_w,
+                    cross_q_b=cross_q_b, cross_o_w=cross_o_w, cross_o_b=cross_o_b,
+                    k_ring=k_ring, v_ring=v_ring)
+    shapes = {"w_qkv": (w_qkv, (3 * D, D)), "b_qkv": (b_qkv, (3 * D,)),
+              "attn_o_w": (attn_o_w, (D, D)), "cross_q_w": (cross_q_w, (D, D)),
+              "cross_o_w": (cross_o_w, (D, D))}
+    shapes.update({name: (t, (D,)) for name, t in (
+        ("attn_ln_g", attn_ln_g), ("attn_ln_b", attn_ln_b), ("attn_o_b", attn_o_b),
+        ("cross_ln_g", cross_ln_g), ("cross_ln_b", cross_ln_b), ("cross_q_b", cross_q_b),
+        ("cross_o_b", cross_o_b))})
+    for name, (t, shape) in shapes.items():
+        _require(tuple(t.shape) == shape, what, f"{name} is {tuple(t.shape)}, not {shape}")
+    _require(k_ring.dim() == 4 and k_ring.shape[1] == B and k_ring.shape[3] == D
+             and v_ring.shape == k_ring.shape, what,
+             f"rings {tuple(k_ring.shape)}, {tuple(v_ring.shape)} do not match x {tuple(x.shape)}")
+    L, _, C, _ = k_ring.shape
+    _require(0 <= offset <= C and 0 <= layer_idx < L, what,
+             f"offset {offset} or layer {layer_idx} outside the rings {tuple(k_ring.shape)}")
+    _require(ck.dtype == torch.int8 and cv.dtype == torch.int8, what,
+             f"the cross cache must be int8, got {ck.dtype}")
+    _require(ck.dim() == 3 and ck.shape[0] == B and ck.shape[2] == D and cv.shape == ck.shape,
+             what, f"cross cache {tuple(ck.shape)} does not match x {tuple(x.shape)}")
+    T = ck.shape[1]
+    for name, t in (("ck", ck), ("cv", cv)):
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0 and t.device == x.device, what,
+                 f"{name} must be contiguous and 16-byte aligned on {x.device}")
+    for name, t in (("ck_scale", ck_scale), ("cv_scale", cv_scale)):
+        _require(t.dtype == torch.float32 and t.numel() == B * T and t.is_contiguous()
+                 and t.device == x.device, what,
+                 f"{name} must be contiguous fp32 with B*T elements on {x.device}")
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    code = _build.dtype_code(x.dtype)
+    floats = lib.olm_layer_block_scratch(B, D, n_head, T, offset, code)
+    _require(floats > 0, what, f"no launch plan for B={B} D={D} heads={n_head} T={T}")
+    scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    kv_new = torch.empty((2, B, 1, D), dtype=x.dtype, device=x.device)
+    _build.check(lib.olm_layer_block(
+        x.data_ptr(), attn_ln_g.data_ptr(), attn_ln_b.data_ptr(), w_qkv.data_ptr(),
+        b_qkv.data_ptr(), attn_o_w.data_ptr(), attn_o_b.data_ptr(), cross_ln_g.data_ptr(),
+        cross_ln_b.data_ptr(), cross_q_w.data_ptr(), cross_q_b.data_ptr(), cross_o_w.data_ptr(),
+        cross_o_b.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        ck_scale.data_ptr(), cv_scale.data_ptr(), out.data_ptr(), kv_new.data_ptr(),
+        scratch.data_ptr(), L, layer_idx, B, C, offset, D, n_head, T, code,
+        _q_scale(D // n_head), stream,
+    ), what)
+    layer_block_decode.launches += 1
+    return out, kv_new
+
+
+layer_block_decode.launches = 0

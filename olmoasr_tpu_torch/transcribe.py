@@ -14,8 +14,11 @@ fail the fallback gates decode again, at the next temperature. Not ported
 here: the streamed-upload transport (``_StreamedMelGroup``,
 ``_gather_windows_norm``, ``log_mel_chunk_unnorm``; bit-equal to this path
 by design, ROADMAP Queue 1 item 6), word timestamps and the
-hallucination-silence heuristic (item 8), language detection (item 2) and
-the CLI (item 6).
+hallucination-silence heuristic (item 8) and language detection (item 2).
+
+``cli()`` is the command line, ``python -m olmoasr_tpu_torch.transcribe``:
+the JAX package's arguments and defaults (beam search with ``beam_size=5``
+at temperature 0, ``best_of=5`` samples above it), plus ``--device``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from olmoasr_tpu.tokenizer import get_tokenizer
+from olmoasr_tpu.tokenizer import LANGUAGES, get_tokenizer
 from olmoasr_tpu.utils import exact_div, format_timestamp, make_safe
 from olmoasr_tpu_torch.audio import (
     FRAMES_PER_SECOND,
@@ -411,3 +414,108 @@ def transcribe_many(
                 states[i].consume(r)
         active = [i for i in active if not states[i].done]
     return [s.finalize() for s in states]
+
+
+def cli(argv: Optional[List[str]] = None) -> None:
+    """Command line: the JAX package's ``transcribe.cli`` with the same
+    arguments and defaults, plus ``--device`` (PyTorch wants an explicit
+    device; there is no fall back to the CPU). ``--model`` is a local
+    ``.pt`` or ``.npz`` for the port's ``load_model``."""
+    import argparse
+    import os
+
+    from olmoasr_tpu.writers import get_writer
+    from olmoasr_tpu_torch.api import load_model
+
+    def optional_int(s):
+        return None if s == "None" else int(s)
+
+    def optional_float(s):
+        return None if s == "None" else float(s)
+
+    def str2bool(s):
+        return s.lower() in ("true", "1", "yes")
+
+    parser = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter
+    )
+    parser.add_argument("audio", nargs="+", type=str, help="audio file(s) to transcribe")
+    parser.add_argument("--model", default="small.en", help="name or path of the model")
+    parser.add_argument("--model_dir", type=str, default=None)
+    parser.add_argument("--output_dir", "-o", type=str, default=".")
+    parser.add_argument(
+        "--output_format", "-f", type=str, default="all",
+        choices=["txt", "vtt", "srt", "tsv", "json", "all"],
+    )
+    parser.add_argument("--verbose", type=str2bool, default=True)
+    parser.add_argument("--task", type=str, default="transcribe",
+                        choices=["transcribe", "translate"])
+    parser.add_argument("--language", type=str, default=None,
+                        choices=sorted(LANGUAGES.keys()))
+    parser.add_argument("--temperature", type=float, default=0)
+    parser.add_argument("--best_of", type=optional_int, default=5)
+    parser.add_argument("--beam_size", type=optional_int, default=5)
+    parser.add_argument("--patience", type=optional_float, default=None)
+    parser.add_argument("--length_penalty", type=optional_float, default=None)
+    parser.add_argument("--suppress_tokens", type=str, default="-1")
+    parser.add_argument("--initial_prompt", type=str, default=None)
+    parser.add_argument("--condition_on_previous_text", type=str2bool, default=True)
+    parser.add_argument("--temperature_increment_on_fallback", type=optional_float,
+                        default=0.2)
+    parser.add_argument("--compression_ratio_threshold", type=optional_float,
+                        default=2.4)
+    parser.add_argument("--logprob_threshold", type=optional_float, default=-1.0)
+    parser.add_argument("--no_speech_threshold", type=optional_float, default=0.6)
+    parser.add_argument("--word_timestamps", type=str2bool, default=False)
+    parser.add_argument("--prepend_punctuations", type=str, default="\"'“¿([{-")
+    parser.add_argument("--append_punctuations", type=str,
+                        default="\"'.。,，!！?？:：”)]}、")
+    parser.add_argument("--highlight_words", type=str2bool, default=False)
+    parser.add_argument("--max_line_width", type=optional_int, default=None)
+    parser.add_argument("--max_line_count", type=optional_int, default=None)
+    parser.add_argument("--max_words_per_line", type=optional_int, default=None)
+    parser.add_argument("--clip_timestamps", type=str, default="0")
+    parser.add_argument("--hallucination_silence_threshold", type=optional_float,
+                        default=None)
+    parser.add_argument(
+        "--batch_size", type=int, default=1,
+        help="files transcribed concurrently (batched windows on one chip); "
+        "1 = sequential reference behavior",
+    )
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device the model runs on")
+
+    args = parser.parse_args(argv).__dict__
+    model_name = args.pop("model")
+    args.pop("model_dir")  # released names are not downloaded: --model is a path
+    output_dir = args.pop("output_dir")
+    output_format = args.pop("output_format")
+    device = args.pop("device")
+    os.makedirs(output_dir, exist_ok=True)
+
+    temperature = args.pop("temperature")
+    if (increment := args.pop("temperature_increment_on_fallback")) is not None:
+        temperature = tuple(np.arange(temperature, 1.0 + 1e-6, increment))
+    else:
+        temperature = [temperature]
+
+    model = load_model(model_name, device=device)
+    writer = get_writer(output_format, output_dir)
+    word_options = ["highlight_words", "max_line_count", "max_line_width",
+                    "max_words_per_line"]
+    writer_args = {k: args.pop(k) for k in word_options}
+    batch_size = args.pop("batch_size")
+    audio_paths = args.pop("audio")
+    if batch_size > 1 and len(audio_paths) > 1:
+        results = transcribe_many(model, audio_paths, batch_size=batch_size,
+                                  temperature=temperature, **args)
+        for audio_path, result in zip(audio_paths, results):
+            writer(result, audio_path, **writer_args)
+    else:
+        for audio_path in audio_paths:
+            writer(transcribe(model, audio_path, temperature=temperature, **args),
+                   audio_path, **writer_args)
+
+
+if __name__ == "__main__":
+    cli()

@@ -259,13 +259,21 @@ def test_decode_single_window_and_model_entry_point(slice_pair):
     assert logits.shape == (1, 3, V) and logits.dtype == torch.float32
 
 
-@pytest.mark.parametrize("opts", [{"beam_size": 5}, {"beam_size": 2, "best_of": 5},
-                                  {"beam_size": 5, "patience": 2.0}])
+@pytest.mark.parametrize("opts", [{"beam_size": 5, "word_timestamps": True},
+                                  {"beam_size": 2, "best_of": 5,
+                                   "hallucination_silence_threshold": 2.0},
+                                  {"beam_size": 5, "patience": 2.0, "word_timestamps": True}])
 def test_unported_options_raise(slice_pair, opts):
-    """Beam search (the JAX package's path at temperature 0) is not ported."""
-    _, model, mel = slice_pair
+    """Beam search is ported; what beam-search users may still ask for and
+    the port does not take (word timestamps, the hallucination-silence
+    heuristic) raises before anything decodes."""
+    from olmoasr_tpu_torch import transcribe_many
+
+    _, model, _ = slice_pair
+    steps = tm.decode_step.single_steps
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoding.decode(model, mel, decoding.DecodingOptions(fp16=False, **opts))
+        transcribe_many(model, [np.zeros(16000, np.float32)], fp16=False, **opts)
+    assert tm.decode_step.single_steps == steps
 
 
 def test_decode_refuses_a_dtype_mismatch(slice_pair):
@@ -361,3 +369,90 @@ def test_best_of_samples_share_the_window_and_are_ranked(slice_pair, monkeypatch
         assert r.no_speech_prob == pytest.approx(float(p_ns[b, 0]))
     again = decoding.decode(model, mel, opts)
     assert [r.tokens for r in again] == [r.tokens for r in got]
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+BEAM_SAMPLE_LEN = 16
+
+
+def _assert_same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.tokens == w.tokens and g.text == w.text
+        assert abs(g.avg_logprob - w.avg_logprob) < 1e-4
+        assert abs(g.no_speech_prob - w.no_speech_prob) < 1e-4
+        assert g.temperature == w.temperature == 0.0
+
+
+@pytest.mark.parametrize("opts", [
+    {"beam_size": 2},
+    {"beam_size": 3, "kv_quant": True},
+    {"beam_size": 3, "patience": 2.0},
+    {"beam_size": 2, "patience": 2.0, "kv_quant": True, "best_of": 5},
+])
+def test_beam_search_matches_jax_decode(slice_pair, opts):
+    """fp32 beam search through both packages on the same weights: the same
+    hypotheses, scores within 1e-4. ``best_of`` is ignored at temperature 0."""
+    params, model, mel = slice_pair
+    o = dict(fp16=False, sample_len=BEAM_SAMPLE_LEN, **opts)
+    steps = tm.decode_step.single_steps
+    got = decoding.decode(model, mel, decoding.DecodingOptions(**o))
+    # one step per sampled token but the last, and the one-token prefill
+    assert tm.decode_step.single_steps - steps == BEAM_SAMPLE_LEN
+    want = jdec.decode(params, DIMS, mel, jdec.DecodingOptions(**o))
+    _assert_same_results(got, want)
+
+
+def test_beam_search_exits_early_as_jax_does():
+    """A model whose EOT logit is lifted (its embedding row along the final
+    LayerNorm's bias) fills every window's finished pool within a few steps;
+    at the first check, after 32 steps of 40, the worst finished score beats
+    the best live one in every window and both packages stop there."""
+    params = jax.tree.map(np.copy, jax.tree.map(
+        np.asarray, jm.init_params(jax.random.PRNGKey(0), DIMS, include_padding_token=False)))
+    u = np.random.default_rng(7).standard_normal(DIMS.n_text_state).astype(np.float32)
+    params["decoder"]["ln_b"] = u
+    params["decoder"]["token_embedding"][TOK.eot] = 0.15 * u
+    model = _new_model(DIMS, False, "cpu", torch.float32)
+    model.load_state_dict(state_dict_from_jax_params(params, DIMS))
+    mel = (np.random.default_rng(1).standard_normal((2, 80, 3000)) * 0.5).astype(np.float32)
+    o = dict(fp16=False, sample_len=40, beam_size=3)
+    steps = tm.decode_step.single_steps
+    got = decoding.decode(model, mel, decoding.DecodingOptions(**o))
+    assert tm.decode_step.single_steps - steps == 1 + decoding.EXIT_CHECK_EVERY - 1
+    assert all(0 < len(r.tokens) < 40 for r in got)
+    _assert_same_results(got, jdec.decode(params, DIMS, mel, jdec.DecodingOptions(**o)))
+
+
+def test_beam_step_keeps_the_pool_and_the_ancestry():
+    """One hand-made step: 1 window, K=2 beams, a vocabulary of 4 with EOT=3.
+    The pool takes the EOT candidate, the live beams the best two others,
+    the history and the map follow their source beams, and positions from
+    the write index on stay each row's own."""
+    cfg = decoding.FilterConfig(sample_begin=1, eot=3, timestamp_begin=4, no_timestamps=4,
+                                blank_suppress=(), suppress=(), apply_timestamp_rules=False,
+                                max_initial_timestamp_index=None, n_vocab=4)
+    logp = torch.log(torch.tensor([[0.1, 0.2, 0.3, 0.4], [0.05, 0.8, 0.1, 0.05]]))
+    st = decoding._BeamState(
+        tokens=torch.tensor([[0, 2, 3, 3], [1, 1, 3, 3]]),
+        beam_lp=torch.tensor([[-1.0, -0.5]]),
+        fin_tokens=torch.full((1, 2, 4), 3),
+        fin_lp=torch.full((1, 2), decoding._BEAM_NEG),
+        logits=logp,
+        anc=torch.tensor([[0, 1, 0, 0, 0], [1, 0, 1, 1, 1]], dtype=torch.int32),
+    )
+    tok = decoding._beam_step(st, 2, cfg, index=3)
+    # the top 4: beam 1 tok 1 (-0.723), beam 0 tok 3 = EOT (-1.916), beam 0
+    # tok 2 (-2.204), beam 0 tok 1 (-2.609): the live beams are 1 then 0
+    assert tok.tolist() == [1, 2]
+    assert st.tokens.tolist() == [[1, 1, 1, 3], [0, 2, 2, 3]]
+    assert st.anc.tolist() == [[1, 0, 1, 0, 0], [0, 1, 0, 1, 1]]
+    torch.testing.assert_close(st.beam_lp, torch.tensor([[-0.5 + np.log(0.8),
+                                                          -1.0 + np.log(0.3)]],
+                                                        dtype=torch.float32))
+    assert st.fin_tokens[0, 0].tolist() == [0, 2, 3, 3]
+    assert float(st.fin_lp[0, 0]) == pytest.approx(-1.0 + np.log(0.4))
+    assert float(st.fin_lp[0, 1]) <= -1e29  # an empty slot

@@ -38,9 +38,31 @@ def _assert_imports_no_jax(names):
 
 def test_port_never_imports_jax():
     names = _port_modules()
-    assert "olmoasr_tpu_torch.ops.attention" in names and len(names) >= 11
-    assert "olmoasr_tpu_torch.transcribe" in names
+    assert "olmoasr_tpu_torch.ops.attention" in names and len(names) >= 12
+    assert "olmoasr_tpu_torch.transcribe" in names and "olmoasr_tpu_torch.serve" in names
     _assert_imports_no_jax(names)
+
+
+def test_entry_points_import_no_jax():
+    """The server module (it shares the JAX package's framework-free serving
+    pieces) and ``python -m olmoasr_tpu_torch.transcribe --help``."""
+    _assert_imports_no_jax(["olmoasr_tpu_torch.serve"])
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['transcribe', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('olmoasr_tpu_torch.transcribe', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, timeout=120,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert "--beam_size" in proc.stdout and "--device" in proc.stdout
 
 
 def test_long_form_entry_points_import_no_jax():

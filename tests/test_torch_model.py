@@ -21,6 +21,7 @@ from olmoasr_tpu.models.dims import ModelDimensions
 from olmoasr_tpu_torch.api import _new_model
 from olmoasr_tpu_torch.models import whisper as tm
 from olmoasr_tpu_torch.models.convert import state_dict_from_jax_params
+from olmoasr_tpu_torch.ops import attention as tm_attention
 
 DIMS = ModelDimensions(
     n_mels=80, n_audio_ctx=24, n_audio_state=64, n_audio_head=4, n_audio_layer=3,
@@ -86,8 +87,14 @@ def test_init_cache_matches(pair, audio_features, quantize):
 
 
 @pytest.mark.parametrize("quantize", [False, True])
-def test_decode_step_prefill_and_steps_match(pair, audio_features, quantize):
+def test_decode_step_prefill_and_steps_match(pair, audio_features, quantize, monkeypatch):
+    """Over the int8 cross cache the single-token steps take the fused
+    layer_block_decode, one call per layer, as the JAX step takes its layer
+    block there."""
     params, model = pair
+    fused = []
+    monkeypatch.setattr(tm, "layer_block_decode",
+                        lambda *a, **kw: fused.append(1) or tm_attention.layer_block_decode(*a, **kw))
     jcache = jm.init_cache(params, DIMS, jnp.asarray(audio_features), max_len=12,
                            quantize_cross=quantize)
     tcache = tm.init_cache(model, torch.from_numpy(audio_features), max_len=12,
@@ -106,6 +113,7 @@ def test_decode_step_prefill_and_steps_match(pair, audio_features, quantize):
     assert tcache.index == int(jcache.index) == 5
     np.testing.assert_allclose(tcache.self_k[:, :, :5].numpy(),
                                np.asarray(jcache.self_k)[:, :, :5], atol=ATOL, rtol=0)
+    assert len(fused) == (2 * DIMS.n_text_layer if quantize else 0)
 
 
 def test_decode_step_with_shared_cross_cache_matches(pair, audio_features):
@@ -129,6 +137,39 @@ def test_decode_step_with_shared_cross_cache_matches(pair, audio_features):
     assert tm.decode_step.single_steps == steps_before + 2
     np.testing.assert_allclose(tcache.self_v[:, :, :5].numpy(),
                                np.asarray(jcache.self_v)[:, :, :5], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_decode_step_with_beam_ancestry_matches(pair, audio_features, K):
+    """Beam layout: K token rows per window over one cross cache, a prefill
+    of 3 tokens, then 3 single-token steps, each with a freshly permuted
+    ancestry map (random rows below the write position, the identity from
+    it on, as the beam loop keeps it); the same map goes to both packages."""
+    params, model = pair
+    rows = 2 * K
+    jcache = jm.init_cache(params, DIMS, jnp.asarray(audio_features), max_len=12,
+                           self_batch=rows)
+    tcache = tm.init_cache(model, torch.from_numpy(audio_features), max_len=12, self_batch=rows)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, DIMS.n_vocab, (rows, 3))
+    want, jcache = jm.decode_step(params, DIMS, jnp.asarray(toks, jnp.int32), jcache)
+    got = tm.decode_step(model, torch.from_numpy(toks), tcache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    for _ in range(3):
+        index = tcache.index
+        anc = rng.integers(0, K, (rows, 12)).astype(np.int32)
+        anc[:, index:] = np.arange(rows)[:, None] % K
+        toks = rng.integers(0, DIMS.n_vocab, (rows, 1))
+        want, jcache = jm.decode_step(params, DIMS, jnp.asarray(toks, jnp.int32), jcache,
+                                      beam_anc=jnp.asarray(anc))
+        got = tm.decode_step(model, torch.from_numpy(toks), tcache, beam_anc=torch.from_numpy(anc))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert tcache.index == int(jcache.index) == 6
+    np.testing.assert_allclose(tcache.self_k[:, :, :6].numpy(),
+                               np.asarray(jcache.self_k)[:, :, :6], atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="ancestry"):  # a map needs S=1
+        tm.decode_step(model, torch.from_numpy(rng.integers(0, 100, (rows, 2))), tcache,
+                       beam_anc=torch.from_numpy(anc))
 
 
 def test_derived_weights_follow_the_model():

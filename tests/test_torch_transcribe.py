@@ -11,12 +11,21 @@ segments). Then the whole slice: ``transcribe`` and ``transcribe_many`` on
 temperature 0 must give the same segments. As in test_torch_decoding.py the
 test first shows that every greedy step's top-2 margin exceeds the logit
 tolerance, so that identity is what the tolerance predicts. Scores
-(avg_logprob, no_speech_prob, compression_ratio) are held to 1e-4.
+(avg_logprob, no_speech_prob, compression_ratio) are held to 1e-4. The same
+holds with beam search (``beam_size=3, best_of=3``), the CLI's decode.
+
+The command line (``python -m olmoasr_tpu_torch.transcribe``) takes the JAX
+CLI's arguments and defaults plus ``--device``, and writes what the port's
+``transcribe_many`` returns through the shared writers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 import types
 
 import jax
@@ -253,3 +262,79 @@ def test_long_form_matches_jax(pair, audios, monkeypatch, many):
     _assert_margins(jmodel.params, model, calls)
     for g, w in zip(got, want):
         _assert_same_transcripts(g, w)
+
+
+def test_long_form_beam_search_matches_jax(pair, audios):
+    """The CLI's decode, beam_size=3 at t=0 (best_of=3 would sample above
+    it): both files through both packages. The gates are off, so every
+    window is decided by the beam, which both packages compute alike."""
+    jmodel, model = pair
+    opts = dict(temperature=(0.0, 0.2), fp16=False, sample_len=SAMPLE_LEN, beam_size=3,
+                best_of=3, compression_ratio_threshold=None, logprob_threshold=None)
+    steps = tm.decode_step.single_steps
+    got = transcribe_many(model, audios, batch_size=2, **opts)
+    assert tm.decode_step.single_steps > steps
+    want = jtr.transcribe_many(jmodel, audios, batch_size=2, **opts)
+    for g, w in zip(got, want):
+        _assert_same_transcripts(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _help(module: str) -> str:
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=300, check=True)
+    return " ".join(proc.stdout.split())
+
+
+def test_cli_arguments_and_defaults_are_the_jax_clis():
+    """The two --help texts agree word for word once the port's --device
+    (its usage entry and its line) is taken out."""
+    port, orig = _help("olmoasr_tpu_torch.transcribe"), _help("olmoasr_tpu.transcribe")
+    device = "--device DEVICE torch device the model runs on (default: cuda)"
+    assert device in port and "[--device DEVICE]" in port
+    assert port.replace(" " + device, "").replace(" [--device DEVICE]", "") == orig
+
+
+def test_cli_writes_what_transcribe_many_returns(tmp_path, monkeypatch):
+    """The CLI on two short wavs and a micro .npz written by the JAX package:
+    the five writer outputs for each, and JSON equal to the port's own
+    transcribe_many with the same arguments (bf16, beam_size=5 and best_of=5,
+    a two-rung ladder)."""
+    import scipy.io.wavfile as wavfile
+
+    from olmoasr_tpu.models.convert import save_npz_checkpoint
+    from olmoasr_tpu_torch import load_model
+
+    ckpt = str(tmp_path / "micro.npz")
+    save_npz_checkpoint(ckpt, jm.init_params(jax.random.PRNGKey(1), DIMS), DIMS)
+    rng = np.random.default_rng(8)
+    wavs = []
+    for name, seconds in (("a", 3), ("b", 5)):
+        path = str(tmp_path / f"{name}.wav")
+        wavfile.write(path, 16000, (rng.standard_normal(16000 * seconds) * 3000).astype(np.int16))
+        wavs.append(path)
+    out = tmp_path / "out"
+    monkeypatch.setattr(sys, "argv", [
+        "transcribe", *wavs, "--model", ckpt, "-o", str(out), "--device", "cpu",
+        "--batch_size", "2", "--temperature_increment_on_fallback", "1.0", "--verbose", "False",
+    ])
+    tr.cli()
+    assert sorted(os.listdir(out)) == sorted(f"{n}.{ext}" for n in ("a", "b")
+                                             for ext in ("txt", "vtt", "srt", "tsv", "json"))
+    want = transcribe_many(load_model(ckpt), wavs, batch_size=2, temperature=(0.0, 1.0),
+                           verbose=False, beam_size=5, best_of=5)
+    for name, w in zip(("a", "b"), want):
+        with open(out / f"{name}.json", encoding="utf-8") as f:
+            got = json.load(f)
+        assert got == json.loads(json.dumps(w))
+        assert set(got) == {"text", "segments", "language"} and got["segments"]
+        for seg in got["segments"]:
+            assert {"id", "seek", "start", "end", "text", "tokens", "temperature",
+                    "avg_logprob", "compression_ratio", "no_speech_prob"} <= set(seg)
