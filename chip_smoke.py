@@ -7,7 +7,8 @@ printed line each (or a few):
    versions, the kernels compiled from ``olmoasr_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch twin at the slices' shapes, with
    the tolerance and the device times of both (CUDA events around replays of
-   a CUDA graph of one call, median of 11 runs): the beam-ancestry
+   a CUDA graph of one call, median of 11 runs): the attention forward and
+   backward at the three training shapes, the beam-ancestry
    ``self_attend_decode``, the fused ``layer_block_decode`` (beside the time
    of the split kernels it replaces) and the int8 q.K ``cross_block_decode``
    included, the last also on a case where the int8 and the exact q.K
@@ -31,7 +32,17 @@ printed line each (or a few):
    port on the GPU (kernels) and on the CPU (plain twins), 2 windows with 2
    token rows each (the shared cross cache), then 2 windows over an int8
    cross cache (the fused launch);
-6. the entry points: the seeded small.en written as a reference ``.pt``;
+6. the training slice: small.en at full width and depth through
+   ``train_loop.main`` on 256 synthetic samples (micro batch 16, effective
+   32, remat), 6 steps and a resumed seventh; the attention forward and
+   backward launches of every step, the parameters after steps 1 (lr 0) and
+   2, audio-seconds and tokens a second over steps 2-5 with the loader's
+   waits, each step's wall and the loader's work inside it, one step with
+   the loader held back, peak memory, the kernels' device time
+   (``torch.profiler``, the resumed step) and the step's FLOPs against 989
+   TFLOP/s; then an fp32 ``loss_fn`` and backward of a narrow model on the
+   card against the CPU twins;
+7. the entry points: the seeded small.en written as a reference ``.pt``;
    the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
    files, and the HTTP server (``python -m olmoasr_tpu_torch.serve``, int8
    cross K/V and ``beam_size=5``) answering 4 concurrent requests, each in
@@ -39,7 +50,13 @@ printed line each (or a few):
 
 Each slice sets every launch count to 0 before it runs and reads them after;
 the ``launches`` of the kernels line are those of the path that runs the
-kernel: the long-form slice's, and the server traffic's for the fused launch.
+kernel: the long-form slice's, the server traffic's for the fused launch and
+the training step's for the attention backward. Every kernel in that line
+carries its bound (the least time the card could take for its main case:
+bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
+larger) and ``library_ms``, the time of one PyTorch call computing the same
+function where there is one (``scaled_dot_product_attention`` for the
+attention forward and backward), else null.
 
 ``python3 chip_smoke.py --ab TREE`` instead compares the kernels of another
 checkout (for example the parent commit, unpacked with ``git archive`` into a
@@ -165,8 +182,19 @@ def check_mlp(gen) -> list:
         )
         got, want = mlp_block(*args), mlp_block_plain(*args)
         cases.append(_case("mlp_block", dtype, got, want,
-                           lambda: mlp_block(*args), lambda: mlp_block_plain(*args)))
+                           lambda: mlp_block(*args), lambda: mlp_block_plain(*args),
+                           (nbytes(*args, got), 4 * B * D * Fd, dtype)))
     return cases
+
+
+def _cross_bound(args, got, kv_group=1):
+    """(bytes, operations, dtype) of cross_block_decode: LN, the q and out
+    projections of every token row, and q.K and P.V over its window's keys."""
+    x, g, b, wq, bq, wo, bo, ck, cv, ks, vs, _ = args
+    R, D, T = x.shape[0], x.shape[-1], ck.shape[1]
+    scales = (ks, vs) if ck.dtype == torch.int8 else ()
+    return (nbytes(x, g, b, wq, bq, wo, bo, ck, cv, *scales, got), 4 * R * D * D + 4 * R * T * D,
+            x.dtype)
 
 
 def check_cross(gen) -> list:
@@ -197,7 +225,7 @@ def check_cross(gen) -> list:
         got, want = cross_block_decode(*args), cross_block_decode_plain(*args)
         cases.append(_case("cross_block_decode", (act, kv), got, want,
                            lambda: cross_block_decode(*args),
-                           lambda: cross_block_decode_plain(*args)))
+                           lambda: cross_block_decode_plain(*args), _cross_bound(args, got)))
     # best_of samples and beams: 5 token rows over each of 16 cache rows, in
     # bf16 and over the int8 cache of a served request (int8 q.K)
     G, Bc = 5, 16
@@ -213,7 +241,8 @@ def check_cross(gen) -> list:
         what = (torch.bfloat16, kv, f"kv_group={G}, {Bc * G} rows")
         cases.append(_case("cross_block_decode", what, got, want,
                            lambda: cross_block_decode(*args, **kw),
-                           lambda: cross_block_decode_plain(*args, **kw)))
+                           lambda: cross_block_decode_plain(*args, **kw),
+                           _cross_bound(args, got, G)))
     return cases
 
 
@@ -261,7 +290,7 @@ def check_int8_qk(gen) -> list:
                                             f"outlier q, kv_group={G}, {B * G} rows"),
                      got, cross_block_decode_plain(*args, **kw),
                      lambda: cross_block_decode(*args, **kw),
-                     lambda: cross_block_decode_plain(*args, **kw))
+                     lambda: cross_block_decode_plain(*args, **kw), _cross_bound(args, got, G))
         case["exact_q_err"] = max_err(got, exact)
         print(f"    against the exact-q twin: max_abs_err {case['exact_q_err']:.3e} "
               f"(must exceed {EXACT_Q_MARGIN} x tol)")
@@ -306,6 +335,17 @@ def _chain(args, offset, layer, H):
     return A.cross_block_decode(x, g2, b2, wq, bq, wo2, bo2, ck, cv, ks, vs, H)
 
 
+def _layer_bound(args, got, offset):
+    """(bytes, operations, dtype) of layer_block_decode: the self and cross
+    sub-blocks' weights, one layer's rings up to ``offset``, the int8 cross
+    cache and its scales; the projections and both attentions."""
+    x, *w, kr, vr, ck, cv, ks, vs = args
+    B, D, T = x.shape[0], x.shape[-1], ck.shape[1]
+    rings = 2 * B * offset * D * kr.element_size()
+    ops = 2 * B * D * D * 6 + 4 * B * (offset + 1) * D + 4 * B * T * D
+    return nbytes(x, *w, ck, cv, ks, vs, got) + rings, ops, x.dtype
+
+
 def check_layer_block(gen) -> list:
     """The fused self + cross sub-blocks at the greedy int8 step's shapes
     (B=64, rings L=12 C=225, layer 7, T=1500), out and the new key and value
@@ -323,7 +363,8 @@ def check_layer_block(gen) -> list:
             case = _case("layer_block_decode", (dtype, f"int8 cross, B=64 T=1500, rings L=12 "
                                                        f"C=225 layer {layer} offset {offset}"),
                          got, want, lambda: layer_block_decode(*full, n_head=H),
-                         lambda: layer_block_decode_plain(*full, n_head=H))
+                         lambda: layer_block_decode_plain(*full, n_head=H),
+                         _layer_bound(args, got, offset))
             case["chain_ms"] = timed_ms(lambda: _chain(args, offset, layer, H))
             print(f"    the split kernels' chain at the same shapes: {case['chain_ms']:.4f} ms")
             cases.append(case)
@@ -346,7 +387,12 @@ def check_attention(gen) -> list:
         want = train_attention_fwd_plain(q, k, v, H, **kw)
         cases.append(_case("train_attention_fwd", (dtype, f"enc valid_len={valid_len}"),
                            got, want, lambda: train_attention_fwd(q, k, v, H, **kw),
-                           lambda: train_attention_fwd_plain(q, k, v, H, **kw)))
+                           lambda: train_attention_fwd_plain(q, k, v, H, **kw),
+                           _attention_bound(q, k, v, got, valid_len=valid_len)))
+        if not cases[1:]:  # the main path's case: beside it, one library call
+            cases[0]["library_ms"] = _sdpa_ms(q, k, v, None, H, False, None)
+            print(f"    scaled_dot_product_attention at the same shape: "
+                  f"{cases[0]['library_ms']:.4f} ms")
         del q, k, v, got, want
     B, T = 16, 448
     q, k, v = (torch.randn(B, T, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(3))
@@ -357,7 +403,95 @@ def check_attention(gen) -> list:
     want = train_attention_fwd_plain(q, k, v, H, **kw)
     cases.append(_case("train_attention_fwd", (torch.bfloat16, "causal+key_bias T=448"), got,
                        want, lambda: train_attention_fwd(q, k, v, H, **kw),
-                       lambda: train_attention_fwd_plain(q, k, v, H, **kw)))
+                       lambda: train_attention_fwd_plain(q, k, v, H, **kw),
+                       _attention_bound(q, k, v, got, causal=True, bias=key_bias)))
+    # training's cross attention: the decoder's 448 queries over 1500 audio keys
+    k, v = (torch.randn(B, 1500, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
+    got = train_attention_fwd(q, k, v, H)
+    cases.append(_case("train_attention_fwd", (torch.bfloat16, "cross 448x1500 B=16"), got,
+                       train_attention_fwd_plain(q, k, v, H),
+                       lambda: train_attention_fwd(q, k, v, H),
+                       lambda: train_attention_fwd_plain(q, k, v, H),
+                       _attention_bound(q, k, v, got)))
+    return cases
+
+
+def _attention_bound(q, k, v, *outs, causal=False, bias=None, valid_len=None, products=2):
+    """(bytes, operations, dtype) of ``products`` matrix products of
+    2 Tq Tk dh per (b, h) (2 in the forward, 5 in the backward) over the keys
+    the call needs: those below ``valid_len``, and with the causal mask the
+    lower triangle only."""
+    B, Tq, D = q.shape
+    Tk = k.shape[1] if valid_len is None else valid_len
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    return nbytes(q, k, v, bias, *outs), products * 2 * B * pairs * D, q.dtype
+
+
+def _sdpa_ms(q, k, v, do, H, causal, key_bias) -> float:
+    """Time of torch's scaled_dot_product_attention at the same shapes (the
+    port never calls it; it does not round P to bf16): the forward, or with
+    ``do`` its backward, as the forward-and-backward less the forward. The
+    causal mask and the key bias ride in one boolean mask."""
+    import torch.nn.functional as F
+
+    B, Tq, D = q.shape
+    Tk, dh = k.shape[1], D // H
+    heads = lambda t: t.detach().view(B, -1, H, dh).transpose(1, 2).requires_grad_(do is not None)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    mask = None
+    if causal or key_bias is not None:
+        mask = torch.ones(B, 1, Tq, Tk, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        if key_bias is not None:
+            mask &= (key_bias > float("-inf"))[:, None, None, :]
+    fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    if do is None:
+        with torch.no_grad():
+            return events_ms(fwd)
+    gh = do.view(B, Tq, H, dh).transpose(1, 2)
+    both = events_ms(lambda: torch.autograd.grad(fwd(), (qh, kh, vh), gh))
+    with torch.no_grad():
+        return both - events_ms(fwd)
+
+
+def check_attention_bwd(gen) -> list:
+    """The backward kernel at small.en's width and the training shapes: the
+    encoder (1500 x 1500, at the training micro batch of 16 and at B=4), the
+    decoder's causal self-attention with the loader's suffix-pad bias (B=16,
+    448, text lengths 20-448), the cross attention (B=16, 448 x 1500), all
+    bf16, and the decoder self case in fp32; beside each, torch's
+    scaled_dot_product_attention backward. In fp32 the kernel still rounds
+    ds and pn to bf16, so a few elements may flip by one bf16 step."""
+    from olmoasr_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain,
+    )
+
+    D, H, cases = 768, 12, []
+    lengths = torch.linspace(20, 448, 16).round()
+    pad_bias = torch.where(torch.arange(448)[None] < lengths[:, None], 0.0,
+                           float("-inf")).cuda()
+    for label, dtype, B, Tq, Tk, causal, bias in (
+            ("encoder 1500x1500, B=16", torch.bfloat16, 16, 1500, 1500, False, None),
+            ("encoder 1500x1500, B=4", torch.bfloat16, 4, 1500, 1500, False, None),
+            ("decoder self 448 causal + pad bias, B=16", torch.bfloat16, 16, 448, 448, True,
+             pad_bias),
+            ("cross 448x1500, B=16", torch.bfloat16, 16, 448, 1500, False, None),
+            ("decoder self 448 causal + pad bias, B=16", torch.float32, 16, 448, 448, True,
+             pad_bias)):
+        q, do = (torch.randn(B, Tq, D, generator=gen).to("cuda", dtype) for _ in range(2))
+        k, v = (torch.randn(B, Tk, D, generator=gen).to("cuda", dtype) for _ in range(2))
+        args = (q, k, v, do, H, causal, bias)
+        got, want = train_attention_bwd(*args), train_attention_bwd_plain(*args)
+        case = _case("train_attention_bwd", (dtype, label), got, want,
+                     lambda: train_attention_bwd(*args), lambda: train_attention_bwd_plain(*args),
+                     _attention_bound(q, k, v, do, *got, causal=causal, bias=bias, products=5),
+                     flips=dtype == torch.float32)
+        case["library_ms"] = _sdpa_ms(*args)
+        print(f"    scaled_dot_product_attention backward at the same shape: "
+              f"{case['library_ms']:.4f} ms")
+        cases.append(case)
+        del q, k, v, do, got, want
     return cases
 
 
@@ -382,7 +516,8 @@ def check_self_sub_block(gen) -> dict:
         qkv = ln_matmul(*args)
         cases["ln_matmul"].append(_case(
             "ln_matmul", (dtype, f"B={B} D={D} N={3 * D}"), qkv, ln_matmul_plain(*args),
-            lambda: ln_matmul(*args), lambda: ln_matmul_plain(*args)))
+            lambda: ln_matmul(*args), lambda: ln_matmul_plain(*args),
+            (nbytes(*args, qkv), 2 * B * D * 3 * D, dtype)))
         q, kn, vn = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
         rings = [torch.randn(L, B, C, D, generator=gen).to("cuda", dtype) for _ in range(2)]
         for offset in (224, 100, 1):
@@ -392,16 +527,27 @@ def check_self_sub_block(gen) -> dict:
                 "self_attend_decode", (dtype, f"ring L={L} B={B} C={C} layer {layer} offset {offset}"),
                 attn, self_attend_decode_plain(*sa, n_head=H),
                 lambda: self_attend_decode(*sa, n_head=H),
-                lambda: self_attend_decode_plain(*sa, n_head=H)))
+                lambda: self_attend_decode_plain(*sa, n_head=H), _self_bound(sa, attn)))
         del rings
         wo, bo = _weights(gen, D, D, fan_in=D, dtype=dtype), \
             (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype)
         mr = (attn, x, wo, bo)
+        out = matmul_residual(*mr)
         cases["matmul_residual"].append(_case(
-            "matmul_residual", (dtype, f"B={B} D={D}"), matmul_residual(*mr),
+            "matmul_residual", (dtype, f"B={B} D={D}"), out,
             matmul_residual_plain(*mr), lambda: matmul_residual(*mr),
-            lambda: matmul_residual_plain(*mr)))
+            lambda: matmul_residual_plain(*mr), (nbytes(*mr, out), 2 * B * D * D, dtype)))
     return cases
+
+
+def _self_bound(sa, out, anc=None):
+    """(bytes, operations, dtype) of self_attend_decode: q, the new key and
+    value, one layer's rings up to the offset (and the ancestry map's
+    columns up to it), the output; q.K and P.V over offset + 1 positions."""
+    q, kr, _, kn, vn, offset, _ = sa
+    B, D = q.shape[0], q.shape[-1]
+    rings = 2 * B * offset * D * kr.element_size() + (0 if anc is None else B * offset * 4)
+    return nbytes(q, kn, vn, out) + rings, 4 * B * (offset + 1) * D, q.dtype
 
 
 def check_self_ancestry(gen) -> list:
@@ -421,13 +567,14 @@ def check_self_ancestry(gen) -> list:
         for offset in offsets:
             sa = (q, *rings, kn, vn, offset, layer)
             kw = dict(n_head=H, beam_anc=anc, beam_k=K)
+            got = self_attend_decode(*sa, **kw)
             cases.append(_case(
                 "self_attend_decode_beam",
                 (dtype, f"ring L={L} B={B} ({B // K} windows x {K} beams) C={C} layer {layer} "
                         f"offset {offset}"),
-                self_attend_decode(*sa, **kw), self_attend_decode_plain(*sa, **kw),
+                got, self_attend_decode_plain(*sa, **kw),
                 lambda: self_attend_decode(*sa, **kw),
-                lambda: self_attend_decode_plain(*sa, **kw)))
+                lambda: self_attend_decode_plain(*sa, **kw), _self_bound(sa, got, anc)))
         del rings
     return cases
 
@@ -437,22 +584,83 @@ def check_self_ancestry(gen) -> list:
 # which moves an output by up to p/l * 2^-8 * |v| (about 1e-4 at these shapes)
 FP32_TOL = {"mlp_block": 1e-4, "cross_block_decode": 1e-4, "train_attention_fwd": 1e-3,
             "ln_matmul": 1e-4, "matmul_residual": 1e-4, "self_attend_decode": 1e-4,
-            "self_attend_decode_beam": 1e-4, "layer_block_decode": 1e-4}
+            "self_attend_decode_beam": 1e-4, "layer_block_decode": 1e-4,
+            "train_attention_bwd": 2.0 ** -6}
+# the backward rounds ds and pn to bf16 even for fp32 inputs: where kernel and
+# twin differ in the last fp32 bit a few elements flip by one bf16 step (two
+# steps at the largest magnitude above); every other element agrees to 1e-5
+FLIP_TOL, FLIP_SHARE = 1e-5, 0.01
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 
-def _case(name, what, got, want, kernel_fn, plain_fn) -> dict:
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved_bytes: float, ops: float, dtype) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``moved_bytes`` (each input read once, each output written once) and
+    do ``ops`` operations at the peak rate of ``dtype``."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S
+    by_ops = ops / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _agrees(got, want, tol, flips: bool) -> bool:
+    err = (got.float() - want.float()).abs()
+    if not flips:
+        return bool(err.max() <= tol)
+    scale = float(want.float().abs().max())
+    return bool(err.max() <= tol) and float((err > FLIP_TOL * scale).float().mean()) <= FLIP_SHARE
+
+
+def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False) -> dict:
+    """The kernel's output(s) against the twin's, and both timed. ``got`` and
+    ``want`` may be tuples (each part held to its own tolerance);
+    ``bound_of`` is (bytes, operations, dtype) of the call; ``flips`` allows
+    FLIP_SHARE of the elements past FLIP_TOL (see there)."""
     torch.cuda.synchronize()
-    err = max_err(got, want)
-    fp32 = got.dtype == torch.float32
-    tol = FP32_TOL[name] * max(1.0, float(want.float().abs().max())) if fp32 else bf16_tol(want)
-    finite = bool(torch.isfinite(got).all())
+    parts = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    fp32 = parts[0][0].dtype == torch.float32
+    errs, tols, ok = [], [], True
+    for g, w in parts:
+        tol = FP32_TOL[name] * max(1.0, float(w.float().abs().max())) if fp32 else bf16_tol(w)
+        errs.append(max_err(g, w))
+        tols.append(tol)
+        ok = ok and bool(torch.isfinite(g).all()) and _agrees(g, w, tol, flips)
+    err, tol = max(errs), min(tols)
     ms, plain_ms = timed_ms(kernel_fn), timed_ms(plain_fn)
+    out = {"what": str(what), "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+    if bound_of is not None:
+        out["bound_ms"], out["bound_by"] = bound(*bound_of)
     print(f"  {name} {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    if not finite or not err <= tol:
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+          + (f" bound {out['bound_ms']:.4f} ms ({out['bound_by']})" if bound_of else ""))
+    if not ok:
         fail(f"{name} {what}: kernel disagrees with its plain twin "
-             f"(max_abs_err {err}, tol {tol}, finite {finite})")
-    return {"what": str(what), "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+             f"(max_abs_err {errs}, tol {tols})")
+    return out
+
+
+def events_ms(fn) -> float:
+    """Median device time of one eager call of ``fn`` in ms over RUNS runs,
+    between CUDA events: for a library call whose autograd graph is not
+    captured (its kernels take milliseconds, so the launch cost is small)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def phase_kernels() -> dict:
@@ -463,6 +671,7 @@ def phase_kernels() -> dict:
         "layer_block_decode": check_layer_block(gen),
         "mlp_block": check_mlp(gen),
         "train_attention_fwd": check_attention(gen),
+        "train_attention_bwd": check_attention_bwd(gen),
         **check_self_sub_block(gen),
         "self_attend_decode_beam": check_self_ancestry(gen),
     }
@@ -490,6 +699,7 @@ def _counters():
 
     kernels = {name: getattr(attention, name) for name in DECODE_KERNELS}
     kernels["train_attention_fwd"] = train_attention.train_attention_fwd
+    kernels["train_attention_bwd"] = train_attention.train_attention_bwd
     return kernels, whisper.decode_step
 
 
@@ -913,7 +1123,361 @@ def phase_teacher_forced() -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 6
+# phase 6: the training slice
+# ---------------------------------------------------------------------------
+
+WORDS = ("the", "of", "and", "to", "in", "speech", "model", "audio", "train", "token", "window",
+         "small", "noise", "seed", "card", "step")
+
+
+def _vtt(rng, seconds: float) -> str:
+    """1-12 cues of seeded words spread over the clip."""
+    n = int(rng.integers(1, 13))
+    edges = np.sort(rng.uniform(0, seconds, 2 * n))
+    cues = []
+    for a, b in edges.reshape(n, 2):
+        ts = lambda s: f"{int(s // 3600):02d}:{int(s // 60 % 60):02d}:{s % 60:06.3f}"
+        cues.append(f"{ts(a)} --> {ts(b)}\n{' '.join(rng.choice(WORDS, int(rng.integers(1, 9))))}\n")
+    return "WEBVTT\n\n" + "\n".join(cues)
+
+
+def write_shards(root: str, n: int = 64, seed: int = 5) -> str:
+    """n samples of seeded int16 noise of 5-30 s with VTT transcripts, as
+    the JAX package's loader reads them (audio .npy + a gzip JSONL shard)."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        seconds = float(rng.uniform(5, 30))
+        path = os.path.join(root, f"a{i}.npy")
+        np.save(path, (rng.standard_normal(int(16000 * seconds)) * 2000).astype(np.int16))
+        rows.append({"audio_file": path, "transcript": _vtt(rng, seconds), "ext": "vtt"})
+    shard = os.path.join(root, "shard0.jsonl.gz")
+    with gzip.open(shard, "wt") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return shard
+
+
+# 8 steps of data: the loader builds batches through every step the smoke runs,
+# as it does in a real run (its epoch never ends inside the window)
+TRAIN_SAMPLES, TRAIN_MICRO, TRAIN_BATCH, TRAIN_STEPS = 256, 16, 32, 6
+ATTN_KERNELS = ("attn_fwd_bf16_kernel", "attn_fwd_f32_kernel", "attn_bwd_dq_kernel",
+                "attn_bwd_dkv_kernel")
+
+
+class LoaderWatch:
+    """Wraps ``AudioTextDataset.__getitem__``, the loader's work for one
+    sample (audio, log-mel, tokens, on its worker threads), to record when it
+    ran; ``pause`` holds new samples back and waits for those in flight, so
+    that one step can run with the loader quiet."""
+
+    def __init__(self, dataset_cls):
+        self.cls, self.orig = dataset_cls, dataset_cls.__getitem__
+        self.spans: list = []
+        self.lock = threading.Lock()
+        self.paused, self.inflight = False, 0
+
+    def __enter__(self):
+        def getitem(dataset, index):
+            while True:
+                with self.lock:
+                    if not self.paused:
+                        self.inflight += 1
+                        break
+                time.sleep(0.002)
+            t0 = time.perf_counter()
+            try:
+                return self.orig(dataset, index)
+            finally:
+                with self.lock:
+                    self.inflight -= 1
+                    self.spans.append((t0, time.perf_counter()))
+
+        self.cls.__getitem__ = getitem
+        return self
+
+    def __exit__(self, *exc):
+        self.resume()
+        self.cls.__getitem__ = self.orig
+
+    def pause(self):
+        with self.lock:
+            self.paused = True
+        while True:
+            with self.lock:
+                if not self.inflight:
+                    return
+            time.sleep(0.002)
+
+    def resume(self):
+        with self.lock:
+            self.paused = False
+
+    def busy_s(self, t0: float, t1: float) -> float:
+        """Seconds of [t0, t1] in which the loader was building a sample."""
+        with self.lock:
+            spans = sorted((max(a, t0), min(b, t1)) for a, b in self.spans if b > t0 and a < t1)
+        total, end = 0.0, t0
+        for a, b in spans:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+
+def phase_training() -> dict:
+    """small.en at full width and depth (768 wide, 12 + 12 layers, 1500 / 448
+    positions) through ``train_loop.main`` on the card: 256 samples, micro
+    batch 16, effective batch 32 (2 micro-batches a step), remat, 6 steps,
+    then a resumed run of 1 step. Each step is wrapped to read the attention
+    kernels' launches, the parameters and its start and end; the loader's
+    per-sample work is watched (:class:`LoaderWatch`). Step 1 is the
+    warm-up; steps 2-5 are the window, timed end to end with the loader's
+    waits; step 6 runs with the loader held back, so its wall against the
+    window's says what the loader's threads cost the step; the resumed step
+    runs under the profiler, for the kernels' device time."""
+    import statistics as stats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+    from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
+    from olmoasr_tpu_torch.training import dataset as dataset_mod
+    from olmoasr_tpu_torch.training import train as train_mod
+    from olmoasr_tpu_torch.training import train_loop
+
+    dims = VARIANT_TO_DIMS["small.en"]
+    make_step = train_mod.make_train_step
+    steps: list = []
+    profiled: dict = {}
+    initial: list = []
+
+    def watched(dims_, config):
+        step_fn = make_step(dims_, config)
+
+        def step(state, batch):
+            kernels, _ = _counters()
+            n = state.step + 1
+            if n == 1:
+                initial.extend(p.detach().clone() for p in state.model.parameters())
+            quiet = n == TRAIN_STEPS
+            if quiet:
+                watch.pause()
+            try:
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if n == TRAIN_STEPS + 1:
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        state, metrics = step_fn(state, batch)
+                        torch.cuda.synchronize()
+                    # kernels only: the optimizer's record_function range shows on
+                    # the device's timeline too, over kernels that are counted already
+                    profiled["events"] = [
+                        (e.name, e.time_range.elapsed_us()) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and "#" not in e.name
+                        and not getattr(e, "is_user_annotation", False)]
+                else:
+                    state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            finally:
+                if quiet:
+                    watch.resume()
+            row = {"step": state.step, "t0": t0, "t1": t1, "wall_s": t1 - t0,
+                   "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                   "lr": float(metrics["lr"]),
+                   "fwd": kernels["train_attention_fwd"].launches,
+                   "bwd": kernels["train_attention_bwd"].launches,
+                   "tokens": int((batch["text_target"] != PADDING_TOKEN).sum()), "quiet": quiet}
+            same = lambda: all(torch.equal(a, p) for a, p in
+                               zip(initial, state.model.parameters()))
+            if n == 1:
+                row["unchanged"] = same()
+            elif n == 2:
+                row["changed"] = not same()
+                initial.clear()
+            steps.append(row)
+            return state, metrics
+
+        return step
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, LoaderWatch(dataset_mod.AudioTextDataset) as watch:
+        shards = write_shards(tmp, n=TRAIN_SAMPLES)
+        kwargs = dict(variant="small.en", train_shards=shards, exp_name="smoke",
+                      micro_batch_size=TRAIN_MICRO, eff_batch_size=TRAIN_BATCH, remat=True,
+                      ckpt_dir=os.path.join(tmp, "ckpt"), ckpt_every=0, log_every=1,
+                      device="cuda")
+        train_mod.make_train_step = watched
+        os.chdir(tmp)  # the metrics logger writes logs/ under the working directory
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            first = train_loop.main(**kwargs, max_steps_this_run=TRAIN_STEPS)
+            peak = torch.cuda.max_memory_allocated()
+            resumed = train_loop.main(**kwargs, max_steps_this_run=1)
+        finally:
+            train_mod.make_train_step = make_step
+            os.chdir(here)
+        # the gap before a step: the loader's wait and the batch's copy to the
+        # card (before step 1: the set-up, the model's init and the first batch)
+        for prev_end, row in zip([start] + [r["t1"] for r in steps], steps[:TRAIN_STEPS]):
+            row["gap_s"] = row["t0"] - prev_end
+        for row in steps:
+            row["loader_busy_s"] = watch.busy_s(row["t0"], row["t1"])
+        sample_s = [b - a for a, b in watch.spans]
+    for row in steps:
+        print(f"  step {row['step']}: loss {row['loss']:.4f} grad_norm {row['grad_norm']:.4f} "
+              f"lr {row['lr']:.3e} wall {row['wall_s']:.3f} s"
+              + (f" after a gap of {row['gap_s']:.3f} s" if "gap_s" in row else "")
+              + f", the loader busy {row['loader_busy_s']:.3f} s of it"
+              + (" (held back)" if row["quiet"] else "")
+              + f"; attention launches {row['fwd']} forward {row['bwd']} backward, "
+                f"{row['tokens']} target tokens")
+    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 2)):
+        fail(f"training: steps {[r['step'] for r in steps]}, expected 1-{TRAIN_STEPS + 1}")
+    if first["global_step"] != TRAIN_STEPS or resumed["global_step"] != TRAIN_STEPS + 1:
+        fail(f"training: global steps {first['global_step']} then {resumed['global_step']}; "
+             f"the resumed run must continue at step {TRAIN_STEPS + 1}")
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    for row in steps:
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            fail(f"training: step {row['step']} loss {row['loss']} grad_norm {row['grad_norm']}")
+        # per micro-batch: 36 attention forwards, 36 more in the remat
+        # recompute, 36 backwards (12 encoder, 12 self, 12 cross)
+        want = (micro * 72, micro * 36)
+        if (row["fwd"], row["bwd"]) != want:
+            fail(f"training: step {row['step']} attention launches {(row['fwd'], row['bwd'])}, "
+                 f"expected {want}")
+    if not steps[0]["unchanged"] or steps[0]["lr"] != 0.0:
+        fail("training: step 1 (lr 0) changed the parameters")
+    if not steps[1]["changed"]:
+        fail("training: step 2 left the parameters as they were")
+
+    window = steps[1:TRAIN_STEPS - 1]
+    window_s = window[-1]["t1"] - steps[0]["t1"]
+    per_step = window_s / len(window)
+    wall = stats.median(r["wall_s"] for r in window)
+    quiet_wall = steps[TRAIN_STEPS - 1]["wall_s"]
+    flops = train_mod.train_flops_per_sample(dims) * TRAIN_BATCH
+    by_kernel: dict = {}
+    for name, us in profiled.get("events", []):
+        base = _kernel_base_name(name)
+        by_kernel[base] = by_kernel.get(base, 0.0) + us / 1e3
+    kernel_ms = sum(by_kernel.values())
+    attn_ms = {k: v for k, v in by_kernel.items() if k in ATTN_KERNELS}
+    # the profiler slows the host of its step many times over, not the
+    # device: the idle shares set the profiled step's kernel time against the
+    # window's time a step, and against the wall of the step run quiet
+    idle = 1 - kernel_ms / 1e3 / per_step if kernel_ms else None
+    idle_quiet = 1 - kernel_ms / 1e3 / quiet_wall if kernel_ms else None
+    out = {"warmup_step_s": steps[0]["wall_s"], "setup_s": steps[0]["gap_s"],
+           "window_s": window_s, "window_steps": len(window), "window_step_s": per_step,
+           "audio_s_per_s": TRAIN_BATCH * 30 / per_step,
+           "tokens_per_s": sum(r["tokens"] for r in window) / window_s,
+           "step_wall_s": wall, "quiet_step_wall_s": quiet_wall,
+           "loader_sample_s": stats.median(sample_s), "loader_samples": len(sample_s),
+           "peak_memory_gb": peak / 1e9,
+           "flops_share": flops / per_step / PEAK_OPS_PER_S[torch.bfloat16],
+           "attention_ms_per_step": attn_ms, "kernel_ms_per_step": kernel_ms or None,
+           "device_idle": idle, "device_idle_quiet": idle_quiet,
+           "profiled_step_wall_s": steps[-1]["wall_s"], "steps": steps,
+           "launches": {"train_attention_fwd": steps[1]["fwd"],
+                        "train_attention_bwd": steps[1]["bwd"]}}
+    print(f"training: small.en bf16, micro batch {TRAIN_MICRO} x {micro}, remat: set-up "
+          f"{out['setup_s']:.3f} s, warm-up step {out['warmup_step_s']:.3f} s; steps 2-"
+          f"{TRAIN_STEPS - 1} with the loader's waits {window_s:.3f} s = {per_step:.3f} s a step, "
+          f"{out['audio_s_per_s']:.1f} audio-s/s, {out['tokens_per_s']:.0f} target tokens/s, "
+          f"{flops / 1e12:.1f} TFLOP a step = {100 * out['flops_share']:.1f}% of 989 TFLOP/s; "
+          f"in-step wall {wall:.3f} s (median), {quiet_wall:.3f} s with the loader held back; "
+          f"the loader {out['loader_sample_s'] * 1e3:.1f} ms a sample (median of "
+          f"{len(sample_s)}); peak memory {out['peak_memory_gb']:.2f} GB")
+    if kernel_ms:
+        print(f"  profiled step {TRAIN_STEPS + 1} (wall {steps[-1]['wall_s']:.3f} s under the "
+              f"profiler): kernels {kernel_ms:.1f} ms, so the device is idle {100 * idle:.1f}% "
+              f"of the window's step and {100 * idle_quiet:.1f}% of the quiet step; attention "
+              f"kernels " + ", ".join(f"{k} {v:.1f} ms" for k, v in attn_ms.items()))
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {name}: {ms:.2f} ms")
+    else:
+        print("  the profiler recorded no device events: attention kernel time not measured")
+    return out
+
+
+GRAD_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=256, n_audio_head=4,
+                 n_audio_layer=2, n_vocab=51864, n_text_ctx=448, n_text_state=256,
+                 n_text_head=4, n_text_layer=2)
+LOSS_TOL, GRAD_TOL = 1e-4, 1e-3  # relative to the loss, to the largest gradient
+
+
+def phase_train_fp32() -> dict:
+    """One ``loss_fn`` and its backward at fp32 compute for a narrow model
+    (2 + 2 layers, width 256 in 4 heads of 64, 1500 / 448 positions), 2
+    samples, on the card (kernels) and on the CPU (twins) from the same
+    weights and batch: the loss, and the largest error over all gradients
+    against their largest magnitude. The attention backward rounds ds and pn
+    to bf16 even in fp32, so a last-bit difference flips a few of them by one
+    bf16 step. The loss is held to LOSS_TOL, the gradients to GRAD_TOL: that
+    floor, measured on the CPU twins themselves as the gradients' change
+    under a 1e-7 relative change of the mel, is about 3e-4 at these dims,
+    and the check fails if it is not below half of GRAD_TOL."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+    from olmoasr_tpu_torch.models.dims import ModelDimensions
+    from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
+    from olmoasr_tpu_torch.training import train as train_mod
+
+    dims = ModelDimensions(**GRAD_DIMS)
+    rng = np.random.default_rng(6)
+    B, T = 2, dims.n_text_ctx
+    mel = torch.from_numpy(rng.standard_normal((B, 80, 3000)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, 50000, (B, T + 1)))
+    lens = torch.tensor([T, 150])
+    pad = torch.arange(T)[None] >= lens[:, None]
+    inp = torch.where(pad, PADDING_TOKEN, tokens[:, :-1])
+    tgt = torch.where(pad, PADDING_TOKEN, tokens[:, 1:])
+    mask = torch.where(pad, float("-inf"), 0.0)
+    init = model_mod.init_params(model_mod.empty_model(dims, True), torch.Generator().manual_seed(0),
+                                 include_padding_token=True).state_dict()
+
+    def grads(device, mel_scale=1.0):
+        model = model_mod.empty_model(dims, True, device=device)
+        model.load_state_dict(init)
+        loss, _ = train_mod.loss_fn(model, (mel * mel_scale).to(device), inp.to(device),
+                                    tgt.to(device), mask.to(device),
+                                    compute_dtype=torch.float32, remat=True)
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    _reset_counts()
+    loss_gpu, g_gpu = grads("cuda")
+    counts, _ = _read_counts()
+    loss_cpu, g_cpu = grads("cpu")
+    _, g_floor = grads("cpu", 1 + 1e-7)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    err = max(float((g_gpu[n] - g).abs().max()) for n, g in g_cpu.items()) / scale
+    floor = max(float((g_floor[n] - g).abs().max()) for n, g in g_cpu.items()) / scale
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"training fp32 check: 2+2 layers, width 256, B={B}: loss {loss_gpu:.6f} (card) vs "
+          f"{loss_cpu:.6f} (CPU), relative {loss_err:.2e}; largest gradient error "
+          f"{err:.2e} of the largest gradient (tol {GRAD_TOL:.0e}; the twins' own floor "
+          f"{floor:.2e}); "
+          f"attention launches {counts['train_attention_fwd']} forward "
+          f"{counts['train_attention_bwd']} backward")
+    if not loss_err <= LOSS_TOL or not err <= GRAD_TOL:
+        fail(f"training fp32 check: loss {loss_err} (tol {LOSS_TOL}) or gradients {err} "
+             f"(tol {GRAD_TOL})")
+    if not floor <= GRAD_TOL / 2:
+        fail(f"training fp32 check: the twins' own floor {floor} is not below half of {GRAD_TOL}")
+    if counts["train_attention_bwd"] != 3 * 2 or counts["train_attention_fwd"] != 2 * 3 * 2:
+        fail(f"training fp32 check: attention launches {counts}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": err, "floor": floor}
+
+
+# ---------------------------------------------------------------------------
+# phase 7
 # ---------------------------------------------------------------------------
 
 SEGMENT_KEYS = {"id", "seek", "start", "end", "text", "tokens", "temperature", "avg_logprob",
@@ -1236,9 +1800,13 @@ def main() -> None:
     long_form = phase_long_form()
     server = phase_server_traffic()
     phase_teacher_forced()
+    training = phase_training()
+    phase_train_fp32()
     phase_entry_points()
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax",
+                                                                   "olmoasr_tpu"))
+    if leaked:
+        fail(f"imported {leaked}: the port must not load jax or the JAX package")
 
     sources = {
         "cross_block_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
@@ -1255,21 +1823,27 @@ def main() -> None:
                                "olmoasr_tpu/ops/attention.py:495"),
         "self_attend_decode_beam": ("olmoasr_tpu_torch/csrc/self_attention.cu",
                                     "olmoasr_tpu/ops/attention.py:254"),
+        "train_attention_bwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
+                                "olmoasr_tpu/ops/train_attention.py:412"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         main_case = cases[name][0]  # the main path's shape and dtype
         # launches on the path that runs the kernel: the long-form slice at the
-        # CLI's defaults, or for the fused launch the server's default traffic
-        path = server if name == "layer_block_decode" else long_form
+        # CLI's defaults, for the fused launch the server's default traffic,
+        # for the backward the training slice
+        path = {"layer_block_decode": server, "train_attention_bwd": training}.get(name, long_form)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name],
             "launches_long_form": long_form["launches"][name],
             "launches_server_traffic": server["launches"][name],
             "launches_short_form": {k: v["launches"][name] for k, v in short.items()},
+            "launches_training_step": training["launches"].get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+            "library_ms": main_case.get("library_ms"),
             "cases": cases[name],
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,15 @@
 """olmoasr_tpu_torch: the PyTorch/CUDA port of olmoasr_tpu for NVIDIA Hopper.
 
 Counterpart of ``olmoasr_tpu/__init__.py``. It imports ``torch`` and never
-``jax``; framework-free code (model dimensions, tokenizer, text utilities) is
-shared with the JAX package, whose ``__init__`` imports nothing of jax.
+``jax``, and nothing of the JAX package: the framework-free code it needs
+(model dimensions, tokenizer, text utilities, writers, transcript parsing) is
+copied here, each copy pinned to its original by ``tests/test_torch_copies.py``.
 Hand-written CUDA kernels live in ``csrc/`` and build at first use
 (``ops/_build.py``).
 """
 
-from olmoasr_tpu.models.dims import VARIANT_TO_DIMS, ModelDimensions
-from olmoasr_tpu.version import __version__
+from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS, ModelDimensions
+from olmoasr_tpu_torch.version import __version__
 
 __all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "build_model",
            "transcribe_many", "__version__"]

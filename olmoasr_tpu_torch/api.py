@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from olmoasr_tpu.models.dims import VARIANT_TO_DIMS
+from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
 from olmoasr_tpu_torch.models import convert as convert_mod
 from olmoasr_tpu_torch.models import whisper as model_mod
 
@@ -60,9 +60,10 @@ def _new_model(dims, include_padding_token, device, dtype) -> OLMoASR:
     return model_mod.empty_model(dims, include_padding_token, device, dtype, cls=OLMoASR)
 
 
-def load_model(path: str, device="cpu", inference: bool = True,
+def load_model(path: str, device="cuda", inference: bool = True,
                dtype: Optional[torch.dtype] = None) -> OLMoASR:
-    """Load a local reference ``.pt`` or the JAX package's ``.npz``.
+    """Load a local reference ``.pt`` or the JAX package's ``.npz`` onto
+    ``device`` (the card unless the caller asks for the CPU; no fallback).
 
     ``inference`` drops the training vocabulary's padding row. ``dtype``
     defaults to the checkpoint's."""
@@ -86,10 +87,11 @@ def load_model(path: str, device="cpu", inference: bool = True,
     return model.eval()
 
 
-def build_model(variant: str, *, seed: int = 0, device="cpu",
+def build_model(variant: str, *, seed: int = 0, device="cuda",
                 dtype: torch.dtype = torch.float32, inference: bool = True) -> OLMoASR:
     """Random-init model by variant name (``small.en``, ...), weights drawn
-    from a ``torch.Generator`` seeded with ``seed``."""
+    from a ``torch.Generator`` seeded with ``seed``, on ``device`` (the card
+    unless the caller asks for the CPU; no fallback)."""
     dims = VARIANT_TO_DIMS[variant]
     model = _new_model(dims, not inference, device, dtype)
     generator = torch.Generator().manual_seed(seed)

@@ -1,9 +1,10 @@
 """Audio frontend: 16 kHz log-mel spectrogram with the Whisper contract.
 
-Counterpart of ``olmoasr_tpu/audio.py``. That module imports jax at its top,
-so the constants, ``mel_filters_np``, ``pad_or_trim`` and ``load_audio`` are
-copied here (tests pin them against the originals); ``log_mel_spectrogram``
-runs in torch on the input tensor's device.
+Counterpart of ``olmoasr_tpu/audio.py``. The port imports nothing of the JAX
+package, so the constants, ``mel_filters_np``, ``pad_or_trim``,
+``load_audio`` and the training loader's host-side ``log_mel_spectrogram_np``
+are copied here (tests pin them against the originals);
+``log_mel_spectrogram`` runs in torch on the input tensor's device.
 
 Contract: sample rate 16000, n_fft 400, hop 160, periodic Hann window,
 centered reflect-padded frames, |stft|^2 with the last frame dropped, Slaney
@@ -87,6 +88,46 @@ def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
             pad_widths[axis] = (0, length - array.shape[axis])
             array = np.pad(array, pad_widths)
     return array
+
+
+def _hann_window_np(n: int = N_FFT) -> np.ndarray:
+    # Periodic Hann (torch.hann_window default), not symmetric.
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+def _reflect_pad_np(x: np.ndarray, pad: int) -> np.ndarray:
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad, pad)], mode="reflect")
+
+
+def log_mel_spectrogram_np(
+    audio: np.ndarray,
+    n_mels: int = 80,
+    padding: int = 0,
+) -> np.ndarray:
+    """Pure-NumPy log-mel for host-side data workers. Shape (n_mels, n_frames)."""
+    audio = np.asarray(audio, dtype=np.float32)
+    squeeze = audio.ndim == 1
+    audio = np.atleast_2d(audio)
+    if padding > 0:
+        audio = np.pad(audio, [(0, 0), (0, padding)])
+
+    window = _hann_window_np(N_FFT)
+    padded = _reflect_pad_np(audio, N_FFT // 2)
+    n_frames_total = 1 + (padded.shape[-1] - N_FFT) // HOP_LENGTH
+    idx = np.arange(N_FFT)[None, :] + HOP_LENGTH * np.arange(n_frames_total)[:, None]
+    frames = padded[..., idx] * window  # (B, T, N_FFT)
+    stft = np.fft.rfft(frames, axis=-1)  # (B, T, N_FFT//2+1)
+    magnitudes = np.abs(stft[..., :-1, :]) ** 2  # drop last frame (torch.stft parity)
+
+    filters = mel_filters_np(n_mels)
+    mel_spec = magnitudes @ filters.T  # (B, T-1, n_mels)
+    mel_spec = mel_spec.transpose(0, 2, 1)  # (B, n_mels, T-1)
+
+    log_spec = np.log10(np.maximum(mel_spec, 1e-10))
+    log_spec = np.maximum(log_spec, log_spec.max(axis=(-2, -1), keepdims=True) - 8.0)
+    log_spec = (log_spec + 4.0) / 4.0
+    out = log_spec.astype(np.float32)
+    return out[0] if squeeze else out
 
 
 def log_mel_spectrogram(

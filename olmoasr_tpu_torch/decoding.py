@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from olmoasr_tpu.tokenizer import Tokenizer, get_tokenizer
+from olmoasr_tpu_torch.tokenizer import Tokenizer, get_tokenizer
 from olmoasr_tpu_torch import audio as audio_mod
 from olmoasr_tpu_torch.models import whisper as model_mod
 

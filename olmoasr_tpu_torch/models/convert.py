@@ -6,7 +6,7 @@ reference's state-dict names, so a released ``.pt`` checkpoint
 package's params (stacked per layer, linear weights ``(in, out)``, conv
 kernels ``(k, in, out)``) come in through :func:`state_dict_from_jax_params`,
 and its native ``.npz`` format (flat ``a/b/c`` keys plus ``__dims__``) is read
-with numpy alone.
+and written with numpy alone.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from olmoasr_tpu.models.dims import ModelDimensions
+from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN, sinusoids
 
 StateDict = Dict[str, torch.Tensor]
@@ -129,6 +129,22 @@ def load_npz_checkpoint(path: str) -> Tuple[StateDict, ModelDimensions]:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return state_dict_from_jax_params(tree, dims), dims
+
+
+def save_npz_checkpoint(path: str, sd: StateDict, dims: ModelDimensions) -> None:
+    """Write the JAX package's ``save_npz_checkpoint`` format from a state
+    dict: its param tree's leaves as fp32 under flat ``a/b/c`` keys, plus the
+    ``__dims__`` JSON."""
+
+    def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+        flat = {}
+        for k, v in tree.items():
+            flat.update(flatten(v, f"{prefix}{k}/") if isinstance(v, dict)
+                        else {f"{prefix}{k}": v})
+        return flat
+
+    np.savez(path, **flatten(jax_params_from_state_dict(sd, dims)),
+             __dims__=json.dumps(dims.to_dict()))
 
 
 def load_torch_checkpoint(path: str) -> Tuple[StateDict, ModelDimensions]:

@@ -12,7 +12,11 @@ returned in fp32. Six kernels serve the inference path: the encoder's
 self-attention (``ops.train_attention``) and, at S=1 decode steps, the whole
 decoder layer (``ops.attention``): ``ln_matmul`` (fused QKV),
 ``self_attend_decode``, ``matmul_residual``, ``cross_block_decode`` and
-``mlp_block``.
+``mlp_block``. The training forward (``forward_train``: ``encode_train`` and
+``decode_train``) sends the encoder's self-attention and the decoder's self-
+and cross-attention through ``ops.train_attention``'s forward and backward
+kernels; fp32 parameters are cast to the compute dtype op by op, so their
+gradients come back in fp32.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from olmoasr_tpu.models.dims import ModelDimensions
+from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.ops.attention import (
     cross_block_decode,
     cross_block_decode_plain,
@@ -37,7 +42,11 @@ from olmoasr_tpu_torch.ops.attention import (
     mlp_block_plain,
     self_attend_decode,
 )
-from olmoasr_tpu_torch.ops.train_attention import enc_self_attention
+from olmoasr_tpu_torch.ops.train_attention import (
+    cross_attention,
+    dec_self_attention,
+    enc_self_attention,
+)
 
 PADDING_TOKEN = 51864
 
@@ -246,8 +255,13 @@ def init_params(model: Whisper, generator: torch.Generator,
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-5) -> torch.Tensor:
     """fp32 LayerNorm island, cast back to x's dtype (torch's layer_norm
-    computes bf16 inputs in fp32 and rounds once at the output)."""
-    return F.layer_norm(x, x.shape[-1:], ln.weight.to(x.dtype), ln.bias.to(x.dtype), eps)
+    computes bf16 inputs in fp32 and rounds once at the output). Weights of
+    another dtype (fp32 parameters under bf16 training compute) join the
+    island in fp32, as the JAX package's ``layer_norm`` takes them."""
+    if ln.weight.dtype == x.dtype:
+        return F.layer_norm(x, x.shape[-1:], ln.weight, ln.bias, eps)
+    y = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(), ln.bias.float(), eps)
+    return y.to(x.dtype)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -279,26 +293,105 @@ def sdpa(q, k, v, n_head: int, mask: Optional[torch.Tensor] = None) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
+def _mlp(x: torch.Tensor, blk: ResidualAttentionBlock) -> torch.Tensor:
+    h = layer_norm(x, blk.mlp_ln)
+    return x + _linear(F.gelu(_linear(h, blk.mlp[0])), blk.mlp[2])
+
+
+def _encoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, n_head: int) -> torch.Tensor:
+    h = layer_norm(x, blk.attn_ln)
+    q = _linear(h, blk.attn.query)
+    k = _linear(h, blk.attn.key)
+    v = _linear(h, blk.attn.value)
+    x = x + _linear(enc_self_attention(q, k, v, n_head), blk.attn.out)
+    return _mlp(x, blk)
+
+
+def _blocks(fn, x: torch.Tensor, blocks, remat: bool, *args) -> torch.Tensor:
+    """x through ``fn(x, blk, *args)`` for each block; ``remat`` recomputes
+    each block's forward in the backward (non-reentrant checkpointing), as
+    the JAX package's ``jax.checkpoint`` per block."""
+    for blk in blocks:
+        x = checkpoint(fn, x, blk, *args, use_reentrant=False) if remat else fn(x, blk, *args)
+    return x
+
+
+def encode_train(model: Whisper, mel: torch.Tensor, *, compute_dtype=torch.bfloat16,
+                 remat: bool = False) -> torch.Tensor:
+    """The encoder with gradients (JAX ``encode_audio`` as training calls it):
+    (B, n_mels, 2 * n_audio_ctx) mel -> (B, n_audio_ctx, D) in
+    ``compute_dtype``: conv stem with exact GELU -> + sinusoids -> blocks ->
+    ln_post; the blocks' attention is ``enc_self_attention``."""
+    enc = model.encoder
+    x = mel.to(device=model.device, dtype=compute_dtype)
+    x = F.gelu(F.conv1d(x, enc.conv1.weight.to(x.dtype), enc.conv1.bias.to(x.dtype), padding=1))
+    x = F.gelu(F.conv1d(x, enc.conv2.weight.to(x.dtype), enc.conv2.bias.to(x.dtype), stride=2,
+                        padding=1))
+    x = x.transpose(1, 2).contiguous() + enc.positional_embedding.to(x.dtype)
+    x = _blocks(_encoder_block, x, enc.blocks, remat, model.dims.n_audio_head)
+    return layer_norm(x, enc.ln_post)
+
+
 @torch.no_grad()
 def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
-    """(B, n_mels, 2 * n_audio_ctx) mel -> (B, n_audio_ctx, D) audio features:
-    conv stem with exact GELU -> + sinusoids -> blocks -> ln_post. Runs in
-    the weights' dtype; the blocks' attention is ``enc_self_attention``."""
-    enc = model.encoder
-    n_head = model.dims.n_audio_head
-    x = mel.to(device=model.device, dtype=model.dtype)
-    x = F.gelu(F.conv1d(x, enc.conv1.weight, enc.conv1.bias, padding=1))
-    x = F.gelu(F.conv1d(x, enc.conv2.weight, enc.conv2.bias, stride=2, padding=1))
-    x = x.transpose(1, 2).contiguous() + enc.positional_embedding.to(x.dtype)
-    for blk in enc.blocks:
-        h = layer_norm(x, blk.attn_ln)
-        q = _linear(h, blk.attn.query)
-        k = _linear(h, blk.attn.key)
-        v = _linear(h, blk.attn.value)
-        x = x + _linear(enc_self_attention(q, k, v, n_head), blk.attn.out)
-        h = layer_norm(x, blk.mlp_ln)
-        x = x + _linear(F.gelu(_linear(h, blk.mlp[0])), blk.mlp[2])
-    return layer_norm(x, enc.ln_post)
+    """``encode_train`` for inference: no gradients, in the weights' dtype."""
+    return encode_train(model, mel, compute_dtype=model.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decoder: full-sequence (training) forward
+# ---------------------------------------------------------------------------
+
+
+def _decoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, audio: torch.Tensor,
+                   n_head: int, key_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    h = layer_norm(x, blk.attn_ln)
+    q = _linear(h, blk.attn.query)
+    k = _linear(h, blk.attn.key)
+    v = _linear(h, blk.attn.value)
+    x = x + _linear(dec_self_attention(q, k, v, n_head, key_bias), blk.attn.out)
+    # cross K/V: this layer's projections of the audio features
+    ck = _linear(audio, blk.cross_attn.key)
+    cv = _linear(audio, blk.cross_attn.value)
+    q = _linear(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
+    x = x + _linear(cross_attention(q, ck, cv, n_head), blk.cross_attn.out)
+    return _mlp(x, blk)
+
+
+def decode_train(model: Whisper, tokens: torch.Tensor, audio_features: torch.Tensor,
+                 padding_mask: Optional[torch.Tensor] = None, *, remat: bool = False,
+                 return_hidden: bool = False) -> torch.Tensor:
+    """The decoder's teacher-forced forward (JAX ``decode_train``): tokens
+    (B, T), PADDING_TOKEN allowed, over audio features (B, Ta, D) in the
+    compute dtype -> fp32 logits (B, T, vocab rows) through the tied
+    embedding, the padding row included; ``return_hidden`` stops before the
+    logits. ``padding_mask`` is the loader's additive (B, T) per-key bias
+    (-inf on pad columns, clamped to -1e9 in the kernels); self-attention is
+    causal, cross-attention unmasked."""
+    if padding_mask is not None and padding_mask.dim() != 2:
+        raise NotImplementedError(
+            "decode_train takes the loader's (B, T) key bias; the legacy (B, T, T) mask "
+            "is not ported")
+    dec = model.decoder
+    T = tokens.shape[1]
+    dtype = audio_features.dtype
+    x = dec.token_embedding.weight[tokens.long()].to(dtype) + dec.positional_embedding[:T].to(dtype)
+    key_bias = None if padding_mask is None else padding_mask.float()
+    x = _blocks(_decoder_block, x, dec.blocks, remat, audio_features, model.dims.n_text_head,
+                key_bias)
+    x = layer_norm(x, dec.ln)
+    if return_hidden:
+        return x
+    return F.linear(x, dec.token_embedding.weight.to(x.dtype)).float()
+
+
+def forward_train(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
+                  padding_mask: Optional[torch.Tensor] = None, *, compute_dtype=torch.bfloat16,
+                  remat: bool = False, return_hidden: bool = False) -> torch.Tensor:
+    """mel -> encoder -> decoder -> fp32 logits (JAX ``forward_train``)."""
+    audio = encode_train(model, mel, compute_dtype=compute_dtype, remat=remat)
+    return decode_train(model, tokens.to(audio.device), audio, padding_mask, remat=remat,
+                        return_hidden=return_hidden)
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,9 @@ _SIGNATURES = {
     "olm_layer_block_scratch": (_I, _I, _I, _I, _I, _I),
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, bias, bias_bstride, dq, dk, dv, stats, B, H, Tq, Tk, D, causal, scale,
+    # dtype, stream
+    "olm_attention_bwd": (*(_P,) * 5, _I, *(_P,) * 4, *(_I,) * 6, _F, _I, _P),
 }
 
 _RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong}  # the others return c_int

@@ -1,11 +1,11 @@
 """Batch-serving daemon for transcription on one GPU.
 
-Counterpart of ``olmoasr_tpu/serve.py``. ``BatchingService`` is the JAX
-package's (a single worker thread collects concurrently submitted jobs into
-dynamic batches, groups them by options and decodes each group as one batch
-of 30 s windows); only its worker loop is the port's own, as it runs the
-port's ``transcribe_many``. The option list, the query-string parser and the
-queue sentinel are the JAX module's, which imports nothing of jax.
+Counterpart of ``olmoasr_tpu/serve.py``, copied (the port imports nothing of
+the JAX package; ``tests/test_torch_copies.py`` pins the option list and the
+query-string parser to the originals). A single worker thread collects
+concurrently submitted jobs into dynamic batches, groups them by options and
+decodes each group as one batch of 30 s windows through the port's
+``transcribe_many``.
 
 Two surfaces:
 
@@ -21,19 +21,143 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import tempfile
-from typing import Any, Dict, List, Optional
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional, Tuple, Union
 
-from olmoasr_tpu import serve as _jax_serve
-from olmoasr_tpu.serve import _SENTINEL, ALLOWED_OPTIONS, _parse_option  # noqa: F401
+import numpy as np
 
 __all__ = ["ALLOWED_OPTIONS", "BatchingService", "make_handler", "serve", "main"]
 
+_SENTINEL = object()
 
-class BatchingService(_jax_serve.BatchingService):
-    """Dynamic batching around the port's ``transcribe_many``: the JAX
-    package's service (``submit``, ``start``, ``stop``, the queue and its
-    draining) with this worker loop."""
+# options forwarded to transcribe_many; everything else is rejected so typos
+# fail loudly instead of silently decoding with defaults
+ALLOWED_OPTIONS = {
+    "temperature", "compression_ratio_threshold", "logprob_threshold",
+    "no_speech_threshold", "condition_on_previous_text", "initial_prompt",
+    "word_timestamps", "clip_timestamps", "hallucination_silence_threshold",
+    "language", "task", "beam_size", "best_of", "patience", "length_penalty",
+    "without_timestamps", "fp16", "kv_quant",
+}
+
+
+class BatchingService:
+    """Dynamic batching around ``transcribe_many``.
+
+    ``submit`` enqueues a job and returns a ``concurrent.futures.Future``.
+    A single worker thread drains the queue: it waits up to ``max_wait_ms``
+    for up to ``max_batch`` jobs, groups them by decode-options signature,
+    and decodes each group as one batch. One worker = one GPU owner; kernel
+    launches stay single-threaded by construction.
+    """
+
+    def __init__(
+        self,
+        model,
+        *,
+        max_batch: int = 32,
+        max_wait_ms: float = 100.0,
+        default_options: Optional[Dict[str, Any]] = None,
+    ):
+        self.model = model
+        self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
+        self.default_options = dict(default_options or {})
+        self._queue: "queue.Queue" = queue.Queue()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._started = False
+        self._closed = False
+        self._lock = threading.Lock()
+        self.stats = {"requests": 0, "batches": 0, "batched_jobs": 0}
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "BatchingService":
+        with self._lock:
+            if not self._started:
+                self._worker.start()
+                self._started = True
+        return self
+
+    def stop(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        if self._started:
+            self._queue.put(_SENTINEL)
+            self._worker.join(timeout=30)
+        # jobs enqueued behind the sentinel (or while the worker was dying)
+        # would otherwise hang their callers in .result() forever
+        self._drain_queue(RuntimeError("BatchingService stopped"))
+
+    def _drain_queue(self, exc: Exception) -> None:
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is _SENTINEL:
+                continue
+            fut = item[2]
+            if not fut.done():
+                fut.set_exception(exc)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # -- API ----------------------------------------------------------------
+
+    def submit(
+        self, audio: Union[str, np.ndarray], **options
+    ) -> "Future":
+        """Enqueue one transcription; returns a Future of the result dict."""
+        bad = set(options) - ALLOWED_OPTIONS
+        if bad:
+            raise ValueError(f"unknown decode options: {sorted(bad)}")
+        if self._closed:
+            raise RuntimeError("BatchingService stopped; submit() rejected")
+        fut: "Future" = Future()
+        merged = {**self.default_options, **options}
+        self._queue.put((audio, merged, fut))
+        self.stats["requests"] += 1
+        if not self._started:
+            self.start()
+        return fut
+
+    def transcribe(self, audio, **options) -> dict:
+        """Blocking convenience wrapper."""
+        return self.submit(audio, **options).result()
+
+    # -- worker -------------------------------------------------------------
+
+    def _collect(self) -> List[Tuple]:
+        """Block for one job, then gather more until max_batch/max_wait."""
+        first = self._queue.get()
+        if first is _SENTINEL:
+            return []
+        jobs = [first]
+        deadline = time.monotonic() + self.max_wait_ms / 1e3
+        while len(jobs) < self.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                item = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if item is _SENTINEL:
+                self._queue.put(_SENTINEL)  # re-post for the outer loop
+                break
+            jobs.append(item)
+        return jobs
 
     def _run(self) -> None:
         from olmoasr_tpu_torch.transcribe import transcribe_many
@@ -43,26 +167,51 @@ class BatchingService(_jax_serve.BatchingService):
             if not jobs:
                 self._drain_queue(RuntimeError("BatchingService stopped"))
                 return
-            # different options cannot share a decode batch (filters, ladder)
+            # group by options signature: different options cannot share a
+            # decode batch (different filter configs / fallback ladders)
             groups: Dict[str, List[int]] = {}
             for i, (_, opts, _) in enumerate(jobs):
-                groups.setdefault(json.dumps(opts, sort_keys=True, default=repr), []).append(i)
+                key = json.dumps(opts, sort_keys=True, default=repr)
+                groups.setdefault(key, []).append(i)
             for idxs in groups.values():
+                audios = [jobs[i][0] for i in idxs]
+                opts = jobs[idxs[0]][1]
                 futs = [jobs[i][2] for i in idxs]
                 try:
                     results = transcribe_many(
-                        self.model, [jobs[i][0] for i in idxs],
-                        batch_size=min(self.max_batch, len(idxs)), verbose=None,
-                        **jobs[idxs[0]][1],
+                        self.model, audios,
+                        batch_size=min(self.max_batch, len(audios)),
+                        verbose=None, **opts,
                     )
                     for f, r in zip(futs, results):
                         f.set_result(r)
-                except Exception as e:  # noqa: BLE001 -- fail the whole group
+                except Exception as e:  # noqa: BLE001 — fail the whole group
                     for f in futs:
                         if not f.done():
                             f.set_exception(e)
                 self.stats["batches"] += 1
                 self.stats["batched_jobs"] += len(idxs)
+
+
+
+def _parse_option(key: str, raw: str):
+    """Query-param string -> typed option value."""
+    low = raw.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("none", "null"):
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        pass
+    try:
+        return float(raw)
+    except ValueError:
+        pass
+    if key == "temperature" and "," in raw:
+        return tuple(float(t) for t in raw.split(","))
+    return raw
 
 
 def make_handler(service: BatchingService):

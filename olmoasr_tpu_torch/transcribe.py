@@ -29,8 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from olmoasr_tpu.tokenizer import LANGUAGES, get_tokenizer
-from olmoasr_tpu.utils import exact_div, format_timestamp, make_safe
+from olmoasr_tpu_torch.tokenizer import LANGUAGES, get_tokenizer
+from olmoasr_tpu_torch.utils import exact_div, format_timestamp, make_safe
 from olmoasr_tpu_torch.audio import (
     FRAMES_PER_SECOND,
     HOP_LENGTH,
@@ -424,7 +424,7 @@ def cli(argv: Optional[List[str]] = None) -> None:
     import argparse
     import os
 
-    from olmoasr_tpu.writers import get_writer
+    from olmoasr_tpu_torch.writers import get_writer
     from olmoasr_tpu_torch.api import load_model
 
     def optional_int(s):

@@ -14,6 +14,7 @@ from olmoasr_tpu.models.dims import ModelDimensions
 from olmoasr_tpu_torch import load_model
 from olmoasr_tpu_torch.api import OLMoASR, _new_model
 from olmoasr_tpu_torch.models import convert
+from olmoasr_tpu_torch.models.dims import ModelDimensions as PortDims
 
 DIMS = ModelDimensions(
     n_mels=80, n_audio_ctx=24, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
@@ -63,7 +64,7 @@ def test_npz_loader_matches_the_jax_loader(params_np, tmp_path):
     jconvert.save_npz_checkpoint(path, params_np, DIMS)
     sd, dims = convert.load_npz_checkpoint(path)
     jparams, jdims = jconvert.load_npz_checkpoint(path)
-    assert dims == jdims == DIMS
+    assert isinstance(dims, PortDims) and dims.to_dict() == jdims.to_dict() == DIMS.to_dict()
     want = convert.state_dict_from_jax_params(jax.tree.map(np.asarray, jparams), DIMS)
     assert sd.keys() == want.keys()
     for k in sd:
@@ -88,18 +89,51 @@ def test_load_model_from_a_local_file(params_np, tmp_path, fmt):
     else:
         sd = jconvert.params_to_torch_state_dict(params_np, DIMS)
         torch.save({"dims": DIMS.to_dict(), "model_state_dict": sd}, path)
-    model = load_model(path)
-    assert isinstance(model, OLMoASR) and model.dims == DIMS
+    model = load_model(path, device="cpu")
+    assert isinstance(model, OLMoASR) and model.dims.to_dict() == DIMS.to_dict()
     got = model.state_dict()
     assert got["decoder.token_embedding.weight"].shape[0] == jm.PADDING_TOKEN
     np.testing.assert_array_equal(
         got["decoder.blocks.1.cross_attn.out.weight"].numpy(),
         params_np["decoder"]["blocks"]["cross_o_w"][1].T,
     )
-    assert load_model(path, inference=False).state_dict()[
+    assert load_model(path, device="cpu", inference=False).state_dict()[
         "decoder.token_embedding.weight"].shape[0] == jm.PADDING_TOKEN + 1
 
 
 def test_load_model_refuses_a_missing_file(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_model(str(tmp_path / "nope.pt"))
+
+
+def test_save_npz_checkpoint_reads_back_in_both_packages(params_np, tmp_path):
+    """The port writes the JAX package's ``.npz`` format: flattened leaves
+    plus ``__dims__``, bit-equal through both loaders."""
+    path = str(tmp_path / "port.npz")
+    sd = convert.state_dict_from_jax_params(params_np, DIMS)
+    convert.save_npz_checkpoint(path, sd, PortDims(**DIMS.to_dict()))
+    jparams, jdims = jconvert.load_npz_checkpoint(path)
+    assert jdims == DIMS
+    _assert_trees_equal(jax.tree.map(np.asarray, jparams), params_np)
+    back, dims = convert.load_npz_checkpoint(path)
+    assert dims == PortDims(**DIMS.to_dict())
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+
+
+@pytest.mark.parametrize("entry", ["build_model", "load_model"])
+def test_entry_points_default_to_the_card(params_np, tmp_path, entry):
+    """``build_model`` and ``load_model`` run on ``cuda`` unless the caller
+    asks for the CPU: on a host without a card they raise, with no fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import olmoasr_tpu_torch
+
+    if entry == "build_model":
+        call = lambda: olmoasr_tpu_torch.build_model("tiny.en")
+    else:
+        path = str(tmp_path / "micro.npz")
+        jconvert.save_npz_checkpoint(path, params_np, DIMS)
+        call = lambda: olmoasr_tpu_torch.load_model(path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        call()

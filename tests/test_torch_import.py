@@ -1,5 +1,6 @@
-"""The port imports torch and never jax; chip_smoke.py refuses to run without
-a CUDA device or outside a checkout."""
+"""The port imports torch and never jax, optax, orbax or anything of the JAX
+package (``olmoasr_tpu``); chip_smoke.py refuses to run without a CUDA device
+or outside a checkout."""
 
 from __future__ import annotations
 
@@ -23,13 +24,19 @@ def _port_modules():
     return names
 
 
+# the modules the port must never load: jax and its optimizer and checkpoint
+# libraries, and the JAX package itself (even its modules free of jax)
+FORBIDDEN = ("jax", "optax", "orbax", "olmoasr_tpu")
+LEAKED = (f"leaked = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+          "assert not leaked, leaked\n")
+
+
 def _assert_imports_no_jax(names):
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-        "assert not leaked, leaked\n"
+        + LEAKED
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -40,13 +47,18 @@ def test_port_never_imports_jax():
     names = _port_modules()
     assert "olmoasr_tpu_torch.ops.attention" in names and len(names) >= 12
     assert "olmoasr_tpu_torch.transcribe" in names and "olmoasr_tpu_torch.serve" in names
+    for name in ("training.train", "training.train_loop", "training.dataset",
+                 "training.checkpoint", "training.logging_utils", "data.transcripts",
+                 "tokenizer", "writers", "utils", "models.dims"):
+        assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 
 
 def test_entry_points_import_no_jax():
-    """The server module (it shares the JAX package's framework-free serving
-    pieces) and ``python -m olmoasr_tpu_torch.transcribe --help``."""
+    """The server module, the trainer and ``python -m
+    olmoasr_tpu_torch.transcribe --help``."""
     _assert_imports_no_jax(["olmoasr_tpu_torch.serve"])
+    _assert_imports_no_jax(["olmoasr_tpu_torch.training.train_loop"])
     code = (
         "import runpy, sys\n"
         "sys.argv = ['transcribe', '--help']\n"
@@ -54,8 +66,7 @@ def test_entry_points_import_no_jax():
         "    runpy.run_module('olmoasr_tpu_torch.transcribe', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
-        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-        "assert not leaked, leaked\n"
+        + LEAKED
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -328,8 +328,8 @@ def test_cli_writes_what_transcribe_many_returns(tmp_path, monkeypatch):
     tr.cli()
     assert sorted(os.listdir(out)) == sorted(f"{n}.{ext}" for n in ("a", "b")
                                              for ext in ("txt", "vtt", "srt", "tsv", "json"))
-    want = transcribe_many(load_model(ckpt), wavs, batch_size=2, temperature=(0.0, 1.0),
-                           verbose=False, beam_size=5, best_of=5)
+    want = transcribe_many(load_model(ckpt, device="cpu"), wavs, batch_size=2,
+                           temperature=(0.0, 1.0), verbose=False, beam_size=5, best_of=5)
     for name, w in zip(("a", "b"), want):
         with open(out / f"{name}.json", encoding="utf-8") as f:
             got = json.load(f)
