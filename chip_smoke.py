@@ -9,10 +9,13 @@ printed line each (or a few):
    the tolerance and the device times of both (CUDA events around replays of
    a CUDA graph of one call, median of 11 runs): the attention forward and
    backward at the three training shapes, the beam-ancestry
-   ``self_attend_decode``, the fused ``layer_block_decode`` (beside the time
-   of the split kernels it replaces) and the int8 q.K ``cross_block_decode``
-   included, the last also on a case where the int8 and the exact q.K
-   products land far apart, so that a kernel computing the wrong one fails;
+   ``self_attend_decode``, the fused ``layer_block_decode`` in both its
+   modes (beside the time of the kernels it replaces), the int8 q.K
+   ``cross_block_decode``, ``self_attend_decode`` over int8 rings and
+   ``cross_attend_decode`` (beside ``scaled_dot_product_attention``)
+   included, the int8 q.K cases also on inputs where the int8 and the exact
+   q.K products land far apart, so that a kernel computing the wrong one
+   fails;
 3. the short-form slice: small.en at full width with seeded random weights,
    64 windows of 30 s noise, GPU log-mel, greedy ``decode`` with bf16 and
    with int8 cross K/V (the fused self + cross launch); then beam search, 32
@@ -27,11 +30,19 @@ printed line each (or a few):
    temperature, single-token steps, every kernel's launches, the results'
    schema; then the server's default traffic in this process: the port's
    ``BatchingService`` with int8 cross K/V and no beam, 8 requests at once
-   (greedy at t=0, one sample per window above, every step fused);
+   (greedy at t=0, one sample per window above, every step fused); then the
+   decode step's other kernel routes, each as the JAX step's flag matrix
+   runs it (a prefill, then 224 single-token steps with argmax, small.en
+   bf16): over int8 self rings and an int8 cross cache (64 windows, and 32
+   windows x 5 rows as best_of decodes them) beside bf16 rings, then over an
+   int8 cross cache along ``route`` = split, layer, attend and auto; each
+   with its wall, its launches and a profiled step;
 5. a teacher-forced fp32 check: the same weights and tokens through the
    port on the GPU (kernels) and on the CPU (plain twins), 2 windows with 2
    token rows each (the shared cross cache), then 2 windows over an int8
-   cross cache (the fused launch);
+   cross cache (the fused launch); then over int8 self rings (2 rows a
+   window, the CPU given the card's rings before each step), and along the
+   routes layer and attend;
 6. the training slice: small.en at full width and depth through
    ``train_loop.main`` on 256 synthetic samples (micro batch 16, effective
    32, remat), 6 steps and a resumed seventh; the attention forward and
@@ -50,13 +61,15 @@ printed line each (or a few):
 
 Each slice sets every launch count to 0 before it runs and reads them after;
 the ``launches`` of the kernels line are those of the path that runs the
-kernel: the long-form slice's, the server traffic's for the fused launch and
-the training step's for the attention backward. Every kernel in that line
+kernel: the long-form slice's, the server traffic's for the fused launch,
+the training step's for the attention backward, the int8-ring loop's for
+the int8 self pass and the routes' for the whole-layer launch and the
+standalone cross attention. Every kernel in that line
 carries its bound (the least time the card could take for its main case:
 bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
 larger) and ``library_ms``, the time of one PyTorch call computing the same
 function where there is one (``scaled_dot_product_attention`` for the
-attention forward and backward), else null.
+attention forward and backward and for ``cross_attend_decode``), else null.
 
 ``python3 chip_smoke.py --ab TREE`` instead compares the kernels of another
 checkout (for example the parent commit, unpacked with ``git archive`` into a
@@ -372,6 +385,165 @@ def check_layer_block(gen) -> list:
     return cases
 
 
+def _mlp_args(gen, dtype, D=768, Fd=3072):
+    """The MLP's (ln_g, ln_b, w1, b1, w2, b2) of one layer."""
+    return [(1 + 0.1 * torch.randn(D, generator=gen)).to("cuda", dtype),
+            (0.1 * torch.randn(D, generator=gen)).to("cuda", dtype),
+            _weights(gen, Fd, D, fan_in=D, dtype=dtype),
+            (0.02 * torch.randn(Fd, generator=gen)).to("cuda", dtype),
+            _weights(gen, D, Fd, fan_in=Fd, dtype=dtype),
+            (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype)]
+
+
+def check_layer_block_mlp(gen) -> list:
+    """The whole layer in one launch (``include_mlp=True``) at the same
+    shapes as :func:`check_layer_block`: out and the new key and value held
+    to the twin; beside them, the time of the "sc" launch and ``mlp_block``
+    that it replaces."""
+    from olmoasr_tpu_torch.ops.attention import (
+        layer_block_decode, layer_block_decode_plain, mlp_block,
+    )
+
+    H, layer, cases = 12, 7, []
+    for dtype, offsets in ((torch.bfloat16, (224, 1)), (torch.float32, (100,))):
+        args = layer_block_args(gen, dtype)
+        mlp = _mlp_args(gen, dtype)
+        kw = dict(n_head=H, include_mlp=True, mlp=mlp)
+        for offset in offsets:
+            full = (*args, offset, layer)
+            got = torch.cat([t.flatten() for t in layer_block_decode(*full, **kw)])
+            want = torch.cat([t.flatten() for t in layer_block_decode_plain(*full, **kw)])
+            mlp_bytes = nbytes(*mlp)
+            moved, ops, dt = _layer_bound(args, got, offset)
+            case = _case("layer_block_decode_mlp",
+                         (dtype, f"whole layer, int8 cross, B=64 T=1500, rings L=12 C=225 "
+                                 f"layer {layer} offset {offset}"),
+                         got, want, lambda: layer_block_decode(*full, **kw),
+                         lambda: layer_block_decode_plain(*full, **kw),
+                         (moved + mlp_bytes, ops + 4 * 64 * 768 * 3072, dt))
+            case["sc_mlp_ms"] = timed_ms(lambda: mlp_block(
+                layer_block_decode(*full, n_head=H)[0], *mlp))
+            print(f"    the \"sc\" launch and mlp_block at the same shapes: "
+                  f"{case['sc_mlp_ms']:.4f} ms")
+            cases.append(case)
+        del args
+    return cases
+
+
+def outlier_self_case(gen, B, C, D, H, L=12):
+    """self_attend_decode inputs over int8 rings on which the int8 q.K
+    product and the exact one land far apart, built as
+    :func:`outlier_q_case`: q one lane of 100 per head and +-0.35 on the
+    others; lane 0 of every head 3.0 in every ring key, so the int8 logits
+    are equal; position C // 3 lines up with the small lanes (2.9 * their
+    signs) and holds 3.0 in every value lane. This step's key is zero.
+    Returns (q, k_ring, v_ring, k_new, v_new) and the rings' scales."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    dh = D // H
+    sign = torch.where(torch.randn(D, generator=gen) >= 0, 1.0, -1.0)
+    q = (0.35 * sign).expand(B, 1, D).clone()
+    q[..., ::dh] = 100.0
+    k = torch.rand(L, B, C, D, generator=gen) * 2 - 1
+    k[:, :, C // 3] = 2.9 * sign
+    k[..., ::dh] = 3.0
+    v = torch.rand(L, B, C, D, generator=gen) * 2 - 1
+    v[:, :, C // 3] = 3.0
+    (kq, ks), (vq, vs) = _quantize_rows(k.cuda()), _quantize_rows(v.cuda())
+    bf = lambda t: t.to("cuda", torch.bfloat16)
+    return ((bf(q), kq, vq, bf(torch.zeros(B, 1, D)), bf(torch.rand(B, 1, D, generator=gen))),
+            dict(k_scale=ks[:, :, None].contiguous(), v_scale=vs[:, :, None].contiguous()))
+
+
+def check_self_q8(gen) -> list:
+    """``self_attend_decode`` over int8 rings at the int8-ring step's shapes
+    (B=64, rings L=12 C=225, layer 7), q, k_new and v_new as row views of a
+    fused projection: bf16 (the int8 q.K product) at offsets 224 and 100,
+    fp32 (the exact one) at 100; then the outlier case, where the kernel
+    must sit within tolerance of the int8 twin and far outside it against
+    the exact-q twin."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+    from olmoasr_tpu_torch.ops.attention import self_attend_decode, self_attend_decode_plain
+
+    B, D, H, L, C, layer = 64, 768, 12, 12, 225, 7
+    cases = []
+    for dtype, offsets in ((torch.bfloat16, (224, 100)), (torch.float32, (100,))):
+        qkv = torch.randn(B, 1, 3 * D, generator=gen).to("cuda", dtype)
+        q, kn, vn = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        (kq, ks), (vq, vs) = (_quantize_rows(torch.randn(L, B, C, D, generator=gen).cuda())
+                              for _ in range(2))
+        kw = dict(n_head=H, k_scale=ks[:, :, None].contiguous(),
+                  v_scale=vs[:, :, None].contiguous())
+        for offset in offsets:
+            sa = (q, kq, vq, kn, vn, offset, layer)
+            got = self_attend_decode(*sa, **kw)
+            cases.append(_case(
+                "self_attend_decode_q8",
+                (dtype, f"int8 rings L={L} B={B} C={C} layer {layer} offset {offset}"),
+                got, self_attend_decode_plain(*sa, **kw), lambda: self_attend_decode(*sa, **kw),
+                lambda: self_attend_decode_plain(*sa, **kw), _self_bound(sa, got)))
+        del kq, vq
+    (q, kq, vq, kn, vn), scales = outlier_self_case(gen, B, C, D, H)
+    sa, kw = (q, kq, vq, kn, vn, C - 1, layer), dict(n_head=H, **scales)
+    got = self_attend_decode(*sa, **kw)
+    exact = self_attend_decode_plain(*sa, **kw, quantize_q=False)
+    what = (torch.bfloat16, f"outlier q, int8 rings, offset {C - 1}")
+    case = _case("self_attend_decode_q8", what, got, self_attend_decode_plain(*sa, **kw),
+                 lambda: self_attend_decode(*sa, **kw),
+                 lambda: self_attend_decode_plain(*sa, **kw), _self_bound(sa, got))
+    case["exact_q_err"] = max_err(got, exact)
+    print(f"    against the exact-q twin: max_abs_err {case['exact_q_err']:.3e} "
+          f"(must exceed {EXACT_Q_MARGIN} x tol)")
+    if not case["exact_q_err"] > EXACT_Q_MARGIN * case["tol"]:
+        fail(f"int8 rings: the kernel is {case['exact_q_err']} from the exact-q twin, within "
+             f"{EXACT_Q_MARGIN} x tol {case['tol']}: it did not take the int8 product")
+    cases.append(case)
+    return cases
+
+
+def check_cross_attend(gen) -> list:
+    """``cross_attend_decode`` at the step's shapes (B=64, T=1500): bf16 over
+    bf16 and over int8 K/V, fp32; beside the first, torch's
+    scaled_dot_product_attention on the same q, K and V (it keeps P fp32)."""
+    import torch.nn.functional as F
+
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+    from olmoasr_tpu_torch.ops.attention import (
+        _q_scale, cross_attend_decode, cross_attend_decode_plain,
+    )
+
+    B, T, D, H = 64, 1500, 768, 12
+    cases = []
+    for act, kv in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+                    (torch.float32, torch.float32)):
+        q = torch.randn(B, 1, D, generator=gen).to("cuda", act)
+        k, v = (torch.randn(B, T, D, generator=gen).to("cuda") for _ in range(2))
+        scales = (None, None)
+        if kv == torch.int8:
+            (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+            scales = (ks[:, None].contiguous(), vs[:, None].contiguous())
+        else:
+            k, v = k.to(kv), v.to(kv)
+        args, kw = (q, k, v, *scales), dict(n_head=H)
+        got = cross_attend_decode(*args, **kw)
+        case = _case("cross_attend_decode", (act, kv, f"B={B} T={T}"), got,
+                     cross_attend_decode_plain(*args, **kw),
+                     lambda: cross_attend_decode(*args, **kw),
+                     lambda: cross_attend_decode_plain(*args, **kw),
+                     (nbytes(q, k, v, *scales, got), 4 * B * T * D, act))
+        if not cases:  # the main path's case: beside it, one library call
+            dh = D // H
+            heads = lambda t: t.view(B, -1, H, dh).transpose(1, 2)
+            with torch.no_grad():
+                case["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v), scale=_q_scale(dh)))
+            print(f"    scaled_dot_product_attention at the same shape: "
+                  f"{case['library_ms']:.4f} ms")
+        cases.append(case)
+        del k, v
+    return cases
+
+
 def check_attention(gen) -> list:
     from olmoasr_tpu_torch.ops.train_attention import (
         train_attention_fwd, train_attention_fwd_plain,
@@ -405,6 +577,8 @@ def check_attention(gen) -> list:
                        want, lambda: train_attention_fwd(q, k, v, H, **kw),
                        lambda: train_attention_fwd_plain(q, k, v, H, **kw),
                        _attention_bound(q, k, v, got, causal=True, bias=key_bias)))
+    cases[-1]["library_ms"] = _sdpa_ms(q, k, v, None, H, True, key_bias)
+    print(f"    scaled_dot_product_attention at the same shape: {cases[-1]['library_ms']:.4f} ms")
     # training's cross attention: the decoder's 448 queries over 1500 audio keys
     k, v = (torch.randn(B, 1500, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
     got = train_attention_fwd(q, k, v, H)
@@ -413,6 +587,8 @@ def check_attention(gen) -> list:
                        lambda: train_attention_fwd(q, k, v, H),
                        lambda: train_attention_fwd_plain(q, k, v, H),
                        _attention_bound(q, k, v, got)))
+    cases[-1]["library_ms"] = _sdpa_ms(q, k, v, None, H, False, None)
+    print(f"    scaled_dot_product_attention at the same shape: {cases[-1]['library_ms']:.4f} ms")
     return cases
 
 
@@ -543,10 +719,13 @@ def check_self_sub_block(gen) -> dict:
 def _self_bound(sa, out, anc=None):
     """(bytes, operations, dtype) of self_attend_decode: q, the new key and
     value, one layer's rings up to the offset (and the ancestry map's
-    columns up to it), the output; q.K and P.V over offset + 1 positions."""
+    columns, or int8 rings' scales, up to it), the output; q.K and P.V over
+    offset + 1 positions."""
     q, kr, _, kn, vn, offset, _ = sa
     B, D = q.shape[0], q.shape[-1]
     rings = 2 * B * offset * D * kr.element_size() + (0 if anc is None else B * offset * 4)
+    if kr.dtype == torch.int8:
+        rings += 2 * B * offset * 4  # the k and v scales
     return nbytes(q, kn, vn, out) + rings, 4 * B * (offset + 1) * D, q.dtype
 
 
@@ -585,7 +764,8 @@ def check_self_ancestry(gen) -> list:
 FP32_TOL = {"mlp_block": 1e-4, "cross_block_decode": 1e-4, "train_attention_fwd": 1e-3,
             "ln_matmul": 1e-4, "matmul_residual": 1e-4, "self_attend_decode": 1e-4,
             "self_attend_decode_beam": 1e-4, "layer_block_decode": 1e-4,
-            "train_attention_bwd": 2.0 ** -6}
+            "train_attention_bwd": 2.0 ** -6, "self_attend_decode_q8": 1e-4,
+            "cross_attend_decode": 1e-4, "layer_block_decode_mlp": 1e-4}
 # the backward rounds ds and pn to bf16 even for fp32 inputs: where kernel and
 # twin differ in the last fp32 bit a few elements flip by one bf16 step (two
 # steps at the largest magnitude above); every other element agrees to 1e-5
@@ -669,6 +849,9 @@ def phase_kernels() -> dict:
     return {
         "cross_block_decode": check_cross(gen) + check_int8_qk(gen),
         "layer_block_decode": check_layer_block(gen),
+        "layer_block_decode_mlp": check_layer_block_mlp(gen),
+        "self_attend_decode_q8": check_self_q8(gen),
+        "cross_attend_decode": check_cross_attend(gen),
         "mlp_block": check_mlp(gen),
         "train_attention_fwd": check_attention(gen),
         "train_attention_bwd": check_attention_bwd(gen),
@@ -683,53 +866,76 @@ def phase_kernels() -> dict:
 
 
 DECODE_KERNELS = ("ln_matmul", "self_attend_decode", "matmul_residual", "cross_block_decode",
-                  "layer_block_decode", "mlp_block")
-# the single-token step's launches per layer: the split kernels, or over an
-# int8 cross cache with one token row per window the fused self + cross launch
-SPLIT_STEP = ("ln_matmul", "self_attend_decode", "matmul_residual", "cross_block_decode",
-              "mlp_block")
-FUSED_STEP = ("layer_block_decode", "mlp_block")
+                  "layer_block_decode", "mlp_block", "cross_attend_decode")
+# the single-token step's launches per layer along each route of decode_step:
+# the split kernels; over an int8 cross cache with one token row per window
+# the fused self + cross launch ("sc", auto's choice there) or the whole
+# layer; the standalone cross attention between two more projections
+ROUTE_STEP = {
+    "split": {"ln_matmul": 1, "self_attend_decode": 1, "matmul_residual": 1,
+              "cross_block_decode": 1, "mlp_block": 1},
+    "sc": {"layer_block_decode": 1, "mlp_block": 1},
+    "layer": {"layer_block_decode": 1},
+    "attend": {"ln_matmul": 2, "self_attend_decode": 1, "matmul_residual": 2,
+               "cross_attend_decode": 1, "mlp_block": 1},
+}
 
 
 def _counters():
     """Every kernel wrapper of the path, whose ``launches`` count its kernel's
-    launches, and decode_step, whose ``single_steps`` count S=1 steps."""
+    launches, and decode_step, whose ``single_steps`` count S=1 steps. An
+    older checkout under ``--ab`` may lack some wrappers."""
     from olmoasr_tpu_torch.models import whisper
     from olmoasr_tpu_torch.ops import attention, train_attention
 
-    kernels = {name: getattr(attention, name) for name in DECODE_KERNELS}
+    kernels = {name: getattr(attention, name) for name in DECODE_KERNELS
+               if hasattr(attention, name)}
     kernels["train_attention_fwd"] = train_attention.train_attention_fwd
     kernels["train_attention_bwd"] = train_attention.train_attention_bwd
     return kernels, whisper.decode_step
+
+
+# kernels counted inside another wrapper's launches: (name, wrapper, counter)
+SUB_COUNTS = (("self_attend_decode_beam", "self_attend_decode", "beam_launches"),
+              ("self_attend_decode_q8", "self_attend_decode", "q8_launches"),
+              ("layer_block_decode_mlp", "layer_block_decode", "mlp_launches"))
 
 
 def _reset_counts():
     kernels, step = _counters()
     for fn in kernels.values():
         fn.launches = 0
-    kernels["self_attend_decode"].beam_launches = 0
+    for _, wrapper, counter in SUB_COUNTS:
+        setattr(kernels[wrapper], counter, 0)
     step.single_steps = 0
 
 
 def _read_counts():
-    """Launches by kernel (``self_attend_decode_beam``: those of the ancestry
-    variant, a subset of ``self_attend_decode``'s) and single-token steps."""
+    """Launches by kernel (``self_attend_decode_beam`` and ``_q8``: those of
+    the ancestry variant and over int8 rings, subsets of
+    ``self_attend_decode``'s; ``layer_block_decode_mlp``: the whole-layer
+    launches, a subset of ``layer_block_decode``'s) and single-token steps."""
     kernels, step = _counters()
     counts = {name: fn.launches for name, fn in kernels.items()}
-    counts["self_attend_decode_beam"] = kernels["self_attend_decode"].beam_launches
+    for name, wrapper, counter in SUB_COUNTS:
+        counts[name] = getattr(kernels[wrapper], counter)
     return counts, step.single_steps
 
 
-def _check_decode_counts(label: str, counts: dict, steps: int, L: int,
-                         fused: bool = False) -> None:
-    """Every kernel of the step launched once per layer and single-token
-    step, and the others not at all."""
-    step = FUSED_STEP if fused else SPLIT_STEP
-    for name in DECODE_KERNELS:
-        want = L * steps if name in step else 0
-        if counts[name] != want:
-            fail(f"{label}: {name} launched {counts[name]} times, expected {want} "
-                 f"({L} layers x {steps} steps)" if want else
+def _check_decode_counts(label: str, counts: dict, steps: int, L: int, route: str = "split",
+                         int8_rings: bool = False) -> None:
+    """Every kernel of the step's route (a key of ROUTE_STEP) launched as
+    often per layer and single-token step as the route runs it, and the
+    others not at all; the int8-ring and whole-layer launches all or none of
+    theirs."""
+    per_step = ROUTE_STEP[route]
+    want = {name: per_step.get(name, 0) * L * steps for name in DECODE_KERNELS}
+    want["self_attend_decode_q8"] = want["self_attend_decode"] if int8_rings else 0
+    want["layer_block_decode_mlp"] = want["layer_block_decode"] if route == "layer" else 0
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{label}: {name} launched {counts[name]} times, expected {n} "
+                 f"({L} layers x {steps} steps, route {route})" if n else
                  f"{label}: {name} launched {counts[name]} times, expected none")
 
 
@@ -788,7 +994,8 @@ def phase_slice() -> dict:
         if single_steps != steps:
             fail(f"{label}: decode_step counted {single_steps} single-token steps, expected {steps}")
         # int8 cross K/V, one row per window: the fused self + cross launch
-        _check_decode_counts(label, counts, steps, dims.n_text_layer, fused=kv_quant)
+        _check_decode_counts(label, counts, steps, dims.n_text_layer,
+                             route="sc" if kv_quant else "split")
         if counts["train_attention_fwd"] != dims.n_audio_layer:
             fail(f"{label}: encoder attention launched {counts['train_attention_fwd']} times")
         out[label] = {"steps": steps, "wall_s": wall, "audio_s_per_s": B * 30 / wall,
@@ -908,10 +1115,12 @@ def _profile_step(what: str, step, prompt_len: int, warm: int = 40, timed: int =
         step(i)
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / timed
+    _reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(warm + timed, warm + timed + profiled):
             step(i)
         torch.cuda.synchronize()
+    wrappers = {k: v / profiled for k, v in _read_counts()[0].items() if v}
     by_kernel: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -928,8 +1137,10 @@ def _profile_step(what: str, step, prompt_len: int, warm: int = 40, timed: int =
           f"(the profiler recorded no device events)")
     for name, (ms, n) in top:
         print(f"      {name}: {ms:.4f} ms, {n / profiled:.1f} launches per step")
+    print(f"      wrapper launches per step: {wrappers}")
     return {"host_ms": host_ms, "kernel_ms": kernel_ms or None,
-            "device_launches": launches, "by_kernel_ms": {k: v[0] for k, v in top}}
+            "device_launches": launches, "by_kernel_ms": {k: v[0] for k, v in top},
+            "wrapper_launches": wrappers}
 
 
 # ---------------------------------------------------------------------------
@@ -1049,7 +1260,7 @@ def phase_server_traffic() -> dict:
     print(f"  windows per temperature {windows_at}; stats {stats}; launches {counts}")
     if sorted(windows_at) != list(DEFAULT_TEMPERATURES):
         fail(f"server traffic: the ladder did not run whole: {windows_at}")
-    _check_decode_counts("server traffic", counts, steps, dims.n_text_layer, fused=True)
+    _check_decode_counts("server traffic", counts, steps, dims.n_text_layer, route="sc")
     if stats["batches"] != 2:  # the warm-up, then the 8 requests as one batch
         fail(f"server traffic: {stats['batches'] - 1} batches for {len(audios)} requests")
     for k, r in enumerate(results):
@@ -1059,6 +1270,115 @@ def phase_server_traffic() -> dict:
             "windows_per_temperature": windows_at, "launches": counts}
 
 
+ROUTE_WINDOWS, ROUTE_STEPS = 64, 224
+
+
+def _route_loop(model, feats, prompt, route: str, rows: int, steps: int = ROUTE_STEPS,
+                **cache_kw):
+    """The JAX flag matrix's loop (tests/test_decode_flag_matrix.py, ``_run``)
+    at full size: ``init_cache`` over the windows' features, a prefill of the
+    prompt, then ``steps`` single-token steps along ``route``, each fed the
+    argmax of the last; returns (wall s, last logits). A one-token prompt
+    (small.en's, with timestamps) makes the prefill a single-token step too,
+    along the same route."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = model_mod.init_cache(model, feats, max_len=len(prompt) + steps,
+                                 self_batch=rows, **cache_kw)
+    tokens = torch.tensor([prompt] * rows, device=feats.device)
+    logits = model_mod.decode_step(model, tokens, cache, route=route)[:, -1]
+    for _ in range(steps):
+        logits = model_mod.decode_step(model, logits.argmax(-1)[:, None], cache,
+                                       route=route)[:, 0]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, logits
+
+
+def _profile_route_step(model, feats, prompt, route: str, rows: int, **cache_kw) -> dict:
+    """One step of :func:`_route_loop` on the host clock against its kernels."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    cache = model_mod.init_cache(model, feats, max_len=len(prompt) + 70, self_batch=rows,
+                                 **cache_kw)
+    tokens = torch.tensor([prompt] * rows, device=feats.device)
+    state = {"logits": model_mod.decode_step(model, tokens, cache, route=route)[:, -1]}
+
+    def step(i):
+        t = state["logits"].argmax(-1)
+        state["logits"] = model_mod.decode_step(model, t[:, None], cache, route=route)[:, 0]
+
+    return _profile_step(f"{route}-route", step, len(prompt))
+
+
+def _run_route(label: str, model, feats, prompt, route: str, rows: int, check_route: str,
+               **cache_kw) -> dict:
+    """:func:`_route_loop` with the launch counts read around it and checked
+    against ``check_route``, then a profiled step."""
+    L = model.dims.n_text_layer
+    windows = feats.shape[0]
+    _reset_counts()
+    wall, logits = _route_loop(model, feats, prompt, route, rows, **cache_kw)
+    counts, steps = _read_counts()
+    print(f"  {label}: {steps} decode steps, wall {wall:.3f} s, "
+          f"{windows * 30 / wall:.1f} audio-s/s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if steps != ROUTE_STEPS + (len(prompt) == 1) or not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: {steps} single-token steps, finite logits "
+             f"{bool(torch.isfinite(logits).all())}")
+    _check_decode_counts(label, counts, steps, L, route=check_route,
+                         int8_rings=cache_kw.get("quantize_self", False))
+    return {"steps": steps, "wall_s": wall, "audio_s_per_s": windows * 30 / wall,
+            "launches": counts,
+            "step_profile": _profile_route_step(model, feats, prompt, route, rows, **cache_kw)}
+
+
+def phase_routes() -> dict:
+    """The decode step's kernel routes at small.en's full width and depth,
+    bf16, seeded random weights, over 64 windows' encoder output:
+
+    - int8 self rings (``init_cache(quantize_self=True)``) over an int8 cross
+      cache, the JAX flag matrix's int8 case, beside the same loop with bf16
+      rings (which takes the "sc" launch), then int8 rings with 5 rows over
+      each of 32 windows (``self_batch``, as best_of decodes them);
+    - over an int8 cross cache with bf16 rings, ``route`` = split, layer,
+      attend and auto.
+
+    Each loop: wall, audio-seconds per second, steps, every wrapper's
+    launches (checked against the route), and a profiled step."""
+    from olmoasr_tpu_torch import build_model
+    from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from olmoasr_tpu_torch.decoding import DecodingOptions, _resolve_prompt, get_tokenizer
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+    audio = np.random.default_rng(7).standard_normal((ROUTE_WINDOWS, N_SAMPLES)) * 0.1
+    with torch.no_grad():
+        feats = model_mod.encode_audio(model, log_mel_spectrogram(
+            torch.from_numpy(audio.astype(np.float32)).cuda()))
+    prompt = _resolve_prompt(get_tokenizer(multilingual=False), DecodingOptions(language="en"))
+    _route_loop(model, feats[:8], prompt, "auto", 8, steps=4, quantize_cross=True,
+                quantize_self=True)  # warm-up; not counted
+    B, K = ROUTE_WINDOWS, BEAM_SIZE
+    out = {}
+    print(f"int8 self rings: small.en bf16, int8 cross K/V, prefill + {ROUTE_STEPS} steps")
+    out["int8 rings"] = _run_route("int8 rings, 64 windows", model, feats, prompt, "auto", B,
+                                   "split", quantize_cross=True, quantize_self=True)
+    out["bf16 rings"] = _run_route("bf16 rings, 64 windows", model, feats, prompt, "auto", B,
+                                   "sc", quantize_cross=True)
+    out["int8 rings best_of"] = _run_route(
+        f"int8 rings, {B // 2} windows x {K} rows", model, feats[:B // 2], prompt, "auto",
+        B // 2 * K, "split", quantize_cross=True, quantize_self=True)
+    print(f"routes: small.en bf16, int8 cross K/V, bf16 rings, 64 windows, prefill + "
+          f"{ROUTE_STEPS} steps")
+    for route, check in (("split", "split"), ("layer", "layer"), ("attend", "attend"),
+                         ("auto", "sc")):
+        out[f"route {route}"] = _run_route(f"route {route}", model, feats, prompt, route, B,
+                                           check, quantize_cross=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
@@ -1066,12 +1386,24 @@ def phase_server_traffic() -> dict:
 LOGIT_TOL = 2e-3  # fp32 on both sides; sums in another order, exp in another library
 
 
+# (token rows per window, int8 cross K/V, int8 self rings, route, what the
+# card's step runs)
+TEACHER_FORCED = ((2, False, False, "auto", "split"), (1, True, False, "auto", "sc"),
+                  (2, True, True, "split", "split"), (1, True, False, "layer", "layer"),
+                  (1, True, False, "attend", "attend"))
+
+
 def phase_teacher_forced() -> float:
     """The same weights and tokens through the port on the GPU (kernels) and
     on the CPU (plain twins), fp32: 2 windows x 2 token rows over the shared
     cross cache (the split kernels), then 2 windows x 1 row over an int8
     cross cache (the fused self + cross launch), which both sides take from
-    the GPU's quantization so that they read the same int8 values."""
+    the GPU's quantization so that they read the same int8 values; then 2
+    windows x 2 rows over int8 self rings (the route split; before each CPU
+    step the CPU's rings are set to the card's, since a key that lands on a
+    rounding edge may quantize one int8 step apart on the two), and 2 windows
+    x 1 row along the routes layer and attend, each against the CPU twin
+    route."""
     from olmoasr_tpu_torch import build_model
     from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
     from olmoasr_tpu_torch.decoding import get_tokenizer
@@ -1084,40 +1416,40 @@ def phase_teacher_forced() -> float:
     sot = get_tokenizer(multilingual=False).sot
     models = {d: build_model("small.en", seed=0, device=d, dtype=torch.float32)
               for d in ("cuda", "cpu")}
+    with torch.no_grad():
+        feats = {d: model_mod.encode_audio(m, mel.to(d)) for d, m in models.items()}
+    feat_err = max_err(feats["cuda"].cpu(), feats["cpu"])
     worst = 0.0
-    for G, quantize in ((2, False), (1, True)):
+    for G, quantize, rings8, route, runs in TEACHER_FORCED:
         tokens = torch.from_numpy(rng.integers(0, 50000, (B * G, steps))).long()
-        logits, cross = {}, None
-        for device, model in models.items():
-            with torch.no_grad():
-                feats = model_mod.encode_audio(model, mel.to(device))
-                cache = model_mod.init_cache(model, feats, max_len=1 + steps, self_batch=B * G,
-                                             quantize_cross=quantize)
-                if quantize and cross is None:
-                    cross = [getattr(cache, n).cpu() for n in
-                             ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale")]
-                elif quantize:
-                    cache.cross_k, cache.cross_v, cache.cross_k_scale, cache.cross_v_scale = cross
-                _reset_counts()
-                first = torch.full((B * G, 1), sot, device=device)
-                step_logits = [model_mod.decode_step(model, first, cache)]
-                for i in range(steps - 1):
-                    step_logits.append(
-                        model_mod.decode_step(model, tokens[:, i:i + 1].to(device), cache))
-                if device == "cuda":
-                    _check_decode_counts(f"teacher-forced G={G}", _read_counts()[0], steps,
-                                         model.dims.n_text_layer, fused=quantize)
-            logits[device] = (feats.cpu(), torch.cat(step_logits, dim=1).cpu())
-            del cache
-        feat_err = max_err(logits["cuda"][0], logits["cpu"][0])
-        err = max_err(logits["cuda"][1], logits["cpu"][1])
-        scale = float(logits["cpu"][1].abs().max())
+        caches = {d: model_mod.init_cache(m, feats[d], max_len=1 + steps, self_batch=B * G,
+                                          quantize_cross=quantize, quantize_self=rings8)
+                  for d, m in models.items()}
+        if quantize:
+            for n in ("cross_k", "cross_v", "cross_k_scale", "cross_v_scale"):
+                setattr(caches["cpu"], n, getattr(caches["cuda"], n).cpu())
+        _reset_counts()
+        logits = {d: [] for d in models}
+        for i in range(steps):
+            tok = torch.full((B * G, 1), sot) if i == 0 else tokens[:, i - 1:i]
+            for d, m in models.items():
+                if rings8 and d == "cpu":
+                    caches["cpu"].self_kv.copy_(caches["cuda"].self_kv.cpu())
+                    caches["cpu"].self_scale.copy_(caches["cuda"].self_scale.cpu())
+                logits[d].append(model_mod.decode_step(m, tok.to(d), caches[d], route=route).cpu())
+        _check_decode_counts(f"teacher-forced G={G} route {route}", _read_counts()[0], steps,
+                             models["cuda"].dims.n_text_layer, route=runs, int8_rings=rings8)
+        del caches
+        err = max_err(torch.cat(logits["cuda"], dim=1), torch.cat(logits["cpu"], dim=1))
+        scale = float(torch.cat(logits["cpu"], dim=1).abs().max())
         print(f"teacher-forced fp32 B={B} windows x {G} rows, "
-              f"{'int8' if quantize else 'fp32'} cross K/V, {steps} steps: audio features "
-              f"max_abs_err {feat_err:.3e}, logits max_abs_err {err:.3e} (tol {LOGIT_TOL}, "
-              f"max |logit| {scale:.2f})")
+              f"{'int8' if quantize else 'fp32'} cross K/V, {'int8' if rings8 else 'fp32'} "
+              f"self rings, route {route} ({runs}), {steps} steps: audio features max_abs_err "
+              f"{feat_err:.3e}, logits max_abs_err {err:.3e} (tol {LOGIT_TOL}, max |logit| "
+              f"{scale:.2f})")
         if not err <= LOGIT_TOL:
-            fail(f"teacher-forced logits disagree (G={G}, int8 {quantize}): {err} > {LOGIT_TOL}")
+            fail(f"teacher-forced logits disagree (G={G}, int8 {quantize}, int8 rings {rings8}, "
+                 f"route {route}): {err} > {LOGIT_TOL}")
         worst = max(worst, err)
     return worst
 
@@ -1794,15 +2126,22 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_identity()
-    cases = phase_kernels()
-    short = phase_slice()
-    long_form = phase_long_form()
-    server = phase_server_traffic()
-    phase_teacher_forced()
-    training = phase_training()
-    phase_train_fp32()
-    phase_entry_points()
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    timed(phase_identity)
+    cases = timed(phase_kernels)
+    short = timed(phase_slice)
+    long_form = timed(phase_long_form)
+    server = timed(phase_server_traffic)
+    routes = timed(phase_routes)
+    timed(phase_teacher_forced)
+    training = timed(phase_training)
+    timed(phase_train_fp32)
+    timed(phase_entry_points)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax",
                                                                    "olmoasr_tpu"))
     if leaked:
@@ -1825,14 +2164,25 @@ def main() -> None:
                                     "olmoasr_tpu/ops/attention.py:254"),
         "train_attention_bwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
                                 "olmoasr_tpu/ops/train_attention.py:412"),
+        "self_attend_decode_q8": ("olmoasr_tpu_torch/csrc/self_attention.cu",
+                                  "olmoasr_tpu/ops/attention.py:322"),
+        "cross_attend_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
+                                "olmoasr_tpu/ops/attention.py:725"),
+        "layer_block_decode_mlp": ("olmoasr_tpu_torch/csrc/layer_block.cu",
+                                   "olmoasr_tpu/ops/attention.py:1228"),
     }
+    # the path that runs each kernel: the long-form slice at the CLI's
+    # defaults, for the fused launch the server's default traffic, for the
+    # backward the training slice, for the int8 self pass the int8-ring loop,
+    # for the whole layer and the standalone cross attention their routes
+    paths = {"layer_block_decode": server, "train_attention_bwd": training,
+             "self_attend_decode_q8": routes["int8 rings"],
+             "layer_block_decode_mlp": routes["route layer"],
+             "cross_attend_decode": routes["route attend"]}
     kernels = []
     for name, (source, replaces) in sources.items():
         main_case = cases[name][0]  # the main path's shape and dtype
-        # launches on the path that runs the kernel: the long-form slice at the
-        # CLI's defaults, for the fused launch the server's default traffic,
-        # for the backward the training slice
-        path = {"layer_block_decode": server, "train_attention_bwd": training}.get(name, long_form)
+        path = paths.get(name, long_form)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name],
@@ -1840,6 +2190,7 @@ def main() -> None:
             "launches_server_traffic": server["launches"][name],
             "launches_short_form": {k: v["launches"][name] for k, v in short.items()},
             "launches_training_step": training["launches"].get(name, 0),
+            "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -23,6 +23,18 @@
 // The split-position design (decode_attention.cuh) spreads the read over
 // every SM: one block per (128-key chunk, head, query row) -- 9216 blocks at
 // B = 64 -- and a combine launch.
+//
+// olm_cross_attend is the attention alone, with q projected but not yet
+// scaled, in the activation type: replaces cross_attend_decode
+// (olmoasr_tpu/ops/attention.py:725, _cross_decode_kernel at :39), which the
+// JAX step runs between an ln_matmul for the cross q and a matmul_residual.
+// The same pass and combine, with the TPU kernel's bf16 dot dtype under bf16
+// activations (decode_attention.cuh, kRound = 2): q rounded to bf16 for the
+// exact product (int8 keys take the int8 one from the unrounded q), each
+// softmax weight rounded after its value scale, and each weight-value
+// product rounded before the fp32 sum. One kv row per query row.
+#include <type_traits>
+
 #include "decode_attention.cuh"
 
 // Scratch: m_part and l_part hold B*H*nchunks floats, acc_part B*H*nchunks*dh,
@@ -67,5 +79,43 @@ extern "C" int olm_cross_attention(const float* q, const void* k, const void* v,
   };
   if (out_dtype == kBF16) return run(static_cast<__nv_bfloat16*>(out));
   if (out_dtype == kF32) return run(static_cast<float*>(out));
+  return cudaErrorInvalidValue;
+}
+
+// q, out: (B, D) contiguous in `dtype`; k, v: (B, T, D) in kv_dtype (int8, or
+// `dtype`); ks, vs: (B, T) fp32 or null (ones). Scratch as above.
+extern "C" int olm_cross_attend(const void* q, const void* k, const void* v, const float* ks,
+                                const float* vs, float* m_part, float* l_part, float* acc_part,
+                                void* out, int B, int T, int D, int H, int kv_dtype, int dtype,
+                                float qscale, void* stream) {
+  using namespace olm;
+  if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return cudaErrorInvalidValue;
+  if (kv_dtype != kI8 && kv_dtype != dtype) return cudaErrorInvalidValue;
+  DecodeAttnArgs p;
+  p.q = q;
+  p.q_stride = D;
+  p.k = k;
+  p.v = v;
+  p.ks = ks;
+  p.vs = vs;
+  p.m_part = m_part;
+  p.l_part = l_part;
+  p.acc_part = acc_part;
+  p.T = p.row_keys = T;
+  p.D = D;
+  p.H = H;
+  p.nchunks = olm_decode_attention_chunks(T);
+  p.quant_q = kv_dtype == kI8 && dtype == kBF16;
+  p.qscale = qscale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto* o) -> int {
+    using Q = std::remove_pointer_t<decltype(o)>;
+    constexpr int kRound = std::is_same<Q, __nv_bfloat16>::value ? 2 : 0;
+    const Q* none = nullptr;  // no new key
+    if (kv_dtype == kI8) return launch_decode_attention<int8_t, kRound>(p, B, none, none, 0, o, s);
+    return launch_decode_attention<Q, kRound>(p, B, none, none, 0, o, s);
+  };
+  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(out));
+  if (dtype == kF32) return run(static_cast<float*>(out));
   return cudaErrorInvalidValue;
 }

@@ -18,6 +18,17 @@
 //     its own scale, amax(|q_h|) / 127, and the logit is the s32 dot product
 //     of the int8 vectors (__dp4a, four products an instruction) times that
 //     scale, then times ks[t], as the TPU kernel's _qk_logits takes it.
+// and the TPU kernels' bf16 dot dtype, as a template argument kRound of the
+// pass (bf16 activations; 0 keeps every product fp32, as the decode-step
+// kernels of the split chain do):
+//   * 1: each softmax weight, after the value scale, is rounded to bf16 before
+//     the value product (_self_decode_body over int8 rings);
+//   * 2: also q (for the exact q.K product) and each weight-value product are
+//     rounded to bf16 (_cross_decode_kernel: `qm.astype(dd)`, `w_full * v`
+//     in bf16).
+//   The pass rounds the chunk's unnormalised weights (flash-decoding defers
+//   the normalisation to the combine), the TPU kernel the normalised ones:
+//   the same relative rounding of each weight, not the same bits.
 //
 // What bounds it: the K/V read, 2 * T * D elements per kv row. FLOPs are 2
 // per element read. The design spreads that read over the whole card and
@@ -81,6 +92,10 @@ __device__ __forceinline__ float block_reduce(float v, float* scratch, bool is_m
   return r;
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // 16 bytes of KV elements, widened to fp32.
 template <typename KV, int V>
 __device__ __forceinline__ void widen(const uint4& raw, float (&out)[V]) {
@@ -90,8 +105,9 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&out)[V]) {
 }
 
 // One block of the partial pass: chunk c, head h, query row b, and g = b /
-// kv_group, its kv row (without ancestry) or group (with it).
-template <typename KV, typename Q>
+// kv_group, its kv row (without ancestry) or group (with it); kRound: see the
+// head of this file.
+template <typename KV, typename Q, int kRound = 0>
 __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c, int h, int b,
                                                    int g) {
   constexpr int V = 16 / sizeof(KV);  // elements per 16-byte load
@@ -133,6 +149,10 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
   // int8 q.K: the head's amax over its lpk lanes, then q rounded to int8
   // (round half to even, clipped to +-127) and packed four to a word
   const bool q8 = kInt8 && p.quant_q;
+  if (kRound == 2 && !q8) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) qv[i] = bf16_round(qv[i]);
+  }
   float q8_scale = 0.f;
   int qp[(V + 3) / 4] = {};
   if (q8) {
@@ -188,7 +208,8 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
   for (int j = tid; j < n; j += kCaThreads) {
     const float e = expf(sp[j] - mx);
     lsum += e;
-    sp[j] = p.vs ? e * p.vs[key_row(j)] : e;  // the per-key value scale folds into the weight
+    const float w = p.vs ? e * p.vs[key_row(j)] : e;  // the per-key value scale folds in
+    sp[j] = kRound ? bf16_round(w) : w;
   }
   lsum = block_reduce(lsum, scratch, false);  // its barriers also publish sp
 
@@ -212,7 +233,7 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
       float e[V];
       widen<KV, V>(raw[u], e);
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] += w[u] * e[i];
+      for (int i = 0; i < V; ++i) acc[i] += kRound == 2 ? bf16_round(w[u] * e[i]) : w[u] * e[i];
     }
   }
 #pragma unroll
@@ -233,11 +254,11 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
 // grid (nchunks * kv_group, H, rows / kv_group). The coordinates are formed
 // here in blockIdx's unsigned arithmetic: the same sums on int coordinates
 // inside the body cost 16 registers more and 12% more time (int8, B = 64).
-template <typename KV, typename Q>
+template <typename KV, typename Q, int kRound>
 __global__ void __launch_bounds__(kCaThreads) attn_partial_kernel(const DecodeAttnArgs p) {
   const int G = p.kv_group;
-  attn_partial_block<KV, Q>(p, blockIdx.x / G, blockIdx.y, blockIdx.z * G + blockIdx.x % G,
-                            blockIdx.z);
+  attn_partial_block<KV, Q, kRound>(p, blockIdx.x / G, blockIdx.y,
+                                    blockIdx.z * G + blockIdx.x % G, blockIdx.z);
 }
 
 // Merge the chunks' partials of head h of row b, plus the row's own new key
@@ -305,8 +326,8 @@ __host__ __device__ constexpr bool decode_attention_fits(int D, int H) {
 
 // Launch the partial pass (when T > 0) and the combine. K/V rows must be
 // 16-byte aligned; rows = kv rows * kv_group (with ancestry: rows = kv rows,
-// in groups of kv_group).
-template <typename KV, typename Q, typename O>
+// in groups of kv_group). Q is the type of q and of k_new/v_new.
+template <typename KV, int kRound = 0, typename Q, typename O>
 int launch_decode_attention(const DecodeAttnArgs& p, int rows, const Q* k_new, const Q* v_new,
                             long long new_stride, O* out, cudaStream_t s) {
   const int dh = p.D / p.H;
@@ -314,7 +335,7 @@ int launch_decode_attention(const DecodeAttnArgs& p, int rows, const Q* k_new, c
   if (p.kv_group <= 0 || rows % p.kv_group != 0) return cudaErrorInvalidValue;
   if (p.T > 0) {
     const dim3 grid(p.nchunks * p.kv_group, p.H, rows / p.kv_group);
-    attn_partial_kernel<KV, Q><<<grid, kCaThreads, 0, s>>>(p);
+    attn_partial_kernel<KV, Q, kRound><<<grid, kCaThreads, 0, s>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

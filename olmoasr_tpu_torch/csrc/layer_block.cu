@@ -1,10 +1,12 @@
-// The self and cross sub-blocks of one decoder layer for one decode step, in
-// ONE launch: replaces layer_block_decode (olmoasr_tpu/ops/attention.py,
-// _layer_block_impl) in its default "sc" mode (include_mlp=False: the MLP
-// follows as mlp_block). The JAX package takes it for S=1 steps over an int8
+// One decoder layer for one decode step in ONE launch: replaces
+// layer_block_decode (olmoasr_tpu/ops/attention.py:1228, _layer_block_impl)
+// in both its modes: "sc" (include_mlp=False, the self and cross sub-blocks;
+// the MLP follows as mlp_block) and the whole layer (include_mlp=True, the
+// MLP's phases too). The JAX package takes it for S=1 steps over an int8
 // cross cache with one token row per window and no beam ancestry
 // (olmoasr_tpu/models/whisper.py, use_layer_block): greedy decoding, and
-// sampling without best_of, under int8 cross K/V -- the server's default.
+// sampling without best_of, under int8 cross K/V -- the server's default
+// ("sc"), or the whole layer under OLMOASR_LAYER_BLOCK=1.
 //
 // For the B rows of the residual x (B, D) of layer weights in torch's (out,
 // in) layout, rings of this layer (B, C, D) and the int8 cross cache (B, T, D)
@@ -17,6 +19,9 @@
 //   qc  = h2 @ Wq^T + bq                           fp32
 //   c   = attend(qc; cross K/V)                    int8 q.K under bf16 (_qk_logits)
 //   out = x1 + round(c) @ Wo2^T + bo2              one rounding, at the store
+// and with the MLP (include_mlp), from the fp32 x2 = x1 + round(c) @ Wo2^T + bo2:
+//   u   = gelu(round(LN3(x2)) @ W1^T + b1)         exact erf GELU, rounded
+//   out = x2 + u @ W2^T + b2                       one rounding, at the store
 // and k_new, v_new rounded to the ring type for the caller to write at
 // position offset. As in the TPU kernel, the residual and the projections stay
 // fp32 inside the layer; the chain of split kernels rounds them between
@@ -26,7 +31,8 @@
 // resident in VMEM. A GPU block cannot hold 7 MB of weights, and each phase
 // needs every row of the one before it (a projection reads all of h, the
 // attention all of q), so the launch is cooperative: as many 128-thread
-// blocks as fit on the card at once run thirteen phases in order, each a
+// blocks as fit on the card at once run thirteen phases in order (eighteen
+// with the MLP), each a
 // grid-stride loop over its work items, with a grid-wide barrier between
 // phases. The work items are the block bodies that the split kernels launch
 // as grids of their own (skinny_linear.cuh: 32x32 output tiles over K splits;
@@ -37,8 +43,9 @@
 // grid size beyond the split count.
 //
 // Its bytes are those of the split kernels: the cross read (small.en, B = 64,
-// int8: 147 MB per layer), the ring read and the 7 MB of weights. It replaces
-// their fourteen launches. Measured on an H100 at that size it takes about
+// int8: 147 MB per layer), the ring read and the 7 MB of weights (16.5 MB
+// with the MLP's). It replaces their fourteen launches (nineteen with the
+// MLP's). Measured on an H100 at that size it takes about
 // 0.26 ms a layer against 0.17 ms for the split kernels in a CUDA graph: the
 // thirteen dependent phases, not the bytes, bound it.
 #include <cooperative_groups.h>
@@ -60,6 +67,7 @@ struct LayerBlockArgs {
   const void* x;  // (B, D) residual, weight type
   const void *ln1_g, *ln1_b, *wqkv, *bqkv, *wo1, *bo1;  // self sub-block
   const void *ln2_g, *ln2_b, *wq, *bq, *wo2, *bo2;      // cross sub-block
+  const void *ln3_g, *ln3_b, *w1, *b1, *w2, *b2;        // MLP, or all null ("sc")
   const void *k_ring, *v_ring;                          // this layer's (B, C, D) rings
   const int8_t *ck, *cv;                                // (B, T, D)
   const float *cks, *cvs;                               // (B, T)
@@ -68,9 +76,10 @@ struct LayerBlockArgs {
   // scratch, carved by the host
   float *qkv, *x1, *qc, *ws, *m_part, *l_part, *acc_part;
   void *h, *attn;  // (B, D) weight type
-  int B, D, H, C, offset, T;
-  int s3, s1;      // K splits of the N = 3D and the N = D projections
-  int per3, per1;  // K tiles per split
+  void* u;         // (B, F) weight type: the MLP's hidden activations
+  int B, D, H, C, offset, T, F;
+  int s3, s1, sF, s2;          // K splits: N = 3D, N = D (K = D), W1 (N = F), W2 (K = F)
+  int per3, per1, perF, per2;  // K tiles per split
   float qscale;
 };
 
@@ -208,21 +217,52 @@ __global__ void __launch_bounds__(kLbThreads) layer_block_kernel(const LayerBloc
   // 12-13. the cross output projection, bias and residual
   project<T>(attn, a.wo2, a.ws, B, D, D, a.s1, a.per1);
   grid.sync();
+  if (!a.w1) {  // "sc": the MLP follows as mlp_block
+    each_element(BD, [&](size_t i) {
+      static_cast<T*>(a.out)[i] = from_f<T>(a.x1[i] + split_sum(a.ws, a.s1, BD, i) +
+                                            bias(a.bo2, static_cast<int>(i % D)));
+    });
+    return;
+  }
+  // 13'. x2 = x1 + sum + bias (fp32, in x1's place), then h = LN3(x2), one warp a row
+  each_row(B, [&](int m) {
+    const size_t r = static_cast<size_t>(m) * D;
+    for (int k = threadIdx.x % 32; k < D; k += 32)  // the lanes LN reads back
+      a.x1[r + k] += split_sum(a.ws, a.s1, BD, r + k) + bias(a.bo2, k);
+    layer_norm_row(a.x1 + r, static_cast<const T*>(a.ln3_g), static_cast<const T*>(a.ln3_b),
+                   h + r, D, 1e-5f);
+  });
+  grid.sync();
+  // 14-15. u = gelu(h @ W1^T + b1), rounded to the weight type
+  const int F = a.F;
+  const size_t BF = static_cast<size_t>(B) * F;
+  T* u = static_cast<T*>(a.u);
+  project<T>(h, a.w1, a.ws, B, F, D, a.sF, a.perF);
+  grid.sync();
+  each_element(BF, [&](size_t i) {
+    u[i] = from_f<T>(gelu_erf(split_sum(a.ws, a.sF, BF, i) + bias(a.b1, static_cast<int>(i % F))));
+  });
+  grid.sync();
+  // 16-17. out = x2 + u @ W2^T + b2
+  project<T>(u, a.w2, a.ws, B, D, F, a.s2, a.per2);
+  grid.sync();
   each_element(BD, [&](size_t i) {
-    static_cast<T*>(a.out)[i] = from_f<T>(a.x1[i] + split_sum(a.ws, a.s1, BD, i) +
-                                          bias(a.bo2, static_cast<int>(i % D)));
+    static_cast<T*>(a.out)[i] = from_f<T>(a.x1[i] + split_sum(a.ws, a.s2, BD, i) +
+                                          bias(a.b2, static_cast<int>(i % D)));
   });
 }
 
 // Launch geometry: the grid that fits on the card at once, and K splits that
 // give each projection phase about one work item per block.
 struct Plan {
-  int grid = 0, s3 = 1, s1 = 1, per3 = 1, per1 = 1, nchunks = 0;
+  int grid = 0, s3 = 1, s1 = 1, sF = 1, s2 = 1, per3 = 1, per1 = 1, perF = 1, per2 = 1;
+  int nchunks = 0;
   size_t floats = 0;  // scratch
 };
 
+// F = 0: no MLP ("sc").
 template <typename T>
-int plan(int B, int D, int H, int T_keys, int offset, Plan* out) {
+int plan(int B, int D, int H, int T_keys, int offset, int F, Plan* out) {
   static int per_sm = 0;  // resident blocks per SM, the same on every call
   if (per_sm == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -236,66 +276,84 @@ int plan(int B, int D, int H, int T_keys, int offset, Plan* out) {
   if (per_sm <= 0) return cudaErrorInvalidConfiguration;
   Plan p;
   p.grid = per_sm * sms;
-  const int ktiles = (D + linear_k_tile<T>() - 1) / linear_k_tile<T>();
-  auto splits = [&](int N, int* s, int* per) {
-    const int want = std::max(1, std::min(ktiles, (p.grid + linear_tiles(B, N) - 1) / linear_tiles(B, N)));
+  auto splits = [&](int N, int K, int* s, int* per) {
+    const int ktiles = (K + linear_k_tile<T>() - 1) / linear_k_tile<T>();
+    const int tiles = linear_tiles(B, N);
+    const int want = std::max(1, std::min(ktiles, (p.grid + tiles - 1) / tiles));
     *per = (ktiles + want - 1) / want;
     *s = (ktiles + *per - 1) / *per;
   };
-  splits(3 * D, &p.s3, &p.per3);
-  splits(D, &p.s1, &p.per1);
+  splits(3 * D, D, &p.s3, &p.per3);
+  splits(D, D, &p.s1, &p.per1);
+  if (F > 0) {
+    splits(F, D, &p.sF, &p.perF);
+    splits(D, F, &p.s2, &p.per2);
+  }
   p.nchunks = std::max((offset + kCaChunk - 1) / kCaChunk, (T_keys + kCaChunk - 1) / kCaChunk);
   const size_t BD = static_cast<size_t>(B) * D, parts = static_cast<size_t>(B) * H * p.nchunks;
+  const size_t BF = static_cast<size_t>(B) * F;
   auto up4 = [](size_t n) { return (n + 3) / 4 * 4; };  // 16-byte aligned pieces
-  // qkv, x1, qc, h, attn (a float each, room for either type), split partials,
-  // attention partials
-  p.floats = 3 * BD + 2 * BD + 2 * BD + std::max(p.s3 * 3 * BD, p.s1 * BD) + 2 * up4(parts) +
+  // qkv, x1, qc, h, attn (a float each, room for either type), the MLP's u,
+  // split partials, attention partials: the pieces olm_layer_block takes
+  const size_t ws = std::max({p.s3 * 3 * BD, p.s1 * BD, F > 0 ? p.sF * BF : 0,
+                              F > 0 ? p.s2 * BD : 0});
+  p.floats = up4(3 * BD) + 4 * up4(BD) + up4(BF) + up4(ws) + 2 * up4(parts) +
              up4(parts * (D / H));
   *out = p;
   return cudaSuccess;
 }
 
 template <typename T>
-bool fits(int D, int H) {
-  return decode_attention_fits<T>(D, H) && decode_attention_fits<int8_t>(D, H) && D % 8 == 0;
+bool fits(int D, int H, int F) {
+  return decode_attention_fits<T>(D, H) && decode_attention_fits<int8_t>(D, H) && D % 8 == 0 &&
+         F >= 0 && F % 8 == 0;
 }
 
 }  // namespace
 }  // namespace olm
 
-// fp32 scratch floats that olm_layer_block needs at these sizes; 0 on an
-// error or unsupported widths.
-extern "C" long long olm_layer_block_scratch(int B, int D, int H, int T, int offset, int dtype) {
+// fp32 scratch floats that olm_layer_block needs at these sizes (F = 0: no
+// MLP); 0 on an error or unsupported widths.
+extern "C" long long olm_layer_block_scratch(int B, int D, int H, int T, int offset, int F,
+                                             int dtype) {
   using namespace olm;
   if (B <= 0 || H <= 0 || D % H != 0 || T <= 0 || offset < 0) return 0;
   Plan p;
-  if (dtype == kBF16 ? !fits<__nv_bfloat16>(D, H) || plan<__nv_bfloat16>(B, D, H, T, offset, &p)
-                     : dtype != kF32 || !fits<float>(D, H) || plan<float>(B, D, H, T, offset, &p))
+  if (dtype == kBF16
+          ? !fits<__nv_bfloat16>(D, H, F) || plan<__nv_bfloat16>(B, D, H, T, offset, F, &p)
+          : dtype != kF32 || !fits<float>(D, H, F) || plan<float>(B, D, H, T, offset, F, &p))
     return 0;
   return static_cast<long long>(p.floats);
 }
 
 // x, out: (B, D); rings: the stacked (L, B, C, D); ck, cv: (B, T, D) int8
-// with (B, T) scales; kv_new: (2, B, D). All 16-byte aligned, weight type
-// `dtype` but the cache. scratch: olm_layer_block_scratch(...) floats.
+// with (B, T) scales; kv_new: (2, B, D). The MLP's ln3_g, ln3_b (D), w1 (F, D),
+// b1 (F), w2 (D, F), b2 (D) with F > 0, or all null with F = 0 ("sc"). All
+// 16-byte aligned, weight type `dtype` but the cache. scratch:
+// olm_layer_block_scratch(...) floats.
 extern "C" int olm_layer_block(const void* x, const void* ln1_g, const void* ln1_b,
                                const void* wqkv, const void* bqkv, const void* wo1,
                                const void* bo1, const void* ln2_g, const void* ln2_b,
                                const void* wq, const void* bq, const void* wo2, const void* bo2,
+                               const void* ln3_g, const void* ln3_b, const void* w1,
+                               const void* b1, const void* w2, const void* b2,
                                const void* k_ring, const void* v_ring, const void* ck,
                                const void* cv, const float* cks, const float* cvs, void* out,
                                void* kv_new, float* scratch, int L, int layer, int B, int C,
-                               int offset, int D, int H, int T, int dtype, float qscale,
+                               int offset, int D, int H, int T, int F, int dtype, float qscale,
                                void* stream) {
   using namespace olm;
   if (B <= 0 || H <= 0 || D % H != 0 || T <= 0 || layer < 0 || layer >= L || offset < 0 ||
       offset > C)
     return cudaErrorInvalidValue;
+  const bool mlp = F > 0;
+  for (const void* w : {ln3_g, ln3_b, w1, b1, w2, b2})
+    if ((w != nullptr) != mlp) return cudaErrorInvalidValue;
   auto run = [&](auto* typed) -> int {
     using Ty = std::remove_pointer_t<decltype(typed)>;
-    if (!fits<Ty>(D, H)) return cudaErrorInvalidValue;
+    if (!fits<Ty>(D, H, F)) return cudaErrorInvalidValue;
     Plan p;
-    const int err = plan<Ty>(B, D, H, T, offset, &p);
+    const int err = plan<Ty>(B, D, H, T, offset, F, &p);
     if (err != cudaSuccess) return err;
     const size_t BD = static_cast<size_t>(B) * D, parts = static_cast<size_t>(B) * H * p.nchunks;
     const size_t layer_elems = static_cast<size_t>(layer) * B * C * D;
@@ -303,6 +361,7 @@ extern "C" int olm_layer_block(const void* x, const void* ln1_g, const void* ln1
     a.x = x;
     a.ln1_g = ln1_g, a.ln1_b = ln1_b, a.wqkv = wqkv, a.bqkv = bqkv, a.wo1 = wo1, a.bo1 = bo1;
     a.ln2_g = ln2_g, a.ln2_b = ln2_b, a.wq = wq, a.bq = bq, a.wo2 = wo2, a.bo2 = bo2;
+    a.ln3_g = ln3_g, a.ln3_b = ln3_b, a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2;
     a.k_ring = static_cast<const Ty*>(k_ring) + layer_elems;
     a.v_ring = static_cast<const Ty*>(v_ring) + layer_elems;
     a.ck = static_cast<const int8_t*>(ck);
@@ -322,12 +381,15 @@ extern "C" int olm_layer_block(const void* x, const void* ln1_g, const void* ln1
     a.qc = take(BD);
     a.h = take(BD);
     a.attn = take(BD);
-    a.ws = take(std::max(p.s3 * 3 * BD, p.s1 * BD));
+    a.u = take(static_cast<size_t>(B) * F);
+    a.ws = take(std::max({p.s3 * 3 * BD, p.s1 * BD, mlp ? p.sF * B * static_cast<size_t>(F) : 0,
+                          mlp ? p.s2 * BD : 0}));
     a.m_part = take(parts);
     a.l_part = take(parts);
     a.acc_part = take(parts * (D / H));
-    a.B = B, a.D = D, a.H = H, a.C = C, a.offset = offset, a.T = T;
-    a.s3 = p.s3, a.s1 = p.s1, a.per3 = p.per3, a.per1 = p.per1;
+    a.B = B, a.D = D, a.H = H, a.C = C, a.offset = offset, a.T = T, a.F = F;
+    a.s3 = p.s3, a.s1 = p.s1, a.sF = p.sF, a.s2 = p.s2;
+    a.per3 = p.per3, a.per1 = p.per1, a.perF = p.perF, a.per2 = p.per2;
     a.qscale = qscale;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(p.grid);

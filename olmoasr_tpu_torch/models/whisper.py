@@ -8,11 +8,13 @@ as they are; the forward passes are plain functions over those modules.
 Numerics follow the JAX model: fp32 LayerNorm islands cast back, q and k each
 scaled by dh^-0.25 with an fp32 softmax in the plain attention, exact (erf)
 GELU, products in the weights' dtype, logits through the tied token embedding
-returned in fp32. Six kernels serve the inference path: the encoder's
+returned in fp32. The kernels of the inference path: the encoder's
 self-attention (``ops.train_attention``) and, at S=1 decode steps, the whole
 decoder layer (``ops.attention``): ``ln_matmul`` (fused QKV),
-``self_attend_decode``, ``matmul_residual``, ``cross_block_decode`` and
-``mlp_block``. The training forward (``forward_train``: ``encode_train`` and
+``self_attend_decode`` (bf16, fp32 or int8 rings), ``matmul_residual``,
+``cross_block_decode`` and ``mlp_block``, or the routes of the JAX step's
+kernel matrix (``decode_step``'s ``route``) through ``layer_block_decode``
+and ``cross_attend_decode``. The training forward (``forward_train``: ``encode_train`` and
 ``decode_train``) sends the encoder's self-attention and the decoder's self-
 and cross-attention through ``ops.train_attention``'s forward and backward
 kernels; fp32 parameters are cast to the compute dtype op by op, so their
@@ -33,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.ops.attention import (
+    cross_attend_decode,
     cross_block_decode,
     cross_block_decode_plain,
     layer_block_decode,
@@ -404,11 +407,13 @@ class KVCache:
     """Decoder state. ``self_kv``: (2, L, R, C, D), the key rings then the
     value rings (``self_k``, ``self_v``) of R token rows, positions below
     ``index`` valid, written in place by ``decode_step``; one storage lets a
-    step write a layer's new key and value with one copy. ``cross_k``/
-    ``cross_v``: (L, B, T, D) projections of the B audio windows' features,
-    in the activation dtype or int8; ``cross_*_scale``: (L, B, 1, T) fp32
-    per-position scales, ones when the cross cache is not quantized. R is a
-    multiple of B: token row r reads window r // (R // B)."""
+    step write a layer's new key and value with one copy. The rings are in
+    the activation dtype, or int8 with ``self_scale`` (2, L, R, 1, C) fp32
+    per-position scales (``self_k_scale``, ``self_v_scale``; None otherwise).
+    ``cross_k``/``cross_v``: (L, B, T, D) projections of the B audio windows'
+    features, in the activation dtype or int8; ``cross_*_scale``: (L, B, 1,
+    T) fp32 per-position scales, ones when the cross cache is not quantized.
+    R is a multiple of B: token row r reads window r // (R // B)."""
 
     self_kv: torch.Tensor
     cross_k: torch.Tensor
@@ -416,6 +421,15 @@ class KVCache:
     cross_k_scale: torch.Tensor
     cross_v_scale: torch.Tensor
     index: int = 0
+    self_scale: Optional[torch.Tensor] = None
+
+    @property
+    def self_k_scale(self) -> Optional[torch.Tensor]:
+        return None if self.self_scale is None else self.self_scale[0]
+
+    @property
+    def self_v_scale(self) -> Optional[torch.Tensor]:
+        return None if self.self_scale is None else self.self_scale[1]
 
     @property
     def self_k(self) -> torch.Tensor:
@@ -446,11 +460,15 @@ def init_cache(
     max_len: Optional[int] = None,
     *,
     quantize_cross: bool = False,
+    quantize_self: bool = False,
     self_batch: Optional[int] = None,
 ) -> KVCache:
     """Allocate the self rings and project every layer's cross K/V once per
     audio window (optionally int8 with per-position scales).
 
+    ``quantize_self``: int8 self rings with zeroed (L, R, 1, C) fp32
+    per-position scales, each key and value row quantized as ``decode_step``
+    writes it (the JAX package's ``init_cache(quantize_self=True)``).
     ``self_batch`` sizes the self rings apart from the cross cache: best_of
     sampling decodes ``self_batch = B * G`` token rows over the same B
     windows, which share one cross cache instead of G copies."""
@@ -477,11 +495,14 @@ def init_cache(
         cross_k[i] = k
         cross_v[i] = v
     return KVCache(
-        self_kv=torch.zeros((2, L, rows, n_ctx, D), dtype=dtype, **kw),
+        self_kv=torch.zeros((2, L, rows, n_ctx, D), dtype=torch.int8 if quantize_self else dtype,
+                            **kw),
         cross_k=cross_k,
         cross_v=cross_v,
         cross_k_scale=k_scale,
         cross_v_scale=v_scale,
+        self_scale=torch.zeros((2, L, rows, 1, n_ctx), dtype=torch.float32, **kw)
+        if quantize_self else None,
     )
 
 
@@ -496,9 +517,50 @@ def _attend_cached(q, k, v, offset: int, n_head: int) -> torch.Tensor:
     return sdpa(q, k, v, n_head, mask.masked_fill(future, float("-inf")))
 
 
+def _write_ring(cache: KVCache, layer: int, offset: int, kv: torch.Tensor) -> None:
+    """This call's keys and values, kv (2, R, S, D), into layer ``layer``'s
+    rings at positions offset..; int8 rings take each row quantized with its
+    scale, as the JAX step writes them after its layer loop."""
+    end = offset + kv.shape[2]
+    if cache.self_scale is None:
+        cache.self_kv[:, layer, :, offset:end] = kv
+        return
+    q, scale = _quantize_rows(kv)
+    cache.self_kv[:, layer, :, offset:end] = q
+    cache.self_scale[:, layer, :, 0, offset:end] = scale
+
+
+def _ring_prefix(cache: KVCache, layer: int, offset: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``layer``'s rings below ``offset``, (2, R, offset, D) in
+    ``dtype``: int8 rings dequantized with their scales in fp32 first."""
+    kv = cache.self_kv[:, layer, :, :offset]
+    if cache.self_scale is None:
+        return kv
+    return (kv.float() * cache.self_scale[:, layer, :, 0, :offset, None]).to(dtype)
+
+
+# decode_step's routes: the JAX step's kernel routes as its flag matrix names
+# them (tests/test_decode_flag_matrix.py)
+ROUTES = ("auto", "split", "layer", "attend")
+
+
+def _check_route(route: str, cache: KVCache, beam_anc, G: int) -> None:
+    """Refuse a single-token step's route whose kernels do not take this
+    cache."""
+    if route == "layer" and (cache.cross_k.dtype != torch.int8 or G != 1 or beam_anc is not None
+                             or cache.self_scale is not None):
+        raise ValueError(
+            "route 'layer' needs an int8 cross cache, one token row per window (kv_group 1), "
+            f"no ancestry map and unquantized self rings; got a {cache.cross_k.dtype} cross "
+            f"cache, kv_group {G}, ancestry {beam_anc is not None}, int8 rings "
+            f"{cache.self_scale is not None}")
+    if route == "attend" and G != 1:
+        raise ValueError(f"route 'attend' needs one token row per window (kv_group 1), got {G}")
+
+
 @torch.no_grad()
 def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache,
-                beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                beam_anc: Optional[torch.Tensor] = None, *, route: str = "auto") -> torch.Tensor:
     """Run the decoder on ``tokens`` (R, S) at positions ``cache.index``..;
     returns fp32 logits (R, S, n_vocab) and advances the cache in place.
 
@@ -506,11 +568,28 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache,
     (``ops.attention``): ``ln_matmul`` (fused QKV), ``self_attend_decode``
     over the read-only rings, ``matmul_residual``, then the new key and value
     go into the rings, then ``cross_block_decode`` and ``mlp_block``. Over an
-    int8 cross cache with one token row per window and no ancestry map, the
-    self and cross sub-blocks run as one ``layer_block_decode`` launch, as
-    the JAX step takes its layer block there (whisper.py, use_layer_block).
-    A prefill (S>1) is plain tensor code, as in the JAX package.
+    int8 cross cache with one token row per window, no ancestry map and
+    unquantized rings, the self and cross sub-blocks run as one
+    ``layer_block_decode`` launch, as the JAX step takes its layer block
+    there (whisper.py, use_layer_block). A prefill (S>1) is plain tensor
+    code, as in the JAX package; over int8 rings it attends the dequantized
+    ring and its own keys unquantized, and quantizes them afterwards.
     ``decode_step.single_steps`` counts the S=1 calls.
+
+    ``route`` picks the JAX step's kernel routes for S=1 steps, as its flag
+    matrix names them; the prefill ignores it. A route whose conditions do
+    not hold raises ValueError.
+
+    - ``"auto"``: the dispatch above (``OLMOASR_LAYER_BLOCK=sc``);
+    - ``"split"``: the split chain, never the layer block
+      (``OLMOASR_LAYER_BLOCK=0``);
+    - ``"layer"``: the whole layer, MLP included, as one
+      ``layer_block_decode(include_mlp=True)`` a layer
+      (``OLMOASR_LAYER_BLOCK=1``; the conditions of the fused launch);
+    - ``"attend"``: the split self sub-block, then ``ln_matmul`` for the
+      cross q, ``cross_attend_decode`` and ``matmul_residual``
+      (``OLMOASR_PALLAS_CROSS_BLOCK=0, OLMOASR_PALLAS_CROSS=1``; one token row
+      per window).
 
     ``beam_anc`` (R, C) int32, beam search: the rings are not reordered when
     beams are re-ranked; ``beam_anc[r, t]`` names the ring row within r's
@@ -532,57 +611,78 @@ def decode_step(model: Whisper, tokens: torch.Tensor, cache: KVCache,
     if beam_anc is not None and not (S == 1 and G > 1):
         raise ValueError(f"ancestry mode needs S=1 and a shared cross cache, got S={S}, "
                          f"kv_group={G}")
-    dtype = cache.self_k.dtype
+    single = S == 1
+    quantized = cache.self_scale is not None
+    if beam_anc is not None and quantized:
+        raise ValueError("ancestry mode needs unquantized self rings")
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    if single:
+        _check_route(route, cache, beam_anc, G)
+    # the activation dtype: the rings' unless they are int8, then the weights'
+    dtype = dec.token_embedding.weight.dtype if quantized else cache.self_k.dtype
     x = F.embedding(tokens, dec.token_embedding.weight).to(dtype)
     x = x + dec.positional_embedding[offset:end].to(dtype)
-    single = S == 1
     if single:
         w_qkv, b_qkv = model.fused_qkv()
         decode_step.single_steps += 1
-    fused = single and beam_anc is None and G == 1 and cache.cross_k.dtype == torch.int8
+        fusable = beam_anc is None and G == 1 and cache.cross_k.dtype == torch.int8 \
+            and not quantized
+        route = {"auto": "sc" if fusable else "split"}.get(route, route)
+    else:
+        route = "prefill"
+    scales = dict(k_scale=cache.self_k_scale, v_scale=cache.self_v_scale)
     cross = cross_block_decode if single else cross_block_decode_plain
     mlp = mlp_block if single else mlp_block_plain
     for i, blk in enumerate(dec.blocks):
         ca, cln = blk.cross_attn, blk.cross_attn_ln
-        if fused:
+        mlp_w = (blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp[0].weight, blk.mlp[0].bias,
+                 blk.mlp[2].weight, blk.mlp[2].bias)
+        ck, cv = cache.cross_k[i], cache.cross_v[i]
+        ks, vs = cache.cross_k_scale[i], cache.cross_v_scale[i]
+        if route in ("sc", "layer"):
+            whole = route == "layer"
             x, kv_new = layer_block_decode(
                 x, blk.attn_ln.weight, blk.attn_ln.bias, w_qkv[i], b_qkv[i],
                 blk.attn.out.weight, blk.attn.out.bias, cln.weight, cln.bias, ca.query.weight,
                 ca.query.bias, ca.out.weight, ca.out.bias, cache.self_k, cache.self_v,
-                cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
-                cache.cross_v_scale[i], offset, i, n_head=n_head,
+                ck, cv, ks, vs, offset, i, n_head=n_head, include_mlp=whole,
+                mlp=mlp_w if whole else None,
             )
             cache.self_kv[:, i, :, offset].copy_(kv_new[:, :, 0])
-        elif single:
+            if not whole:
+                x = mlp_block(x, *mlp_w)
+            continue
+        if single:
             qkv = ln_matmul(x, blk.attn_ln.weight, blk.attn_ln.bias, w_qkv[i], b_qkv[i])
             attn = self_attend_decode(
                 qkv[..., :D], cache.self_k, cache.self_v, qkv[..., D:2 * D], qkv[..., 2 * D:],
-                offset, i, n_head=n_head, beam_anc=beam_anc, beam_k=G,
+                offset, i, n_head=n_head, beam_anc=beam_anc, beam_k=G, **scales,
             )
             x = matmul_residual(attn, x, blk.attn.out.weight, blk.attn.out.bias)
             # after the attention, this step's key and value into the rings
-            cache.self_kv[:, i, :, offset].copy_(qkv[:, 0, D:].unflatten(-1, (2, D)).transpose(0, 1))
+            _write_ring(cache, i, offset, qkv[:, :, D:].unflatten(-1, (2, D)).permute(2, 0, 1, 3))
         else:
             h = layer_norm(x, blk.attn_ln)
             q = _linear(h, blk.attn.query)
-            # the prefill writes its keys first and attends the ring's valid
-            # prefix (its own positions included) under a causal mask
-            cache.self_k[i, :, offset:end] = _linear(h, blk.attn.key)
-            cache.self_v[i, :, offset:end] = _linear(h, blk.attn.value)
-            attn = _attend_cached(
-                q, cache.self_k[i, :, :end], cache.self_v[i, :, :end], offset, n_head
-            )
+            kv = torch.stack([_linear(h, blk.attn.key), _linear(h, blk.attn.value)])
+            # the prefill attends the ring's valid prefix (dequantized) and its
+            # own keys as computed, under a causal mask, then writes them
+            old = _ring_prefix(cache, i, offset, dtype)
+            attn = _attend_cached(q, torch.cat([old[0], kv[0]], dim=1),
+                                  torch.cat([old[1], kv[1]], dim=1), offset, n_head)
             x = x + _linear(attn, blk.attn.out)
-        if not fused:
-            x = cross(
-                x, cln.weight, cln.bias, ca.query.weight, ca.query.bias, ca.out.weight,
-                ca.out.bias, cache.cross_k[i], cache.cross_v[i], cache.cross_k_scale[i],
-                cache.cross_v_scale[i], n_head, kv_group=G,
-            )
-        x = mlp(
-            x, blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp[0].weight, blk.mlp[0].bias,
-            blk.mlp[2].weight, blk.mlp[2].bias,
-        )
+            _write_ring(cache, i, offset, kv)
+        if route == "attend":
+            qc = ln_matmul(x, cln.weight, cln.bias, ca.query.weight, ca.query.bias)
+            int8 = ck.dtype == torch.int8
+            cattn = cross_attend_decode(qc, ck, cv, ks if int8 else None, vs if int8 else None,
+                                        n_head=n_head)
+            x = matmul_residual(cattn, x, ca.out.weight, ca.out.bias)
+        else:
+            x = cross(x, cln.weight, cln.bias, ca.query.weight, ca.query.bias, ca.out.weight,
+                      ca.out.bias, ck, cv, ks, vs, n_head, kv_group=G)
+        x = mlp(x, *mlp_w)
     cache.index = end
     x = layer_norm(x, dec.ln)
     return F.linear(x, dec.token_embedding.weight.to(x.dtype)).float()

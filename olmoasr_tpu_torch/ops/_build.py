@@ -46,19 +46,20 @@ _SIGNATURES = {
     "olm_cross_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # q, k_new, v_new, row_stride, k_ring, v_ring, anc, m_part, l_part,
-    # acc_part, out, L, layer, B, C, offset, D, H, beam_k, dtype, qscale, stream
-    "olm_self_attention": (
-        _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-        _P,
-    ),
+    # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_dtype,
+    # dtype, qscale, stream
+    "olm_cross_attend": (*(_P,) * 9, *(_I,) * 6, _F, _P),
+    # q, k_new, v_new, row_stride, k_ring, v_ring, ks, vs, anc, m_part, l_part,
+    # acc_part, out, L, layer, B, C, offset, D, H, beam_k, kv_dtype, dtype,
+    # qscale, stream
+    "olm_self_attention": (_P, _P, _P, _L, *(_P,) * 9, *(_I,) * 10, _F, _P),
     "olm_decode_attention_chunks": (_I,),
     # x, ln1_g, ln1_b, wqkv, bqkv, wo1, bo1, ln2_g, ln2_b, wq, bq, wo2, bo2,
-    # k_ring, v_ring, ck, cv, cks, cvs, out, kv_new, scratch, L, layer, B, C,
-    # offset, D, H, T, dtype, qscale, stream
-    "olm_layer_block": (*(_P,) * 22, *(_I,) * 9, _F, _P),
-    # B, D, H, T, offset, dtype -> scratch floats
-    "olm_layer_block_scratch": (_I, _I, _I, _I, _I, _I),
+    # ln3_g, ln3_b, w1, b1, w2, b2, k_ring, v_ring, ck, cv, cks, cvs, out,
+    # kv_new, scratch, L, layer, B, C, offset, D, H, T, F, dtype, qscale, stream
+    "olm_layer_block": (*(_P,) * 28, *(_I,) * 10, _F, _P),
+    # B, D, H, T, offset, F, dtype -> scratch floats
+    "olm_layer_block_scratch": (*(_I,) * 7,),
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, bias, bias_bstride, dq, dk, dv, stats, B, H, Tq, Tk, D, causal, scale,

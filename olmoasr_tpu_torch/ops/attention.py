@@ -1,30 +1,41 @@
 """Decode-step kernels: every sub-block of an S=1 decoder layer.
 
 Counterpart of ``olmoasr_tpu/ops/attention.py`` for the self sub-block
-(``ln_matmul``, ``self_attend_decode``, ``matmul_residual``), the cross
-sub-block (``cross_block_decode``: non-transposed keys, ``kv_group`` query
-rows per cache row), both in one launch (``layer_block_decode``, over an
-int8 cross cache) and ``mlp_block``. Each function takes ONE layer's
+(``ln_matmul``, ``self_attend_decode`` over bf16, fp32 or int8 rings,
+``matmul_residual``), the cross sub-block (``cross_block_decode``:
+non-transposed keys, ``kv_group`` query rows per cache row), the cross
+attention alone (``cross_attend_decode``), the self and cross sub-blocks or
+the whole layer in one launch (``layer_block_decode``, over an int8 cross
+cache) and ``mlp_block``. Each function takes ONE layer's
 tensors in torch's weight layout (``(out, in)``); activations keep the JAX
 layout: ``x`` is ``(B, 1, D)``, the cross cache ``(B, T, D)`` with
 per-position scales ``(B, 1, T)`` (ones when unquantized), the self rings the
-stacked ``(L, B, C, D)`` tensors indexed by layer.
+stacked ``(L, B, C, D)`` tensors indexed by layer (int8 rings with
+``(L, B, 1, C)`` fp32 per-position scales).
 
 Dispatch: a CUDA tensor launches the hand-written kernel (``csrc/linear.cu``,
 ``csrc/cross_attention.cu``, ``csrc/self_attention.cu``,
 ``csrc/layer_block.cu``) or raises; a CPU tensor runs the plain PyTorch twin
-below. There is no fallback from one to the other. Each wrapper counts its launches in ``<function>.launches``;
-``self_attend_decode.beam_launches`` counts those with an ancestry map.
+below. There is no fallback from one to the other. Each wrapper counts its
+launches in ``<function>.launches``; ``self_attend_decode.beam_launches``
+counts those with an ancestry map, ``self_attend_decode.q8_launches`` those
+over int8 rings and ``layer_block_decode.mlp_launches`` those of the whole
+layer.
 
 Precision contract, shared by kernel and twin: LayerNorm in fp32 (eps 1e-5),
 operands of every product rounded to the weight type, products accumulated
 in fp32, bias/GELU/residual epilogues in fp32, one rounding at the store.
-With fp32 weights this is the JAX fp32 path exactly.
+With fp32 weights this is the JAX fp32 path exactly. The two kernels this
+contract did not cover before keep the TPU kernel's rounding to its dot
+dtype (bf16 under bf16 activations) too: ``self_attend_decode`` over int8
+rings rounds its softmax weights, ``cross_attend_decode`` q, its weights and
+their products with the values.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -256,6 +267,20 @@ def _check_head(what: str, D: int, n_head: int) -> int:
     return dh
 
 
+def _dot_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The TPU kernels' dot dtype (``_dot_dtype``): bf16 under bf16
+    activations, fp32 otherwise."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _check_scales(what: str, device, shape, **scales) -> None:
+    for name, t in scales.items():
+        _require(t.dtype == torch.float32 and t.device == device and t.is_contiguous()
+                 and t.numel() == math.prod(shape), what,
+                 f"{name} must be contiguous fp32 {tuple(shape)} on {device}, got "
+                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _partials(B: int, n_head: int, nchunks: int, dh: int, device):
     """Scratch of the split-position attention: per (row, head, chunk) max,
     sum and weighted values, fp32."""
@@ -407,6 +432,93 @@ cross_block_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# cross_attend_decode
+# ---------------------------------------------------------------------------
+
+
+def cross_attend_decode_plain(q, k, v, k_scale=None, v_scale=None, *,
+                              n_head: int) -> torch.Tensor:
+    """The TPU kernel's arithmetic (``_cross_decode_kernel``) for any number
+    S of query rows: q scaled by dh^-0.5 in fp32, the logits of the dot dtype
+    (:func:`qk_logits`: the int8 product under bf16 over int8 keys,
+    otherwise q and the keys rounded to the dot dtype) times the k scale,
+    the softmax, then the v scale, then the weights rounded to the dot
+    dtype, each weight-value product rounded to it, the products summed in
+    fp32, one rounding at the store."""
+    B, S, D = q.shape
+    T = k.shape[1]
+    dh = D // n_head
+    dd = _dot_dtype(q.dtype)
+    quantize_q = quantizes_q(k.dtype, q.dtype)
+    qs = q.float() * _q_scale(dh)
+    if not quantize_q:
+        qs = qs.to(dd).float()
+    logits = qk_logits(qs.view(B, S, n_head, dh), k.to(dd).view(B, T, n_head, dh), quantize_q)
+    ones = lambda: torch.ones(B, T, device=q.device)
+    ks = (ones() if k_scale is None else k_scale.float()).reshape(B, 1, 1, T)
+    vs = (ones() if v_scale is None else v_scale.float()).reshape(B, 1, 1, T)
+    w = (torch.softmax(logits * ks, dim=-1) * vs).to(dd)  # (B, H, S, T)
+    prod = w[..., None] * v.to(dd).view(B, 1, T, n_head, dh).permute(0, 3, 1, 2, 4)
+    return prod.float().sum(dim=-2).permute(0, 2, 1, 3).reshape(B, S, D).to(q.dtype)
+
+
+def cross_attend_decode(
+    q: torch.Tensor,  # (B, 1, D) projected, not yet scaled, in the activation dtype
+    k: torch.Tensor,  # (B, T, D) int8, or q's dtype
+    v: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,  # (B, T) or (B, 1, T) fp32; None: ones
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+) -> torch.Tensor:
+    """Single-query cross attention alone, (B, 1, D) in q's dtype.
+
+    Replaces ``olmoasr_tpu/ops/attention.py::cross_attend_decode``
+    (``_cross_decode_kernel``), which the JAX step runs with the cross block
+    off (``OLMOASR_PALLAS_CROSS=1``) between an ``ln_matmul`` for the cross q
+    and a ``matmul_residual``; one kv row per query row, as there. Bound on
+    the card: the cache read, 2*B*T*D elements (small.en, B=64, bf16: 295 MB
+    a layer). The kernel (``olm_cross_attend`` in ``csrc/cross_attention.cu``)
+    is ``cross_block_decode``'s split-T pass and combine without the
+    projection launches, with the TPU kernel's bf16 rounding of q, of the
+    weights and of their products with the values under bf16 activations
+    (the plain twin says where).
+    """
+    what = "cross_attend_decode"
+    if not q.is_cuda:
+        return cross_attend_decode_plain(q, k, v, k_scale, v_scale, n_head=n_head)
+    B, S, D = q.shape
+    _require(S == 1, what, f"the kernel takes one query row per batch row, got S={S}")
+    _require(q.dtype in (torch.float32, torch.bfloat16), what, f"q is {q.dtype}")
+    dh = _check_head(what, D, n_head)
+    _require(k.dim() == 3 and k.shape[0] == B and k.shape[2] == D and v.shape == k.shape, what,
+             f"cache {tuple(k.shape)}, {tuple(v.shape)} does not match q {tuple(q.shape)}")
+    T = k.shape[1]
+    _require(k.dtype in (torch.int8, q.dtype) and v.dtype == k.dtype, what,
+             f"the cache must be int8 or q's {q.dtype}, got {k.dtype}, {v.dtype}")
+    _check_operands(what, k.dtype, q.device, k=k, v=v)
+    _check_operands(what, q.dtype, q.device, q=q)
+    scales = {n: t for n, t in (("k_scale", k_scale), ("v_scale", v_scale)) if t is not None}
+    _check_scales(what, q.device, (B, T), **scales)
+    lib, stream = _build.lib(), _build.stream_ptr(q.device)
+    m_part, l_part, acc_part = _partials(B, n_head, lib.olm_decode_attention_chunks(T), dh,
+                                         q.device)
+    out = torch.empty_like(q)
+    _build.check(lib.olm_cross_attend(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        acc_part.data_ptr(), out.data_ptr(), B, T, D, n_head, _build.dtype_code(k.dtype),
+        _build.dtype_code(q.dtype), _q_scale(dh), stream,
+    ), what)
+    cross_attend_decode.launches += 1
+    return out
+
+
+cross_attend_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # self_attend_decode
 # ---------------------------------------------------------------------------
 
@@ -424,11 +536,17 @@ def _ancestry_rows(beam_anc: torch.Tensor, beam_k: int) -> torch.Tensor:
 
 def self_attend_decode_plain(
     q, k_ring, v_ring, k_new, v_new, offset: int, layer_idx: int, *, n_head: int,
-    beam_anc=None, beam_k: int = 1,
+    beam_anc=None, beam_k: int = 1, k_scale=None, v_scale=None, quantize_q=None,
 ) -> torch.Tensor:
     """Single-query attention over ring positions < offset of one layer plus
     this step's own key and value, fp32 throughout, one rounding at the end.
-    With ``beam_anc`` the ring positions are gathered by ancestry first."""
+    With ``beam_anc`` the ring positions are gathered by ancestry first.
+
+    int8 rings with their (L, B, 1, C) scales (``_self_decode_body`` with its
+    scale refs): the ring logits are :func:`qk_logits` (the int8 q.K product
+    when ``quantize_q``, by default under bf16 activations) times the k
+    scale; this step's key enters with the unrounded fp32 q; the v scale
+    folds into the ring weights, which are then rounded to the dot dtype."""
     B, _, D = q.shape
     dh = D // n_head
     heads = lambda t: t.float().reshape(B, -1, n_head, dh)
@@ -438,13 +556,20 @@ def self_attend_decode_plain(
         rows = _ancestry_rows(beam_anc[:, :offset], beam_k)
         pos = torch.arange(offset, device=q.device)
         k, v = k[rows, pos], v[rows, pos]
-    k, v = heads(k), heads(v)
-    logits = torch.cat([
-        torch.einsum("bhd,bthd->bht", qh, k),
-        (qh * heads(k_new)[:, 0]).sum(-1, keepdim=True),
-    ], dim=-1)
+    if k_scale is None:
+        old = torch.einsum("bhd,bthd->bht", qh, heads(k))
+    else:
+        if quantize_q is None:
+            quantize_q = quantizes_q(k.dtype, q.dtype)
+        old = qk_logits(qh[:, None], k.reshape(B, offset, n_head, dh), quantize_q)[:, :, 0]
+        old = old * k_scale[layer_idx, :, 0, :offset].float()[:, None]
+    logits = torch.cat([old, (qh * heads(k_new)[:, 0]).sum(-1, keepdim=True)], dim=-1)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bht,bthd->bhd", w[..., :offset], v) + w[..., offset:] * heads(v_new)[:, 0]
+    w_old = w[..., :offset]
+    if v_scale is not None:
+        w_old = w_old * v_scale[layer_idx, :, 0, :offset].float()[:, None]
+        w_old = w_old.to(_dot_dtype(q.dtype)).float()
+    out = torch.einsum("bht,bthd->bhd", w_old, heads(v)) + w[..., offset:] * heads(v_new)[:, 0]
     return out.reshape(B, 1, D).to(q.dtype)
 
 
@@ -460,12 +585,17 @@ def self_attend_decode(
     n_head: int,
     beam_anc: Optional[torch.Tensor] = None,  # (B, C) int32 within-group ring rows
     beam_k: int = 1,
+    k_scale: Optional[torch.Tensor] = None,  # (L, B, 1, C) fp32 with int8 rings
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode-step self attention of layer ``layer_idx`` over the read-only
     rings, the new key always visible; (B, 1, D) in q's dtype.
 
     Replaces ``olmoasr_tpu/ops/attention.py::self_attend_decode``
-    (``_self_decode_kernel``, body ``_self_decode_body``; bf16 or fp32 rings)
+    (``_self_decode_kernel``, body ``_self_decode_body``; bf16 or fp32 rings),
+    with ``k_scale``/``v_scale`` over int8 rings (``_self_decode_kernel_q8``:
+    the cross pass's int8 q.K product under bf16, the scales read at the
+    rings' (L, B, 1, C) layout, the weights rounded to bf16; see the twin)
     and, with ``beam_anc``, its beam-search mode (``_self_decode_kernel_beam``
     with ``_anc_kv_select``): rows come in groups of ``beam_k`` beams, the
     rings are never reordered, and row b reads position t from ring row
@@ -473,7 +603,8 @@ def self_attend_decode(
     its own. Ancestry needs unquantized rings, as the JAX wrapper asserts.
 
     Bound on the card: the ring read, 2*B*offset*D elements per layer and
-    step (small.en, B=64, offset 224, bf16: 44 MB). The kernel
+    step (small.en, B=64, offset 224, bf16: 44 MB; int8: 22 MB and the
+    scales). The kernel
     (``csrc/self_attention.cu``) is the cross kernel's split-position pass
     over the ring (row stride C, the layer chosen by pointer), and a combine
     launch that folds in the new key and value. With ancestry each block
@@ -482,12 +613,15 @@ def self_attend_decode(
     L2. The caller writes k_new and v_new into the rings afterwards.
     """
     what = "self_attend_decode"
+    quantized = k_ring.dtype == torch.int8
     if beam_anc is not None:
-        _require(k_ring.dtype != torch.int8, what, "beam ancestry needs unquantized rings")
+        _require(not quantized, what, "beam ancestry needs unquantized rings")
+    _require(quantized == (k_scale is not None) == (v_scale is not None), what,
+             "int8 rings take k_scale and v_scale, other rings neither")
     if not q.is_cuda:
         return self_attend_decode_plain(
             q, k_ring, v_ring, k_new, v_new, offset, layer_idx, n_head=n_head,
-            beam_anc=beam_anc, beam_k=beam_k,
+            beam_anc=beam_anc, beam_k=beam_k, k_scale=k_scale, v_scale=v_scale,
         )
     B, S, D = q.shape
     _require(S == 1, what, f"the kernel takes one query row per batch row, got S={S}")
@@ -499,7 +633,10 @@ def self_attend_decode(
     _require(v_ring.shape == k_ring.shape, what, "k_ring and v_ring differ")
     _require(0 <= offset <= C and 0 <= layer_idx < L, what,
              f"offset {offset} or layer {layer_idx} outside the rings {tuple(k_ring.shape)}")
-    _check_operands(what, q.dtype, q.device, k_ring=k_ring, v_ring=v_ring)
+    _check_operands(what, k_ring.dtype if quantized else q.dtype, q.device, k_ring=k_ring,
+                    v_ring=v_ring)
+    if quantized:
+        _check_scales(what, q.device, (L, B, 1, C), k_scale=k_scale, v_scale=v_scale)
     stride = q.stride(0)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         _require(t.shape == q.shape and t.dtype == q.dtype and t.device == q.device, what,
@@ -520,19 +657,23 @@ def self_attend_decode(
     m_part, l_part, acc_part = _partials(
         B, n_head, lib.olm_decode_attention_chunks(offset), dh, q.device)
     out = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
     _build.check(lib.olm_self_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), stride, k_ring.data_ptr(),
-        v_ring.data_ptr(), None if beam_anc is None else beam_anc.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), L, layer_idx, B, C, offset, D,
-        n_head, beam_k, _build.dtype_code(q.dtype), _q_scale(dh), stream,
+        v_ring.data_ptr(), *scales, None if beam_anc is None else beam_anc.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), L, layer_idx,
+        B, C, offset, D, n_head, beam_k, _build.dtype_code(k_ring.dtype),
+        _build.dtype_code(q.dtype), _q_scale(dh), stream,
     ), what)
     self_attend_decode.launches += 1
     self_attend_decode.beam_launches += beam_anc is not None
+    self_attend_decode.q8_launches += quantized
     return out
 
 
 self_attend_decode.launches = 0
 self_attend_decode.beam_launches = 0  # the launches with an ancestry map
+self_attend_decode.q8_launches = 0  # the launches over int8 rings
 
 
 # ---------------------------------------------------------------------------
@@ -544,8 +685,10 @@ def layer_block_decode_plain(
     x, attn_ln_g, attn_ln_b, w_qkv, b_qkv, attn_o_w, attn_o_b,
     cross_ln_g, cross_ln_b, cross_q_w, cross_q_b, cross_o_w, cross_o_b,
     k_ring, v_ring, ck, cv, ck_scale, cv_scale, offset: int, layer_idx: int, *, n_head: int,
+    include_mlp: bool = False, mlp=None,
 ):
-    """The self and cross sub-blocks of one layer, the residual and the
+    """The self and cross sub-blocks of one layer (and with ``include_mlp``
+    the MLP, ``mlp`` its (ln_g, ln_b, w1, b1, w2, b2)), the residual and the
     projections in fp32 between them; (out, kv_new) as the kernel returns
     them."""
     D = x.shape[-1]
@@ -558,8 +701,12 @@ def layer_block_decode_plain(
     qc = _linear_f32(_ln_f32(x1, cross_ln_g, cross_ln_b).to(wdt), cross_q_w, cross_q_b)
     c = _cross_attend_plain(qc * _q_scale(D // n_head), ck, cv, ck_scale, cv_scale, n_head,
                             quantizes_q(ck.dtype, x.dtype))
-    out = (x1 + _linear_f32(c.to(wdt), cross_o_w, cross_o_b)).to(x.dtype)
-    return out, torch.stack([k_new, v_new]).to(x.dtype)
+    x2 = x1 + _linear_f32(c.to(wdt), cross_o_w, cross_o_b)
+    if include_mlp:
+        ln_g, ln_b, w1, b1, w2, b2 = mlp
+        u = F.gelu(_linear_f32(_ln_f32(x2, ln_g, ln_b).to(wdt), w1, b1)).to(wdt)
+        x2 = x2 + _linear_f32(u, w2, b2)
+    return x2.to(x.dtype), torch.stack([k_new, v_new]).to(x.dtype)
 
 
 def layer_block_decode(
@@ -586,38 +733,46 @@ def layer_block_decode(
     layer_idx: int,
     *,
     n_head: int,
+    include_mlp: bool = False,
+    mlp=None,  # with include_mlp: the MLP's (ln_g, ln_b, w1 (F, D), b1, w2 (D, F), b2)
 ):
     """The self and cross sub-blocks of decoder layer ``layer_idx`` for one
     decode step, in one launch: ``(out, kv_new)`` with out (B, 1, D) and this
     step's key and value as ``kv_new`` (2, B, 1, D), for the caller to write
-    into the rings at ``offset``.
+    into the rings at ``offset``. With ``include_mlp`` the launch runs the
+    MLP too, and out is the layer's output.
 
     Replaces ``olmoasr_tpu/ops/attention.py::layer_block_decode``
-    (``_layer_block_impl``) in its default "sc" mode: self + cross, the MLP
-    after it as ``mlp_block``. The JAX package takes it for S=1 steps over an
-    int8 cross cache with one token row per window and no beam ancestry, and
-    so does ``decode_step``: greedy decoding and samples without best_of under
-    ``kv_quant``, the server's default. Its TPU-only forms are not ported: the
-    transposed key layout (the port keeps (B, T, D)), ``include_mlp=True``
-    (the whole layer, over the TPU's VMEM budget at small.en, off by default)
-    and ``rows``/``wv_mode``.
+    (``_layer_block_impl``) in its default "sc" mode (self + cross, the MLP
+    after it as ``mlp_block``) and with ``include_mlp=True`` (the whole
+    layer). The JAX package takes it for S=1 steps over an int8 cross cache
+    with one token row per window, no beam ancestry and unquantized rings,
+    and so does ``decode_step``: "sc" by default (greedy decoding and samples
+    without best_of under ``kv_quant``, the server's default), the whole
+    layer with ``route="layer"``. Its TPU-only forms are not ported: the
+    transposed key layout (the port keeps (B, T, D)) and ``rows``/``wv_mode``.
 
     It computes what the chain ``ln_matmul`` -> ``self_attend_decode`` ->
     ``matmul_residual`` -> ``cross_block_decode`` computes, but, as the TPU
     kernel, keeps the residual and the projections in fp32 inside the layer
     and rounds once at the store. The kernel (``csrc/layer_block.cu``) is a
     cooperative launch whose blocks run the split kernels' block bodies as
-    thirteen phases with grid-wide barriers between them: one launch where
-    the chain takes fourteen, but on the card slower than the chain in a
-    CUDA graph, bound by its dependent phases rather than its bytes.
+    thirteen phases with grid-wide barriers between them (eighteen with the
+    MLP: its LayerNorm, W1 with the GELU, W2 with bias and residual, each the
+    block bodies ``mlp_block`` launches): one launch where the chain takes
+    fourteen (nineteen), but on the card slower than the chain in a CUDA
+    graph, bound by its dependent phases rather than its bytes.
     """
+    what = "layer_block_decode"
+    _require(include_mlp == (mlp is not None), what,
+             "include_mlp takes the MLP's six tensors in mlp, and mlp needs include_mlp")
+    _require(k_ring.dtype != torch.int8, what, "the self rings must be unquantized")
     if not x.is_cuda:
         return layer_block_decode_plain(
             x, attn_ln_g, attn_ln_b, w_qkv, b_qkv, attn_o_w, attn_o_b, cross_ln_g, cross_ln_b,
             cross_q_w, cross_q_b, cross_o_w, cross_o_b, k_ring, v_ring, ck, cv, ck_scale,
-            cv_scale, offset, layer_idx, n_head=n_head,
+            cv_scale, offset, layer_idx, n_head=n_head, include_mlp=include_mlp, mlp=mlp,
         )
-    what = "layer_block_decode"
     B, S, D = x.shape
     _require(S == 1, what, f"the kernel takes one query row per batch row, got S={S}")
     _require(x.dtype in (torch.float32, torch.bfloat16), what, f"x is {x.dtype}")
@@ -634,6 +789,13 @@ def layer_block_decode(
         ("attn_ln_g", attn_ln_g), ("attn_ln_b", attn_ln_b), ("attn_o_b", attn_o_b),
         ("cross_ln_g", cross_ln_g), ("cross_ln_b", cross_ln_b), ("cross_q_b", cross_q_b),
         ("cross_o_b", cross_o_b))})
+    Fd = 0
+    if include_mlp:
+        Fd = mlp[2].shape[0]
+        _require(Fd % 8 == 0, what, f"the MLP's width {Fd} is not a multiple of 8")
+        names = ("mlp_ln_g", "mlp_ln_b", "w1", "b1", "w2", "b2")
+        _check_operands(what, x.dtype, x.device, **dict(zip(names, mlp)))
+        shapes.update(zip(names, zip(mlp, ((D,), (D,), (Fd, D), (Fd,), (D, Fd), (D,)))))
     for name, (t, shape) in shapes.items():
         _require(tuple(t.shape) == shape, what, f"{name} is {tuple(t.shape)}, not {shape}")
     _require(k_ring.dim() == 4 and k_ring.shape[1] == B and k_ring.shape[3] == D
@@ -656,7 +818,7 @@ def layer_block_decode(
                  f"{name} must be contiguous fp32 with B*T elements on {x.device}")
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     code = _build.dtype_code(x.dtype)
-    floats = lib.olm_layer_block_scratch(B, D, n_head, T, offset, code)
+    floats = lib.olm_layer_block_scratch(B, D, n_head, T, offset, Fd, code)
     _require(floats > 0, what, f"no launch plan for B={B} D={D} heads={n_head} T={T}")
     scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
@@ -665,13 +827,16 @@ def layer_block_decode(
         x.data_ptr(), attn_ln_g.data_ptr(), attn_ln_b.data_ptr(), w_qkv.data_ptr(),
         b_qkv.data_ptr(), attn_o_w.data_ptr(), attn_o_b.data_ptr(), cross_ln_g.data_ptr(),
         cross_ln_b.data_ptr(), cross_q_w.data_ptr(), cross_q_b.data_ptr(), cross_o_w.data_ptr(),
-        cross_o_b.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        cross_o_b.data_ptr(), *((t.data_ptr() for t in mlp) if include_mlp else (None,) * 6),
+        k_ring.data_ptr(), v_ring.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         ck_scale.data_ptr(), cv_scale.data_ptr(), out.data_ptr(), kv_new.data_ptr(),
-        scratch.data_ptr(), L, layer_idx, B, C, offset, D, n_head, T, code,
+        scratch.data_ptr(), L, layer_idx, B, C, offset, D, n_head, T, Fd, code,
         _q_scale(D // n_head), stream,
     ), what)
     layer_block_decode.launches += 1
+    layer_block_decode.mlp_launches += include_mlp
     return out, kv_new
 
 
 layer_block_decode.launches = 0
+layer_block_decode.mlp_launches = 0  # the launches of the whole layer (include_mlp)

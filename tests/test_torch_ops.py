@@ -1,12 +1,14 @@
 """The port's kernels (olmoasr_tpu_torch.ops) against the JAX package's Pallas
 kernels run in interpret mode, on the same numpy inputs, in fp32: the decode
-step's ln_matmul, self_attend_decode (with and without beam ancestry),
-matmul_residual, cross_block_decode (with and without kv_group),
-layer_block_decode and mlp_block, and the attention forward. The int8 cross
-cache under bf16 activations is held to the TPU kernel's int8 q.K product
-three times: its logits exactly (``_qk_logits``), the whole sub-block in
-bf16, and a case built so that the int8 and the exact products land far
-apart (``_outlier_q_case``).
+step's ln_matmul, self_attend_decode (with and without beam ancestry, over
+int8 rings), matmul_residual, cross_block_decode (with and without
+kv_group), cross_attend_decode, layer_block_decode (the self and cross
+sub-blocks, and the whole layer) and mlp_block, and the attention forward.
+The int8 cross cache under bf16 activations is held to the TPU kernel's int8
+q.K product three times: its logits exactly (``_qk_logits``), the whole
+sub-block in bf16, and a case built so that the int8 and the exact products
+land far apart (``_outlier_q_case``); the int8 self rings the same way
+(``_outlier_self_case``).
 
 On the CPU each wrapper runs its plain PyTorch twin, so these tests pin the
 twins' semantics to the TPU kernels. Tests marked ``gpu`` hold the CUDA
@@ -213,6 +215,18 @@ def test_layer_block_decode_matches_jax_kernel(jx, act, offset):
     (the JAX kernel takes its keys transposed, the port (B, T, D)); the new
     key and value come back for the rings. ``bf16``: bf16 activations,
     parameters and rings, where the cross q.K product is the int8 one."""
+    _layer_block_case(jx, act, offset, include_mlp=False)
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("offset", [0, C // 2, C])
+def test_layer_block_decode_whole_layer_matches_jax_kernel(jx, act, offset):
+    """``include_mlp=True``: the MLP's LayerNorm, W1, GELU, W2 and residual
+    in the same launch, on the fp32 residual after the cross sub-block."""
+    _layer_block_case(jx, act, offset, include_mlp=True)
+
+
+def _layer_block_case(jx, act, offset, include_mlp):
     jnp = jx.jnp
     rng = _rng(20 + offset)
     p = _block_params(rng)
@@ -230,10 +244,11 @@ def test_layer_block_decode_matches_jax_kernel(jx, act, offset):
     want_x, want_k, want_v = jx.attn.layer_block_decode(
         j(x), *sub, *cross, *mlp, j(k_ring), j(v_ring), ck_j.transpose(0, 1, 3, 2), cv_j,
         ks_j[:, :, None, :], vs_j[:, :, None, :], jnp.int32(offset), jnp.int32(LAYER),
-        n_head=H, include_mlp=False, interpret=True,
+        n_head=H, include_mlp=include_mlp, interpret=True,
     )
     as_t = lambda a, transpose=False: _t(np.asarray(jnp.asarray(
         a[LAYER].T if transpose else a[LAYER], jnp.float32))).to(tdt)
+    mlp_t = [as_t(a, transpose=t) for a, t in zip(mlp, (0, 0, 1, 0, 1, 0))]
     before = attention.layer_block_decode.launches
     got_x, kv_new = attention.layer_block_decode(
         _t(x).to(tdt), *[as_t(a, transpose=t) for a, t in zip(sub, (0, 0, 1, 0, 1, 0))],
@@ -242,7 +257,7 @@ def test_layer_block_decode_matches_jax_kernel(jx, act, offset):
         _t(np.asarray(j(v_ring), np.float32)).to(tdt),
         _t(np.asarray(ck_j[LAYER])), _t(np.asarray(cv_j[LAYER])),
         _t(np.asarray(ks_j[LAYER]))[:, None], _t(np.asarray(vs_j[LAYER]))[:, None],
-        offset, LAYER, n_head=H,
+        offset, LAYER, n_head=H, include_mlp=include_mlp, mlp=mlp_t if include_mlp else None,
     )
     assert attention.layer_block_decode.launches == before  # CPU: the plain twin
     assert got_x.dtype == kv_new.dtype == tdt and kv_new.shape == (2, B, 1, D)
@@ -371,6 +386,150 @@ def test_self_attend_decode_ancestry_rejects_int8_rings():
     with pytest.raises(ValueError, match="unquantized"):
         attention.self_attend_decode(row, ring, ring, row, row, 3, 0, n_head=4,
                                      beam_anc=anc, beam_k=2)
+
+
+def _int8_rings(jx, rng, rows=B):
+    """(int8 k ring, int8 v ring, k scale, v scale) as the JAX package
+    quantizes them: rows of the (L, rows, C, D) rings, scales (L, rows, 1, C)."""
+    jnp = jx.jnp
+    out = []
+    for _ in range(2):
+        q, scale = jx.quantize_rows(jnp.asarray(rng.standard_normal((L, rows, C, D)), jnp.float32))
+        out.append((_t(np.asarray(q)), _t(np.asarray(scale))[:, :, None].contiguous()))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1, 9, C])
+def test_self_attend_decode_int8_rings_match_jax_kernel(jx, act, offset):
+    """int8 rings with per-position scales (``_self_decode_kernel_q8``): under
+    bf16 the ring logits are the int8 q.K product and the weights are
+    rounded to bf16; under fp32 the product is exact. Tolerance: fp32 2e-4;
+    bf16 two bf16 steps at the output's largest magnitude."""
+    jnp = jx.jnp
+    rng = _rng(30 + offset)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if act == "bf16" else (jnp.float32, torch.float32)
+    q, k_new, v_new = (rng.standard_normal((B, 1, D)).astype(np.float32) for _ in range(3))
+    kq, vq, ks, vs = _int8_rings(jx, rng)
+    want = jx.attn.self_attend_decode(
+        jnp.asarray(q, jdt), jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+        jnp.asarray(k_new, jdt), jnp.asarray(v_new, jdt), jnp.int32(offset), jnp.int32(LAYER),
+        jnp.asarray(ks.numpy()), jnp.asarray(vs.numpy()), n_head=H, interpret=True,
+    )
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    before = attention.self_attend_decode.launches
+    got = attention.self_attend_decode(
+        _t(q).to(tdt), kq, vq, _t(k_new).to(tdt), _t(v_new).to(tdt), offset, LAYER, n_head=H,
+        k_scale=ks, v_scale=vs,
+    )
+    assert got.dtype == tdt and attention.self_attend_decode.launches == before
+    _close(got, want, _bf16_tol(_t(want)) if act == "bf16" else ATOL)
+
+
+def _outlier_self_case(g, L, B, C, D, H, dtype, device="cpu"):
+    """self_attend_decode inputs (q, k_ring, v_ring, k_new, v_new) and the
+    int8 rings' (k_scale, v_scale), built as ``_outlier_q_case``: q has one
+    lane of 100 per head and +-0.35 on the others, which round to 0 against
+    the head's int8 scale; lane 0 of every head holds 3.0 in every ring key,
+    so the int8 logits are the same for every position; the exact product
+    also sees the small lanes, which position C // 3 lines up, so it takes
+    most of the weight; its value is 3.0 in every lane. This step's key is
+    zero, far below the ring's logits."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    dh = D // H
+    sign = torch.where(torch.randn(D, generator=g) >= 0, 1.0, -1.0)
+    q = (0.35 * sign).expand(B, 1, D).clone()
+    q[..., ::dh] = 100.0
+    k = torch.rand(L, B, C, D, generator=g) * 2 - 1
+    k[:, :, C // 3] = 2.9 * sign
+    k[..., ::dh] = 3.0
+    v = torch.rand(L, B, C, D, generator=g) * 2 - 1
+    v[:, :, C // 3] = 3.0
+    (kq, ks), (vq, vs) = _quantize_rows(k), _quantize_rows(v)
+    to = lambda t: t.to(device, dtype)
+    new = torch.zeros(B, 1, D)
+    return ((to(q), kq.to(device), vq.to(device), to(new), to(torch.rand(B, 1, D, generator=g))),
+            (ks[:, :, None].contiguous().to(device), vs[:, :, None].contiguous().to(device)))
+
+
+def test_outlier_self_case_separates_the_int8_product_from_the_exact_one(jx):
+    """On ``_outlier_self_case`` the TPU kernel (bf16 q, int8 rings) agrees
+    with the twin's int8 q.K product and lies far outside the bf16 tolerance
+    of a twin that takes the exact product (the mutant a kernel skipping the
+    q rounding would match)."""
+    jnp = jx.jnp
+    (q, kq, vq, kn, vn), (ks, vs) = _outlier_self_case(torch.Generator().manual_seed(1), L, B,
+                                                       C, D, H, torch.bfloat16)
+    offset = C - 1
+    j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    want = jx.attn.self_attend_decode(
+        j(q), jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()), j(kn), j(vn), jnp.int32(offset),
+        jnp.int32(LAYER), jnp.asarray(ks.numpy()), jnp.asarray(vs.numpy()), n_head=H,
+        interpret=True,
+    )
+    want = _t(np.asarray(jnp.asarray(want, jnp.float32)))
+    tol = _bf16_tol(want)
+    args = (q, kq, vq, kn, vn, offset, LAYER)
+    got = attention.self_attend_decode(*args, n_head=H, k_scale=ks, v_scale=vs)
+    exact = attention.self_attend_decode_plain(*args, n_head=H, k_scale=ks, v_scale=vs,
+                                               quantize_q=False)
+    assert float((got.float() - want).abs().max()) <= tol
+    assert float((exact.float() - want).abs().max()) > 8 * tol
+
+
+@pytest.mark.parametrize("kv", ["fp32", "bf16", "int8-bf16x", "int8-fp32x"])
+def test_cross_attend_decode_matches_jax_kernel(jx, kv):
+    """The standalone cross attention (``_cross_decode_kernel``): q projected
+    but not scaled, (B, T, D) keys and values with per-key scales (ones
+    when absent). ``int8-bf16x``: bf16 q over the int8 cache, the int8 q.K
+    product; ``int8-fp32x``: fp32 q, the exact one. Tolerance: fp32 2e-4;
+    bf16 two bf16 steps at the output's largest magnitude (the twin rounds
+    where the TPU kernel rounds, so both land within one step)."""
+    jnp = jx.jnp
+    rng = _rng(40)
+    bf16 = kv in ("bf16", "int8-bf16x")
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    q = rng.standard_normal((B, 1, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, T, D)).astype(np.float32) for _ in range(2))
+    if kv.startswith("int8"):
+        (k_j, ks_j), (v_j, vs_j) = (jx.quantize_rows(jnp.asarray(a)) for a in (k, v))
+        scales_t = [_t(np.asarray(ks_j)), _t(np.asarray(vs_j))[:, None]]  # (B, T) and (B, 1, T)
+    else:
+        k_j, v_j, ks_j, vs_j = jnp.asarray(k, jdt), jnp.asarray(v, jdt), None, None
+        scales_t = [None, None]
+    want = jx.attn.cross_attend_decode(jnp.asarray(q, jdt), k_j, v_j, ks_j, vs_j, n_head=H,
+                                       interpret=True)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    as_t = lambda a: _t(np.asarray(jnp.asarray(a, jnp.float32))).to(
+        torch.int8 if kv.startswith("int8") else tdt)
+    before = attention.cross_attend_decode.launches
+    got = attention.cross_attend_decode(_t(q).to(tdt), as_t(k_j), as_t(v_j), *scales_t, n_head=H)
+    assert got.dtype == tdt and attention.cross_attend_decode.launches == before
+    _close(got, want, _bf16_tol(_t(want)) if bf16 else ATOL)
+
+
+def test_decode_kernels_refuse_what_the_jax_kernels_refuse():
+    """On the CPU too: int8 rings need their scales, and the fused layer
+    block needs unquantized rings and the MLP's weights with include_mlp."""
+    ring = torch.zeros(1, 2, 8, 64, dtype=torch.int8)
+    row = torch.zeros(2, 1, 64)
+    with pytest.raises(ValueError, match="k_scale"):
+        attention.self_attend_decode(row, ring, ring, row, row, 3, 0, n_head=4)
+    scale = torch.ones(1, 2, 1, 8)
+    with pytest.raises(ValueError, match="k_scale"):  # scales without int8 rings
+        attention.self_attend_decode(row, ring.float(), ring.float(), row, row, 3, 0, n_head=4,
+                                     k_scale=scale, v_scale=scale)
+    vec, mat = torch.zeros(64), torch.zeros(64, 64)
+    cache, cscale = torch.zeros(2, 16, 64, dtype=torch.int8), torch.ones(2, 1, 16)
+    args = [row, vec, vec, torch.zeros(192, 64), torch.zeros(192), mat, vec, vec, vec, mat, vec,
+            mat, vec, ring, ring, cache, cache, cscale, cscale, 3, 0]
+    with pytest.raises(ValueError, match="unquantized"):
+        attention.layer_block_decode(*args, n_head=4)
+    args[13] = args[14] = ring.float()
+    with pytest.raises(ValueError, match="include_mlp"):
+        attention.layer_block_decode(*args, n_head=4, include_mlp=True)
 
 
 def test_mlp_block_matches_jax_kernel(jx):
@@ -650,6 +809,103 @@ def test_layer_block_kernel_matches_twin(cuda, act):
         want, kv_want = attention.layer_block_decode_plain(*args, n_head=Hs)
         torch.cuda.synchronize()
         assert attention.layer_block_decode.launches == before + 1
+        assert float((got.float() - want.float()).abs().max()) <= tol(want), offset
+        assert float((kv.float() - kv_want.float()).abs().max()) <= tol(kv_want), offset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bf16", "fp32"])
+def test_self_attend_decode_int8_ring_kernel_matches_twin(cuda, act):
+    """int8 rings at small.en widths, q, k_new and v_new as row views of a
+    fused projection, offsets across the chunk edges; under bf16 also the
+    outlier case, where the kernel must take the int8 q.K product."""
+    g = torch.Generator().manual_seed(8)
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    Ls, Bs, Cs, Ds, Hs = 2, 6, 200, 768, 12
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    qkv = torch.randn(Bs, 1, 3 * Ds, generator=g).to(cuda, dt)
+    q, kn, vn = qkv[..., :Ds], qkv[..., Ds:2 * Ds], qkv[..., 2 * Ds:]
+    (kq, ks), (vq, vs) = (_quantize_rows(torch.randn(Ls, Bs, Cs, Ds, generator=g).to(cuda))
+                          for _ in range(2))
+    scales = dict(k_scale=ks[:, :, None].contiguous(), v_scale=vs[:, :, None].contiguous())
+    for offset in (0, 1, 128, 199):
+        before = attention.self_attend_decode.q8_launches
+        got = attention.self_attend_decode(q, kq, vq, kn, vn, offset, 1, n_head=Hs, **scales)
+        want = attention.self_attend_decode_plain(q, kq, vq, kn, vn, offset, 1, n_head=Hs,
+                                                  **scales)
+        torch.cuda.synchronize()
+        assert attention.self_attend_decode.q8_launches == before + 1
+        tol = 1e-4 * max(1.0, float(want.abs().max())) if dt == torch.float32 else _bf16_tol(want)
+        assert float((got.float() - want.float()).abs().max()) <= tol, offset
+    if dt == torch.bfloat16:
+        (q, kq, vq, kn, vn), (ks, vs) = _outlier_self_case(g, Ls, Bs, Cs, Ds, Hs, dt, cuda)
+        args = (q, kq, vq, kn, vn, Cs - 1, 1)
+        got = attention.self_attend_decode(*args, n_head=Hs, k_scale=ks, v_scale=vs)
+        want = attention.self_attend_decode_plain(*args, n_head=Hs, k_scale=ks, v_scale=vs)
+        exact = attention.self_attend_decode_plain(*args, n_head=Hs, k_scale=ks, v_scale=vs,
+                                                   quantize_q=False)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+        assert float((got.float() - exact.float()).abs().max()) > 8 * _bf16_tol(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,kv", [("bf16", "bf16"), ("bf16", "int8"), ("fp32", "fp32"),
+                                    ("fp32", "int8")])
+def test_cross_attend_decode_kernel_matches_twin(cuda, act, kv):
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    g = torch.Generator().manual_seed(9)
+    Bc, Tc, Dc, Hc = 5, 300, 768, 12
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    q = torch.randn(Bc, 1, Dc, generator=g).to(cuda, dt)
+    k, v = (torch.randn(Bc, Tc, Dc, generator=g).to(cuda) for _ in range(2))
+    scales = (None, None)
+    if kv == "int8":
+        (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+        scales = (ks, vs[:, None].contiguous())
+    else:
+        k, v = k.to(dt), v.to(dt)
+    before = attention.cross_attend_decode.launches
+    got = attention.cross_attend_decode(q, k, v, *scales, n_head=Hc)
+    want = attention.cross_attend_decode_plain(q, k, v, *scales, n_head=Hc)
+    torch.cuda.synchronize()
+    assert attention.cross_attend_decode.launches == before + 1
+    tol = 1e-4 * max(1.0, float(want.abs().max())) if dt == torch.float32 else _bf16_tol(want)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bf16", "fp32"])
+def test_layer_block_whole_layer_kernel_matches_twin(cuda, act):
+    """include_mlp=True at small.en widths (F = 3072) over an int8 cross
+    cache: the layer's output and the new key and value."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    g = torch.Generator().manual_seed(10)
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    Ls, Bs, Cs, Ts, Ds, Hs, Fs = 2, 5, 200, 300, 768, 12, 3072
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, dt)
+    sub = lambda n: [1 + r(Ds, scale=0.1), r(Ds, scale=0.1), r(n * Ds, Ds, scale=Ds ** -0.5),
+                     r(n * Ds, scale=0.1), r(Ds, Ds, scale=Ds ** -0.5), r(Ds, scale=0.1)]
+    mlp = [1 + r(Ds, scale=0.1), r(Ds, scale=0.1), r(Fs, Ds, scale=Ds ** -0.5),
+           r(Fs, scale=0.1), r(Ds, Fs, scale=Fs ** -0.5), r(Ds, scale=0.1)]
+    rings = [r(Ls, Bs, Cs, Ds), r(Ls, Bs, Cs, Ds)]
+    (ck, ks), (cv, vs) = (_quantize_rows(torch.randn(Bs, Ts, Ds, generator=g).to(cuda))
+                          for _ in range(2))
+    cache = (ck, cv, ks[:, None].contiguous(), vs[:, None].contiguous())
+    x = r(Bs, 1, Ds)
+    tol = (lambda want: 1e-4 * max(1.0, float(want.abs().max()))) if dt == torch.float32 \
+        else _bf16_tol
+    for offset in (0, 128, 199):
+        args = (x, *sub(3), *sub(1), *rings, *cache, offset, 1)
+        kw = dict(n_head=Hs, include_mlp=True, mlp=mlp)
+        before = attention.layer_block_decode.mlp_launches
+        got, kv = attention.layer_block_decode(*args, **kw)
+        want, kv_want = attention.layer_block_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert attention.layer_block_decode.mlp_launches == before + 1
         assert float((got.float() - want.float()).abs().max()) <= tol(want), offset
         assert float((kv.float() - kv_want.float()).abs().max()) <= tol(kv_want), offset
 
