@@ -8,17 +8,20 @@ printed line each (or a few):
 2. every kernel against its plain PyTorch twin at the slices' shapes, with
    the tolerance and the device times of both (CUDA events around replays of
    a CUDA graph of one call, median of 11 runs): the attention forward and
-   backward at the three training shapes, the beam-ancestry
+   backward at the three training shapes, the flash route's forward and
+   backward (``flash_mha_fwd`` / ``flash_mha_bwd``) at the same shapes, the
+   beam-ancestry
    ``self_attend_decode``, the fused ``layer_block_decode`` in both its
    modes (beside the time of the kernels it replaces), the int8 q.K
    ``cross_block_decode``, ``self_attend_decode`` over int8 rings and
-   ``cross_attend_decode`` (beside ``scaled_dot_product_attention``)
-   included, the int8 q.K cases also on inputs where the int8 and the exact
+   ``cross_attend_decode`` (the attention kernels beside
+   ``scaled_dot_product_attention``) included, the int8 q.K cases also on inputs where the int8 and the exact
    q.K products land far apart, so that a kernel computing the wrong one
    fails;
 3. the short-form slice: small.en at full width with seeded random weights,
    64 windows of 30 s noise, GPU log-mel, greedy ``decode`` with bf16 and
-   with int8 cross K/V (the fused self + cross launch); then beam search, 32
+   with int8 cross K/V (the fused self + cross launch); the encoder of the
+   64 windows on the flash route against the kernel route; then beam search, 32
    windows x ``beam_size=5``, in bf16 and int8; for each the host time of
    one step against its summed kernel time (``torch.profiler``), wall time,
    audio-seconds per second, kernel launch counts;
@@ -51,8 +54,10 @@ printed line each (or a few):
    waits, each step's wall and the loader's work inside it, one step with
    the loader held back, peak memory, the kernels' device time
    (``torch.profiler``, the resumed step) and the step's FLOPs against 989
-   TFLOP/s; then an fp32 ``loss_fn`` and backward of a narrow model on the
-   card against the CPU twins;
+   TFLOP/s; then the same through ``train_loop.main(attention="flash")``
+   (3 steps and a resumed fourth, the flash kernels' 144 forward and 72
+   backward launches a step); then an fp32 ``loss_fn`` and backward of a
+   narrow model on the card against the CPU twins, on both routes;
 7. the entry points: the seeded small.en written as a reference ``.pt``;
    the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
    files, and the HTTP server (``python -m olmoasr_tpu_torch.serve``, int8
@@ -62,14 +67,16 @@ printed line each (or a few):
 Each slice sets every launch count to 0 before it runs and reads them after;
 the ``launches`` of the kernels line are those of the path that runs the
 kernel: the long-form slice's, the server traffic's for the fused launch,
-the training step's for the attention backward, the int8-ring loop's for
+the training step's for the attention backward, the flash training step's
+for the flash forward and backward, the int8-ring loop's for
 the int8 self pass and the routes' for the whole-layer launch and the
 standalone cross attention. Every kernel in that line
 carries its bound (the least time the card could take for its main case:
 bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
 larger) and ``library_ms``, the time of one PyTorch call computing the same
 function where there is one (``scaled_dot_product_attention`` for the
-attention forward and backward and for ``cross_attend_decode``), else null.
+attention forward and backward, both routes, and for
+``cross_attend_decode``), else null.
 
 ``python3 chip_smoke.py --ab TREE`` instead compares the kernels of another
 checkout (for example the parent commit, unpacked with ``git archive`` into a
@@ -592,22 +599,28 @@ def check_attention(gen) -> list:
     return cases
 
 
-def _attention_bound(q, k, v, *outs, causal=False, bias=None, valid_len=None, products=2):
+def _attention_bound(q, k, v, *outs, causal=False, bias=None, valid_len=None, ids=None,
+                     products=2):
     """(bytes, operations, dtype) of ``products`` matrix products of
     2 Tq Tk dh per (b, h) (2 in the forward, 5 in the backward) over the keys
-    the call needs: those below ``valid_len``, and with the causal mask the
-    lower triangle only."""
+    the call needs: those below ``valid_len``, with the causal mask the lower
+    triangle only, and with segment ids (the same for queries and keys) the
+    pairs of equal ids."""
     B, Tq, D = q.shape
     Tk = k.shape[1] if valid_len is None else valid_len
-    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    return nbytes(q, k, v, bias, *outs), products * 2 * B * pairs * D, q.dtype
+    pairs = B * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
+    if ids is not None:
+        keep = ids[:, :, None] == ids[:, None, :]
+        pairs = int((keep.tril() if causal else keep).sum())
+    return nbytes(q, k, v, bias, ids, *outs), products * 2 * pairs * D, q.dtype
 
 
-def _sdpa_ms(q, k, v, do, H, causal, key_bias) -> float:
+def _sdpa_ms(q, k, v, do, H, causal, key_bias, ids=None) -> float:
     """Time of torch's scaled_dot_product_attention at the same shapes (the
     port never calls it; it does not round P to bf16): the forward, or with
     ``do`` its backward, as the forward-and-backward less the forward. The
-    causal mask and the key bias ride in one boolean mask."""
+    causal mask, the key bias and the segment ids (the same for queries and
+    keys) ride in one boolean mask."""
     import torch.nn.functional as F
 
     B, Tq, D = q.shape
@@ -615,12 +628,14 @@ def _sdpa_ms(q, k, v, do, H, causal, key_bias) -> float:
     heads = lambda t: t.detach().view(B, -1, H, dh).transpose(1, 2).requires_grad_(do is not None)
     qh, kh, vh = heads(q), heads(k), heads(v)
     mask = None
-    if causal or key_bias is not None:
+    if causal or key_bias is not None or ids is not None:
         mask = torch.ones(B, 1, Tq, Tk, dtype=torch.bool, device=q.device)
         if causal:
             mask &= torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
         if key_bias is not None:
             mask &= (key_bias > float("-inf"))[:, None, None, :]
+        if ids is not None:
+            mask &= (ids[:, :, None] == ids[:, None, :])[:, None]
     fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     if do is None:
         with torch.no_grad():
@@ -669,6 +684,50 @@ def check_attention_bwd(gen) -> list:
         cases.append(case)
         del q, k, v, do, got, want
     return cases
+
+
+def check_flash(gen) -> dict:
+    """The flash route's kernels at small.en's width and the route's shapes:
+    the encoder (1500 x 1500; the forward at the inference batch of 64, the
+    backward at the training micro batch of 16), the decoder's causal
+    self-attention with the loader's suffix pads as segment ids (B=16, 448,
+    text lengths 20-448), the cross attention (B=16, 448 x 1500), all bf16,
+    and the decoder self case in fp32; beside each, torch's
+    scaled_dot_product_attention (forward, or backward) with the same mask.
+    The backward takes its residuals (o, m, l) from the forward kernel."""
+    from olmoasr_tpu_torch.ops.flash import (
+        flash_mha_bwd, flash_mha_bwd_plain, flash_mha_fwd, flash_mha_fwd_plain,
+    )
+
+    D, H, out = 768, 12, {"flash_mha_fwd": [], "flash_mha_bwd": []}
+    lengths = torch.linspace(20, 448, 16).round()
+    pad_ids = (torch.arange(448)[None] >= lengths[:, None]).int().cuda()
+    shapes = (("encoder 1500x1500", torch.bfloat16, 1500, 1500, False, None),
+              ("decoder self 448 causal + pad ids", torch.bfloat16, 448, 448, True, pad_ids),
+              ("cross 448x1500", torch.bfloat16, 448, 1500, False, None),
+              ("decoder self 448 causal + pad ids", torch.float32, 448, 448, True, pad_ids))
+    for name in out:
+        for label, dtype, Tq, Tk, causal, ids in shapes:
+            B = 64 if name == "flash_mha_fwd" and Tq == Tk == 1500 else 16
+            q, do = (torch.randn(B, Tq, D, generator=gen).to("cuda", dtype) for _ in range(2))
+            k, v = (torch.randn(B, Tk, D, generator=gen).to("cuda", dtype) for _ in range(2))
+            if name == "flash_mha_fwd":
+                inputs, do, fn, plain, products = (), None, flash_mha_fwd, flash_mha_fwd_plain, 2
+            else:  # the residuals o, m, l and the output's gradient
+                inputs = (*flash_mha_fwd(q, k, v, H, causal, ids, ids), do)
+                fn, plain, products = flash_mha_bwd, flash_mha_bwd_plain, 5
+            args = (q, k, v, *inputs, H, causal, ids, ids)
+            got = fn(*args)
+            case = _case(name, (dtype, f"{label}, B={B}"), got, plain(*args),
+                         lambda: fn(*args), lambda: plain(*args),
+                         _attention_bound(q, k, v, *inputs, *got, causal=causal, ids=ids,
+                                          products=products))
+            case["library_ms"] = _sdpa_ms(q, k, v, do, H, causal, None, ids)
+            print(f"    scaled_dot_product_attention{' backward' if do is not None else ''} "
+                  f"at the same shape: {case['library_ms']:.4f} ms")
+            out[name].append(case)
+            del q, k, v, do, inputs, args, got
+    return out
 
 
 def check_self_sub_block(gen) -> dict:
@@ -765,7 +824,10 @@ FP32_TOL = {"mlp_block": 1e-4, "cross_block_decode": 1e-4, "train_attention_fwd"
             "ln_matmul": 1e-4, "matmul_residual": 1e-4, "self_attend_decode": 1e-4,
             "self_attend_decode_beam": 1e-4, "layer_block_decode": 1e-4,
             "train_attention_bwd": 2.0 ** -6, "self_attend_decode_q8": 1e-4,
-            "cross_attend_decode": 1e-4, "layer_block_decode_mlp": 1e-4}
+            "cross_attend_decode": 1e-4, "layer_block_decode_mlp": 1e-4,
+            # the flash route rounds nothing in fp32: kernel and plain version
+            # differ only in the order of their fp32 sums
+            "flash_mha_fwd": 1e-5, "flash_mha_bwd": 1e-5}
 # the backward rounds ds and pn to bf16 even for fp32 inputs: where kernel and
 # twin differ in the last fp32 bit a few elements flip by one bf16 step (two
 # steps at the largest magnitude above); every other element agrees to 1e-5
@@ -855,6 +917,7 @@ def phase_kernels() -> dict:
         "mlp_block": check_mlp(gen),
         "train_attention_fwd": check_attention(gen),
         "train_attention_bwd": check_attention_bwd(gen),
+        **check_flash(gen),
         **check_self_sub_block(gen),
         "self_attend_decode_beam": check_self_ancestry(gen),
     }
@@ -892,6 +955,12 @@ def _counters():
                if hasattr(attention, name)}
     kernels["train_attention_fwd"] = train_attention.train_attention_fwd
     kernels["train_attention_bwd"] = train_attention.train_attention_bwd
+    try:
+        from olmoasr_tpu_torch.ops import flash
+    except ImportError:  # an older checkout under --ab
+        return kernels, whisper.decode_step
+    kernels["flash_mha_fwd"] = flash.flash_mha_fwd
+    kernels["flash_mha_bwd"] = flash.flash_mha_bwd
     return kernels, whisper.decode_step
 
 
@@ -1001,8 +1070,53 @@ def phase_slice() -> dict:
         out[label] = {"steps": steps, "wall_s": wall, "audio_s_per_s": B * 30 / wall,
                       "launches": counts,
                       "step_profile": _profile_greedy_step(model, mel, options)}
+    out["encoder flash"] = _encoder_flash(model, mel)
     out.update(phase_beam(model, mel[:BEAM_WINDOWS]))
     return out
+
+
+# the encoder's features on the two routes, bf16: 12 layers in which the
+# routes round p at different maxima (the row's, the running one) and sum in
+# other orders; on the CPU's plain versions at B=2 the features differ by
+# 2.3e-2 of the largest and 0.7% of the mean magnitude
+ENC_ROUTE_MAX, ENC_ROUTE_MEAN = 2.0 ** -3, 2.0 ** -5
+
+
+def _encoder_flash(model, mel) -> dict:
+    """``encode_audio(attention="flash")`` of the windows against the kernel
+    route's features: its wall and launches (one flash forward a layer, no
+    other attention kernel) and the two routes' difference."""
+    from olmoasr_tpu_torch.models.whisper import encode_audio
+
+    want = encode_audio(model, mel)
+    encode_audio(model, mel, attention="flash")  # warm-up
+    walls = {}
+    for route in ("flash", "kernel"):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = encode_audio(model, mel, attention=route)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        if route == "flash":
+            counts, feats = _read_counts()[0], got
+    err = (feats.float() - want.float()).abs()
+    mx, mean = float(err.max()), float(err.mean())
+    ref_mx, ref_mean = float(want.float().abs().max()), float(want.float().abs().mean())
+    L = model.dims.n_audio_layer
+    print(f"  encoder on the flash route, {mel.shape[0]} windows: wall {walls['flash']:.4f} s "
+          f"(kernel route {walls['kernel']:.4f} s); against the kernel route's features max "
+          f"{mx:.3e} of {ref_mx:.3f} (tol {ENC_ROUTE_MAX * ref_mx:.3e}), mean {mean:.3e} of "
+          f"{ref_mean:.3f} (tol {ENC_ROUTE_MEAN * ref_mean:.3e}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if not (bool(torch.isfinite(feats).all()) and feats.shape == want.shape
+            and mx <= ENC_ROUTE_MAX * ref_mx and mean <= ENC_ROUTE_MEAN * ref_mean):
+        fail(f"encoder flash route: features {tuple(feats.shape)} differ from the kernel "
+             f"route's by {mx} (max), {mean} (mean)")
+    if counts["flash_mha_fwd"] != L or any(v for k, v in counts.items() if k != "flash_mha_fwd"):
+        fail(f"encoder flash route: launches {counts}, expected {L} flash_mha_fwd alone")
+    return {"wall_s": walls["flash"], "kernel_route_wall_s": walls["kernel"], "max_abs_err": mx,
+            "mean_abs_err": mean, "launches": counts}
 
 
 BEAM_WINDOWS, BEAM_SIZE = 32, 5
@@ -1494,8 +1608,13 @@ def write_shards(root: str, n: int = 64, seed: int = 5) -> str:
 # 8 steps of data: the loader builds batches through every step the smoke runs,
 # as it does in a real run (its epoch never ends inside the window)
 TRAIN_SAMPLES, TRAIN_MICRO, TRAIN_BATCH, TRAIN_STEPS = 256, 16, 32, 6
+TRAIN_STEPS_FLASH = 3  # the flash route's run: the steps cut, not the width or depth
 ATTN_KERNELS = ("attn_fwd_bf16_kernel", "attn_fwd_f32_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkv_kernel")
+                "attn_bwd_dkv_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
+# the attention wrappers of each training route: (forward, backward)
+TRAIN_ROUTES = {"kernel": ("train_attention_fwd", "train_attention_bwd"),
+                "flash": ("flash_mha_fwd", "flash_mha_bwd")}
 
 
 class LoaderWatch:
@@ -1558,17 +1677,18 @@ class LoaderWatch:
         return total
 
 
-def phase_training() -> dict:
+def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dict:
     """small.en at full width and depth (768 wide, 12 + 12 layers, 1500 / 448
-    positions) through ``train_loop.main`` on the card: 256 samples, micro
-    batch 16, effective batch 32 (2 micro-batches a step), remat, 6 steps,
-    then a resumed run of 1 step. Each step is wrapped to read the attention
-    kernels' launches, the parameters and its start and end; the loader's
+    positions) through ``train_loop.main(attention=...)`` on the card: 256
+    samples, micro batch 16, effective batch 32 (2 micro-batches a step),
+    remat, ``n_steps`` steps, then a resumed run of 1 step. Each step is
+    wrapped to read the attention kernels' launches (those of the route, and
+    none of the other's), the parameters and its start and end; the loader's
     per-sample work is watched (:class:`LoaderWatch`). Step 1 is the
-    warm-up; steps 2-5 are the window, timed end to end with the loader's
-    waits; step 6 runs with the loader held back, so its wall against the
-    window's says what the loader's threads cost the step; the resumed step
-    runs under the profiler, for the kernels' device time."""
+    warm-up; steps 2 to n_steps - 1 are the window, timed end to end with the
+    loader's waits; step n_steps runs with the loader held back, so its wall
+    against the window's says what the loader's threads cost the step; the
+    resumed step runs under the profiler, for the kernels' device time."""
     import statistics as stats
 
     from torch.autograd import DeviceType
@@ -1582,6 +1702,8 @@ def phase_training() -> dict:
 
     dims = VARIANT_TO_DIMS["small.en"]
     make_step = train_mod.make_train_step
+    fwd_name, bwd_name = TRAIN_ROUTES[attention]
+    others = [n for route in TRAIN_ROUTES.values() for n in route if n not in (fwd_name, bwd_name)]
     steps: list = []
     profiled: dict = {}
     initial: list = []
@@ -1594,14 +1716,14 @@ def phase_training() -> dict:
             n = state.step + 1
             if n == 1:
                 initial.extend(p.detach().clone() for p in state.model.parameters())
-            quiet = n == TRAIN_STEPS
+            quiet = n == n_steps
             if quiet:
                 watch.pause()
             try:
                 _reset_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                if n == TRAIN_STEPS + 1:
+                if n == n_steps + 1:
                     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                         state, metrics = step_fn(state, batch)
                         torch.cuda.synchronize()
@@ -1621,8 +1743,8 @@ def phase_training() -> dict:
             row = {"step": state.step, "t0": t0, "t1": t1, "wall_s": t1 - t0,
                    "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                    "lr": float(metrics["lr"]),
-                   "fwd": kernels["train_attention_fwd"].launches,
-                   "bwd": kernels["train_attention_bwd"].launches,
+                   "fwd": kernels[fwd_name].launches, "bwd": kernels[bwd_name].launches,
+                   "other": {k: kernels[k].launches for k in others},
                    "tokens": int((batch["text_target"] != PADDING_TOKEN).sum()), "quiet": quiet}
             same = lambda: all(torch.equal(a, p) for a, p in
                                zip(initial, state.model.parameters()))
@@ -1639,16 +1761,16 @@ def phase_training() -> dict:
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp, LoaderWatch(dataset_mod.AudioTextDataset) as watch:
         shards = write_shards(tmp, n=TRAIN_SAMPLES)
-        kwargs = dict(variant="small.en", train_shards=shards, exp_name="smoke",
+        kwargs = dict(variant="small.en", train_shards=shards, exp_name=f"smoke_{attention}",
                       micro_batch_size=TRAIN_MICRO, eff_batch_size=TRAIN_BATCH, remat=True,
                       ckpt_dir=os.path.join(tmp, "ckpt"), ckpt_every=0, log_every=1,
-                      device="cuda")
+                      device="cuda", attention=attention)
         train_mod.make_train_step = watched
         os.chdir(tmp)  # the metrics logger writes logs/ under the working directory
         try:
             torch.cuda.reset_peak_memory_stats()
             start = time.perf_counter()
-            first = train_loop.main(**kwargs, max_steps_this_run=TRAIN_STEPS)
+            first = train_loop.main(**kwargs, max_steps_this_run=n_steps)
             peak = torch.cuda.max_memory_allocated()
             resumed = train_loop.main(**kwargs, max_steps_this_run=1)
         finally:
@@ -1656,7 +1778,7 @@ def phase_training() -> dict:
             os.chdir(here)
         # the gap before a step: the loader's wait and the batch's copy to the
         # card (before step 1: the set-up, the model's init and the first batch)
-        for prev_end, row in zip([start] + [r["t1"] for r in steps], steps[:TRAIN_STEPS]):
+        for prev_end, row in zip([start] + [r["t1"] for r in steps], steps[:n_steps]):
             row["gap_s"] = row["t0"] - prev_end
         for row in steps:
             row["loader_busy_s"] = watch.busy_s(row["t0"], row["t1"])
@@ -1667,33 +1789,34 @@ def phase_training() -> dict:
               + (f" after a gap of {row['gap_s']:.3f} s" if "gap_s" in row else "")
               + f", the loader busy {row['loader_busy_s']:.3f} s of it"
               + (" (held back)" if row["quiet"] else "")
-              + f"; attention launches {row['fwd']} forward {row['bwd']} backward, "
-                f"{row['tokens']} target tokens")
-    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 2)):
-        fail(f"training: steps {[r['step'] for r in steps]}, expected 1-{TRAIN_STEPS + 1}")
-    if first["global_step"] != TRAIN_STEPS or resumed["global_step"] != TRAIN_STEPS + 1:
-        fail(f"training: global steps {first['global_step']} then {resumed['global_step']}; "
-             f"the resumed run must continue at step {TRAIN_STEPS + 1}")
+              + f"; {attention} attention launches {row['fwd']} forward {row['bwd']} "
+                f"backward, {row['tokens']} target tokens")
+    label = f"training ({attention} attention)"
+    if [r["step"] for r in steps] != list(range(1, n_steps + 2)):
+        fail(f"{label}: steps {[r['step'] for r in steps]}, expected 1-{n_steps + 1}")
+    if first["global_step"] != n_steps or resumed["global_step"] != n_steps + 1:
+        fail(f"{label}: global steps {first['global_step']} then {resumed['global_step']}; "
+             f"the resumed run must continue at step {n_steps + 1}")
     micro = TRAIN_BATCH // TRAIN_MICRO
     for row in steps:
         if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
-            fail(f"training: step {row['step']} loss {row['loss']} grad_norm {row['grad_norm']}")
+            fail(f"{label}: step {row['step']} loss {row['loss']} grad_norm {row['grad_norm']}")
         # per micro-batch: 36 attention forwards, 36 more in the remat
         # recompute, 36 backwards (12 encoder, 12 self, 12 cross)
         want = (micro * 72, micro * 36)
-        if (row["fwd"], row["bwd"]) != want:
-            fail(f"training: step {row['step']} attention launches {(row['fwd'], row['bwd'])}, "
-                 f"expected {want}")
+        if (row["fwd"], row["bwd"]) != want or any(row["other"].values()):
+            fail(f"{label}: step {row['step']} attention launches {(row['fwd'], row['bwd'])}, "
+                 f"expected {want}, and the other route's {row['other']}, expected none")
     if not steps[0]["unchanged"] or steps[0]["lr"] != 0.0:
-        fail("training: step 1 (lr 0) changed the parameters")
+        fail(f"{label}: step 1 (lr 0) changed the parameters")
     if not steps[1]["changed"]:
-        fail("training: step 2 left the parameters as they were")
+        fail(f"{label}: step 2 left the parameters as they were")
 
-    window = steps[1:TRAIN_STEPS - 1]
+    window = steps[1:n_steps - 1]
     window_s = window[-1]["t1"] - steps[0]["t1"]
     per_step = window_s / len(window)
     wall = stats.median(r["wall_s"] for r in window)
-    quiet_wall = steps[TRAIN_STEPS - 1]["wall_s"]
+    quiet_wall = steps[n_steps - 1]["wall_s"]
     flops = train_mod.train_flops_per_sample(dims) * TRAIN_BATCH
     by_kernel: dict = {}
     for name, us in profiled.get("events", []):
@@ -1717,18 +1840,17 @@ def phase_training() -> dict:
            "attention_ms_per_step": attn_ms, "kernel_ms_per_step": kernel_ms or None,
            "device_idle": idle, "device_idle_quiet": idle_quiet,
            "profiled_step_wall_s": steps[-1]["wall_s"], "steps": steps,
-           "launches": {"train_attention_fwd": steps[1]["fwd"],
-                        "train_attention_bwd": steps[1]["bwd"]}}
-    print(f"training: small.en bf16, micro batch {TRAIN_MICRO} x {micro}, remat: set-up "
+           "launches": {fwd_name: steps[1]["fwd"], bwd_name: steps[1]["bwd"]}}
+    print(f"{label}: small.en bf16, micro batch {TRAIN_MICRO} x {micro}, remat: set-up "
           f"{out['setup_s']:.3f} s, warm-up step {out['warmup_step_s']:.3f} s; steps 2-"
-          f"{TRAIN_STEPS - 1} with the loader's waits {window_s:.3f} s = {per_step:.3f} s a step, "
+          f"{n_steps - 1} with the loader's waits {window_s:.3f} s = {per_step:.3f} s a step, "
           f"{out['audio_s_per_s']:.1f} audio-s/s, {out['tokens_per_s']:.0f} target tokens/s, "
           f"{flops / 1e12:.1f} TFLOP a step = {100 * out['flops_share']:.1f}% of 989 TFLOP/s; "
           f"in-step wall {wall:.3f} s (median), {quiet_wall:.3f} s with the loader held back; "
           f"the loader {out['loader_sample_s'] * 1e3:.1f} ms a sample (median of "
           f"{len(sample_s)}); peak memory {out['peak_memory_gb']:.2f} GB")
     if kernel_ms:
-        print(f"  profiled step {TRAIN_STEPS + 1} (wall {steps[-1]['wall_s']:.3f} s under the "
+        print(f"  profiled step {n_steps + 1} (wall {steps[-1]['wall_s']:.3f} s under the "
               f"profiler): kernels {kernel_ms:.1f} ms, so the device is idle {100 * idle:.1f}% "
               f"of the window's step and {100 * idle_quiet:.1f}% of the quiet step; attention "
               f"kernels " + ", ".join(f"{k} {v:.1f} ms" for k, v in attn_ms.items()))
@@ -1743,6 +1865,12 @@ GRAD_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=256, n_audio_head=4,
                  n_audio_layer=2, n_vocab=51864, n_text_ctx=448, n_text_state=256,
                  n_text_head=4, n_text_layer=2)
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-3  # relative to the loss, to the largest gradient
+FLASH_GRAD_TOL = 1e-4  # the flash route rounds nothing in fp32
+
+
+def phase_training_flash() -> dict:
+    """:func:`phase_training` on the flash route, TRAIN_STEPS_FLASH steps."""
+    return phase_training("flash", TRAIN_STEPS_FLASH)
 
 
 def phase_train_fp32() -> dict:
@@ -1755,7 +1883,9 @@ def phase_train_fp32() -> dict:
     bf16 step. The loss is held to LOSS_TOL, the gradients to GRAD_TOL: that
     floor, measured on the CPU twins themselves as the gradients' change
     under a 1e-7 relative change of the mel, is about 3e-4 at these dims,
-    and the check fails if it is not below half of GRAD_TOL."""
+    and the check fails if it is not below half of GRAD_TOL. Then the same
+    on the flash route (``attention="flash"``), which rounds nothing in fp32:
+    its gradients are held to FLASH_GRAD_TOL."""
     from olmoasr_tpu_torch.models import whisper as model_mod
     from olmoasr_tpu_torch.models.dims import ModelDimensions
     from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
@@ -1774,12 +1904,13 @@ def phase_train_fp32() -> dict:
     init = model_mod.init_params(model_mod.empty_model(dims, True), torch.Generator().manual_seed(0),
                                  include_padding_token=True).state_dict()
 
-    def grads(device, mel_scale=1.0):
+    def grads(device, mel_scale=1.0, attention="kernel"):
         model = model_mod.empty_model(dims, True, device=device)
         model.load_state_dict(init)
         loss, _ = train_mod.loss_fn(model, (mel * mel_scale).to(device), inp.to(device),
                                     tgt.to(device), mask.to(device),
-                                    compute_dtype=torch.float32, remat=True)
+                                    compute_dtype=torch.float32, remat=True,
+                                    attention=attention)
         loss.backward()
         return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
 
@@ -1805,7 +1936,26 @@ def phase_train_fp32() -> dict:
         fail(f"training fp32 check: the twins' own floor {floor} is not below half of {GRAD_TOL}")
     if counts["train_attention_bwd"] != 3 * 2 or counts["train_attention_fwd"] != 2 * 3 * 2:
         fail(f"training fp32 check: attention launches {counts}")
-    return {"loss_rel_err": loss_err, "grad_rel_err": err, "floor": floor}
+
+    _reset_counts()
+    loss_gpu, g_gpu = grads("cuda", attention="flash")
+    counts, _ = _read_counts()
+    loss_cpu, g_cpu = grads("cpu", attention="flash")
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    flash_err = max(float((g_gpu[n] - g).abs().max()) for n, g in g_cpu.items()) / scale
+    flash_loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"  flash route: loss {loss_gpu:.6f} (card) vs {loss_cpu:.6f} (CPU), relative "
+          f"{flash_loss_err:.2e}; largest gradient error {flash_err:.2e} of the largest gradient "
+          f"(tol {FLASH_GRAD_TOL:.0e}); flash launches {counts['flash_mha_fwd']} forward "
+          f"{counts['flash_mha_bwd']} backward")
+    if not flash_loss_err <= LOSS_TOL or not flash_err <= FLASH_GRAD_TOL:
+        fail(f"training fp32 check, flash route: loss {flash_loss_err} (tol {LOSS_TOL}) or "
+             f"gradients {flash_err} (tol {FLASH_GRAD_TOL})")
+    if (counts["flash_mha_bwd"], counts["flash_mha_fwd"]) != (3 * 2, 2 * 3 * 2) \
+            or counts["train_attention_fwd"] or counts["train_attention_bwd"]:
+        fail(f"training fp32 check, flash route: attention launches {counts}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": err, "floor": floor,
+            "flash_loss_rel_err": flash_loss_err, "flash_grad_rel_err": flash_err}
 
 
 # ---------------------------------------------------------------------------
@@ -2140,6 +2290,7 @@ def main() -> None:
     routes = timed(phase_routes)
     timed(phase_teacher_forced)
     training = timed(phase_training)
+    training_flash = timed(phase_training_flash)
     timed(phase_train_fp32)
     timed(phase_entry_points)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax",
@@ -2170,12 +2321,18 @@ def main() -> None:
                                 "olmoasr_tpu/ops/attention.py:725"),
         "layer_block_decode_mlp": ("olmoasr_tpu_torch/csrc/layer_block.cu",
                                    "olmoasr_tpu/ops/attention.py:1228"),
+        "flash_mha_fwd": ("olmoasr_tpu_torch/csrc/flash_attention.cu",
+                          "olmoasr_tpu/ops/flash.py:72"),
+        "flash_mha_bwd": ("olmoasr_tpu_torch/csrc/flash_attention.cu",
+                          "olmoasr_tpu/ops/flash.py:72"),
     }
     # the path that runs each kernel: the long-form slice at the CLI's
     # defaults, for the fused launch the server's default traffic, for the
-    # backward the training slice, for the int8 self pass the int8-ring loop,
-    # for the whole layer and the standalone cross attention their routes
+    # backward the training slice, for the flash kernels the flash training
+    # run, for the int8 self pass the int8-ring loop, for the whole layer and
+    # the standalone cross attention their routes
     paths = {"layer_block_decode": server, "train_attention_bwd": training,
+             "flash_mha_fwd": training_flash, "flash_mha_bwd": training_flash,
              "self_attend_decode_q8": routes["int8 rings"],
              "layer_block_decode_mlp": routes["route layer"],
              "cross_attend_decode": routes["route attend"]}
@@ -2190,6 +2347,7 @@ def main() -> None:
             "launches_server_traffic": server["launches"][name],
             "launches_short_form": {k: v["launches"][name] for k, v in short.items()},
             "launches_training_step": training["launches"].get(name, 0),
+            "launches_training_flash_step": training_flash["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

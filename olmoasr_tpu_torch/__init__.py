@@ -11,8 +11,23 @@ Hand-written CUDA kernels live in ``csrc/`` and build at first use
 from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS, ModelDimensions
 from olmoasr_tpu_torch.version import __version__
 
-__all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "build_model",
+__all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "available_models", "build_model",
            "transcribe_many", "__version__"]
+
+# Released OLMoASR checkpoints (olmoasr/__init__.py:23-30). The port does not
+# download: ``load_model`` reads the file a download would leave in its cache.
+MODEL2LINK = {
+    "tiny.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-tiny.en.pt",
+    "base.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-base.en.pt",
+    "small.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-small.en.pt",
+    "medium.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-medium.en.pt",
+    "large.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-large.en.pt",
+    "large.en-v2": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-large.en-v2.pt",
+}
+
+
+def available_models():
+    return list(MODEL2LINK)
 
 
 def load_model(*args, **kwargs):

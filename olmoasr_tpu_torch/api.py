@@ -2,8 +2,8 @@
 
 Counterpart of ``olmoasr_tpu/api.py``. ``OLMoASR`` is the torch module itself
 (the reference's module tree and state-dict names) with the inference entry
-points bound to it. ``load_model`` takes a local ``.pt`` or ``.npz``; released
-names need a download and come with the full API port.
+points bound to it. ``load_model`` takes a released name or a local ``.pt``
+or ``.npz``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 
 class OLMoASR(model_mod.Whisper):
     """Whisper-architecture model with ``transcribe``, ``decode``,
-    ``embed_audio`` and ``logits`` (reference ``OLMoASR`` API)."""
+    ``embed_audio``, ``logits`` and ``forward`` (reference ``OLMoASR`` API)."""
 
     @property
     def is_multilingual(self) -> bool:
@@ -29,6 +29,16 @@ class OLMoASR(model_mod.Whisper):
     @property
     def num_languages(self) -> int:
         return self.dims.n_vocab - 51765 - int(self.is_multilingual)
+
+    def half(self) -> "OLMoASR":
+        """The weights cast to bf16 in place, as the JAX package's ``half``."""
+        return self.to(torch.bfloat16)
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``forward_train`` at its defaults: (B, T, vocab) fp32 logits, so
+        ``model(mel, tokens, padding_mask)`` works as in the JAX package."""
+        return model_mod.forward_train(self, mel, tokens, padding_mask)
 
     @torch.no_grad()
     def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:
@@ -60,18 +70,42 @@ def _new_model(dims, include_padding_token, device, dtype) -> OLMoASR:
     return model_mod.empty_model(dims, include_padding_token, device, dtype, cls=OLMoASR)
 
 
-def load_model(path: str, device="cuda", inference: bool = True,
-               dtype: Optional[torch.dtype] = None) -> OLMoASR:
-    """Load a local reference ``.pt`` or the JAX package's ``.npz`` onto
-    ``device`` (the card unless the caller asks for the CPU; no fallback).
+def _released_path(name: str, download_root: Optional[str]) -> str:
+    """Where the JAX package's ``_download`` leaves a released checkpoint:
+    the URL's file name under ``download_root``, by default
+    ``$XDG_CACHE_HOME/olmoasr`` (``~/.cache/olmoasr``)."""
+    from olmoasr_tpu_torch import MODEL2LINK
 
+    if download_root is None:
+        default = os.path.join(os.path.expanduser("~"), ".cache")
+        download_root = os.path.join(os.getenv("XDG_CACHE_HOME", default), "olmoasr")
+    return os.path.join(download_root, os.path.basename(MODEL2LINK[name]))
+
+
+def load_model(name_or_path: str, device="cuda", download_root: Optional[str] = None,
+               inference: bool = True, dtype: Optional[torch.dtype] = None) -> OLMoASR:
+    """Load a released checkpoint by name (``available_models()``), a local
+    reference ``.pt`` or the JAX package's ``.npz`` onto ``device`` (the card
+    unless the caller asks for the CPU; no fallback).
+
+    A released name reads the file that a download leaves under
+    ``download_root`` (see :func:`_released_path`); the port does not
+    download, so a missing file raises FileNotFoundError with its URL.
     ``inference`` drops the training vocabulary's padding row. ``dtype``
     defaults to the checkpoint's."""
-    if not os.path.isfile(path):
+    from olmoasr_tpu_torch import MODEL2LINK
+
+    path = name_or_path
+    if name_or_path in MODEL2LINK:
+        path = _released_path(name_or_path, download_root)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"{path}: released model {name_or_path} is not in the cache; fetch "
+                f"{MODEL2LINK[name_or_path]} there (the port does not download)")
+    elif not os.path.isfile(path):
         raise FileNotFoundError(
-            f"{path}: load_model takes a local .pt or .npz (released names need "
-            "a download, which comes with the full API port)"
-        )
+            f"{path}: not a local .pt or .npz, nor a released model "
+            f"({', '.join(MODEL2LINK)})")
     if path.endswith(".npz"):
         sd, dims = convert_mod.load_npz_checkpoint(path)
     else:

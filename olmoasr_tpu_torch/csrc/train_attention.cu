@@ -21,16 +21,11 @@
 // tiles held in shared memory: a block owns 64 query rows of one (b, h); each
 // of its 4 warps owns 16 rows, so the row max, row sum and P stay warp-local.
 // The fp32 kernel is a plain CUDA-core tiling for exact-precision checks.
-#include <mma.h>
-
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace olm {
 
 constexpr float kNeg = -1e9f;
-constexpr int kTq = 64;  // query rows per block
-constexpr int kTk = 64;  // keys per tile
-constexpr int kDh = 64;  // head width (every OLMoASR/Whisper size)
 
 struct AttnArgs {
   const void* q;  // (B, Tq, D), head h at columns h*dh..
@@ -55,21 +50,11 @@ __device__ __forceinline__ float masked_score(float s, const Args& p, const floa
   return s;
 }
 
-// Number of key tiles a query tile needs: with the causal mask, keys beyond the
-// tile's last row only ever carry -1e9 and contribute exp(-1e9 - m) = 0.
-template <class Args>
-__device__ __forceinline__ int key_tiles(const Args& p, int q0) {
-  int n = (p.Tk + kTk - 1) / kTk;
-  if (p.causal) n = min(n, (q0 + kTq + kTk - 1) / kTk);
-  return n;
-}
-
 // ---------------------------------------------------------------------------
 // bf16: 128 threads, WMMA.
 // ---------------------------------------------------------------------------
 
 constexpr int kDP = kDh + 8;  // bf16 row pitch of Q/K/V/P tiles (144 bytes)
-constexpr int kSP = kTk + 4;  // fp32 row pitch of the score tile (272 bytes)
 constexpr size_t kBf16Smem = 4 * kTq * kDP * sizeof(__nv_bfloat16) + kTq * kSP * sizeof(float);
 
 __global__ void __launch_bounds__(128) attn_fwd_bf16_kernel(AttnArgs p) {
@@ -355,166 +340,9 @@ struct BwdArgs {
 };
 
 template <typename T>
-struct BwdCfg;
-template <>
-struct BwdCfg<__nv_bfloat16> {
-  static constexpr int kThreads = 128;  // 4 warps x 16 rows
-  static constexpr int kPitch = kDh + 8;  // bf16 row pitch (144 bytes: WMMA-aligned)
-};
-template <>
-struct BwdCfg<float> {
-  static constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-  static constexpr int kPitch = kDh + 1;  // conflict-free column reads
-};
-
-template <typename T>
 constexpr size_t bwd_smem(int operand_tiles) {
   return operand_tiles * kTq * BwdCfg<T>::kPitch * sizeof(T) + 2 * kTq * kSP * sizeof(float) +
          3 * kTq * sizeof(float);
-}
-
-__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-// rows r0.. of a (rows, D) tensor, this head's 64 columns, into a 64-row tile;
-// rows at or past n are zero. `scaled` multiplies by s in T (q's pre-scale).
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* src, T* dst, int r0, int n, int ld, bool scaled,
-                                          float s) {
-  constexpr int V = 16 / sizeof(T), P = BwdCfg<T>::kPitch;
-  for (int c = threadIdx.x; c < kTq * (kDh / V); c += BwdCfg<T>::kThreads) {
-    const int r = c / (kDh / V), col = (c % (kDh / V)) * V;
-    alignas(16) T vals[V];
-    if (r0 + r < n) {
-      *reinterpret_cast<uint4*>(vals) =
-          *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * ld + col);
-      if (scaled) {
-#pragma unroll
-        for (int j = 0; j < V; ++j) vals[j] = from_f<T>(to_f(vals[j]) * s);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) vals[j] = from_f<T>(0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[r * P + col + j] = vals[j];
-  }
-}
-
-// C (fp32, pitch kSP) = A . B^T for 64 x 64 operand tiles stored row-major
-__device__ __forceinline__ void tile_nt(const __nv_bfloat16* A, const __nv_bfloat16* Bm, float* C) {
-  using namespace nvcuda;
-  using bf = __nv_bfloat16;
-  constexpr int P = BwdCfg<bf>::kPitch;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> af[kDh / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) wmma::load_matrix_sync(af[kk], A + warp * 16 * P + kk * 16, P);
-#pragma unroll
-  for (int n = 0; n < kTk / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::col_major> bfr;
-      wmma::load_matrix_sync(bfr, Bm + n * 16 * P + kk * 16, P);
-      wmma::mma_sync(acc, af[kk], bfr, acc);
-    }
-    wmma::store_matrix_sync(C + warp * 16 * kSP + n * 16, acc, kSP, wmma::mem_row_major);
-  }
-}
-
-__device__ __forceinline__ void tile_nt(const float* A, const float* Bm, float* C) {
-  constexpr int P = BwdCfg<float>::kPitch;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[4][4] = {};
-  for (int d = 0; d < kDh; ++d) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = A[(ty * 4 + i) * P + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += a * Bm[(tx + 16 * j) * P + d];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) C[(ty * 4 + i) * kSP + tx + 16 * j] = s[i][j];
-}
-
-// a 64 x 64 fp32 accumulator: acc += A . B for row-major operand tiles
-template <typename T>
-struct TileAcc;
-
-template <>
-struct TileAcc<__nv_bfloat16> {
-  using bf = __nv_bfloat16;
-  static constexpr int P = BwdCfg<bf>::kPitch;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[kDh / 16];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) nvcuda::wmma::fill_fragment(f[n], 0.0f);
-  }
-  __device__ __forceinline__ void add(const bf* A, const bf* Bm) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int kk = 0; kk < kTk / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> af;
-      wmma::load_matrix_sync(af, A + warp * 16 * P + kk * 16, P);
-#pragma unroll
-      for (int n = 0; n < kDh / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bm + kk * 16 * P + n * 16, P);
-        wmma::mma_sync(f[n], af, bfr, f[n]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* C) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n)
-      nvcuda::wmma::store_matrix_sync(C + warp * 16 * kSP + n * 16, f[n], kSP,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
-
-template <>
-struct TileAcc<float> {
-  static constexpr int P = BwdCfg<float>::kPitch;
-  float a[4][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-  }
-  __device__ __forceinline__ void add(const float* A, const float* Bm) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int c = 0; c < kTk; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = A[(ty * 4 + i) * P + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a[i][j] += x * Bm[c * P + tx + 16 * j];
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* C) const {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) C[(ty * 4 + i) * kSP + tx + 16 * j] = a[i][j];
-  }
-};
-
-// rows r0.. of the fp32 tile C into this head's columns of a (rows, D) output
-template <typename T, class F>
-__device__ __forceinline__ void store_rows(const float* C, T* dst, int r0, int n, int ld, F conv) {
-  for (int e = threadIdx.x; e < kTq * kDh; e += BwdCfg<T>::kThreads) {
-    const int r = e / kDh, d = e % kDh;
-    if (r0 + r < n) dst[static_cast<size_t>(r0 + r) * ld + d] = conv(C[r * kSP + d]);
-  }
 }
 
 template <typename T>

@@ -17,8 +17,10 @@ kernel matrix (``decode_step``'s ``route``) through ``layer_block_decode``
 and ``cross_attend_decode``. The training forward (``forward_train``: ``encode_train`` and
 ``decode_train``) sends the encoder's self-attention and the decoder's self-
 and cross-attention through ``ops.train_attention``'s forward and backward
-kernels; fp32 parameters are cast to the compute dtype op by op, so their
-gradients come back in fp32.
+kernels, or with ``attention="flash"`` through ``ops.flash``'s (the JAX
+package's flash route, which it picks by environment switches); fp32
+parameters are cast to the compute dtype op by op, so their gradients come
+back in fp32.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from olmoasr_tpu_torch.ops.attention import (
     mlp_block_plain,
     self_attend_decode,
 )
+from olmoasr_tpu_torch.ops.flash import flash_mha, flash_self_attention
 from olmoasr_tpu_torch.ops.train_attention import (
     cross_attention,
     dec_self_attention,
@@ -301,12 +304,26 @@ def _mlp(x: torch.Tensor, blk: ResidualAttentionBlock) -> torch.Tensor:
     return x + _linear(F.gelu(_linear(h, blk.mlp[0])), blk.mlp[2])
 
 
-def _encoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, n_head: int) -> torch.Tensor:
+ATTENTION_ROUTES = ("kernel", "flash")
+
+
+def _check_attention(attention: str) -> None:
+    """The training attention route: ``"kernel"`` (``ops.train_attention``,
+    the JAX package's ``OLMOASR_ENC_ATTN`` / ``OLMOASR_DEC_ATTN`` =
+    ``kernel``) or ``"flash"`` (``ops.flash``, its flash route with
+    ``OLMOASR_TRAIN_FLASH_DEC=1``)."""
+    if attention not in ATTENTION_ROUTES:
+        raise ValueError(f"attention must be one of {ATTENTION_ROUTES}, got {attention!r}")
+
+
+def _encoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, n_head: int,
+                   attention: str) -> torch.Tensor:
     h = layer_norm(x, blk.attn_ln)
     q = _linear(h, blk.attn.query)
     k = _linear(h, blk.attn.key)
     v = _linear(h, blk.attn.value)
-    x = x + _linear(enc_self_attention(q, k, v, n_head), blk.attn.out)
+    attend = flash_self_attention if attention == "flash" else enc_self_attention
+    x = x + _linear(attend(q, k, v, n_head), blk.attn.out)
     return _mlp(x, blk)
 
 
@@ -320,25 +337,27 @@ def _blocks(fn, x: torch.Tensor, blocks, remat: bool, *args) -> torch.Tensor:
 
 
 def encode_train(model: Whisper, mel: torch.Tensor, *, compute_dtype=torch.bfloat16,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, attention: str = "kernel") -> torch.Tensor:
     """The encoder with gradients (JAX ``encode_audio`` as training calls it):
     (B, n_mels, 2 * n_audio_ctx) mel -> (B, n_audio_ctx, D) in
     ``compute_dtype``: conv stem with exact GELU -> + sinusoids -> blocks ->
-    ln_post; the blocks' attention is ``enc_self_attention``."""
+    ln_post; the blocks' attention is ``enc_self_attention``, or
+    ``flash_self_attention`` with ``attention="flash"``."""
+    _check_attention(attention)
     enc = model.encoder
     x = mel.to(device=model.device, dtype=compute_dtype)
     x = F.gelu(F.conv1d(x, enc.conv1.weight.to(x.dtype), enc.conv1.bias.to(x.dtype), padding=1))
     x = F.gelu(F.conv1d(x, enc.conv2.weight.to(x.dtype), enc.conv2.bias.to(x.dtype), stride=2,
                         padding=1))
     x = x.transpose(1, 2).contiguous() + enc.positional_embedding.to(x.dtype)
-    x = _blocks(_encoder_block, x, enc.blocks, remat, model.dims.n_audio_head)
+    x = _blocks(_encoder_block, x, enc.blocks, remat, model.dims.n_audio_head, attention)
     return layer_norm(x, enc.ln_post)
 
 
 @torch.no_grad()
-def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
+def encode_audio(model: Whisper, mel: torch.Tensor, attention: str = "kernel") -> torch.Tensor:
     """``encode_train`` for inference: no gradients, in the weights' dtype."""
-    return encode_train(model, mel, compute_dtype=model.dtype)
+    return encode_train(model, mel, compute_dtype=model.dtype, attention=attention)
 
 
 # ---------------------------------------------------------------------------
@@ -347,30 +366,40 @@ def encode_audio(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, audio: torch.Tensor,
-                   n_head: int, key_bias: Optional[torch.Tensor]) -> torch.Tensor:
+                   n_head: int, key_bias: Optional[torch.Tensor], attention: str) -> torch.Tensor:
     h = layer_norm(x, blk.attn_ln)
     q = _linear(h, blk.attn.query)
     k = _linear(h, blk.attn.key)
     v = _linear(h, blk.attn.value)
-    x = x + _linear(dec_self_attention(q, k, v, n_head, key_bias), blk.attn.out)
+    if attention == "flash":
+        # the key bias as segment ids, text 0 and pads 1 (JAX decode_train's
+        # flash route): a pad query attends the pads at or before it
+        ids = None if key_bias is None else (key_bias != 0).int()
+        attn = flash_mha(q, k, v, n_head, causal=True, q_ids=ids, kv_ids=ids)
+    else:
+        attn = dec_self_attention(q, k, v, n_head, key_bias)
+    x = x + _linear(attn, blk.attn.out)
     # cross K/V: this layer's projections of the audio features
     ck = _linear(audio, blk.cross_attn.key)
     cv = _linear(audio, blk.cross_attn.value)
     q = _linear(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
-    x = x + _linear(cross_attention(q, ck, cv, n_head), blk.cross_attn.out)
+    attend = flash_mha if attention == "flash" else cross_attention
+    x = x + _linear(attend(q, ck, cv, n_head), blk.cross_attn.out)
     return _mlp(x, blk)
 
 
 def decode_train(model: Whisper, tokens: torch.Tensor, audio_features: torch.Tensor,
                  padding_mask: Optional[torch.Tensor] = None, *, remat: bool = False,
-                 return_hidden: bool = False) -> torch.Tensor:
+                 return_hidden: bool = False, attention: str = "kernel") -> torch.Tensor:
     """The decoder's teacher-forced forward (JAX ``decode_train``): tokens
     (B, T), PADDING_TOKEN allowed, over audio features (B, Ta, D) in the
     compute dtype -> fp32 logits (B, T, vocab rows) through the tied
     embedding, the padding row included; ``return_hidden`` stops before the
     logits. ``padding_mask`` is the loader's additive (B, T) per-key bias
     (-inf on pad columns, clamped to -1e9 in the kernels); self-attention is
-    causal, cross-attention unmasked."""
+    causal, cross-attention unmasked. ``attention`` picks the kernels
+    (``"kernel"`` or ``"flash"``, see ``encode_train``)."""
+    _check_attention(attention)
     if padding_mask is not None and padding_mask.dim() != 2:
         raise NotImplementedError(
             "decode_train takes the loader's (B, T) key bias; the legacy (B, T, T) mask "
@@ -381,7 +410,7 @@ def decode_train(model: Whisper, tokens: torch.Tensor, audio_features: torch.Ten
     x = dec.token_embedding.weight[tokens.long()].to(dtype) + dec.positional_embedding[:T].to(dtype)
     key_bias = None if padding_mask is None else padding_mask.float()
     x = _blocks(_decoder_block, x, dec.blocks, remat, audio_features, model.dims.n_text_head,
-                key_bias)
+                key_bias, attention)
     x = layer_norm(x, dec.ln)
     if return_hidden:
         return x
@@ -390,11 +419,14 @@ def decode_train(model: Whisper, tokens: torch.Tensor, audio_features: torch.Ten
 
 def forward_train(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
                   padding_mask: Optional[torch.Tensor] = None, *, compute_dtype=torch.bfloat16,
-                  remat: bool = False, return_hidden: bool = False) -> torch.Tensor:
-    """mel -> encoder -> decoder -> fp32 logits (JAX ``forward_train``)."""
-    audio = encode_train(model, mel, compute_dtype=compute_dtype, remat=remat)
+                  remat: bool = False, return_hidden: bool = False,
+                  attention: str = "kernel") -> torch.Tensor:
+    """mel -> encoder -> decoder -> fp32 logits (JAX ``forward_train``), with
+    the attention of ``attention`` (``"kernel"`` or ``"flash"``)."""
+    audio = encode_train(model, mel, compute_dtype=compute_dtype, remat=remat,
+                         attention=attention)
     return decode_train(model, tokens.to(audio.device), audio, padding_mask, remat=remat,
-                        return_hidden=return_hidden)
+                        return_hidden=return_hidden, attention=attention)
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,11 @@ _SIGNATURES = {
     # q, k, v, dout, bias, bias_bstride, dq, dk, dv, stats, B, H, Tq, Tk, D, causal, scale,
     # dtype, stream
     "olm_attention_bwd": (*(_P,) * 5, _I, *(_P,) * 4, *(_I,) * 6, _F, _I, _P),
+    # q, k, v, q_ids, kv_ids, out, m, l, B, H, Tq, Tk, D, causal, scale, dtype, stream
+    "olm_flash_fwd": (*(_P,) * 8, *(_I,) * 6, _F, _I, _P),
+    # q, k, v, dout, q_ids, kv_ids, m, l, di, dq, dk, dv, B, H, Tq, Tk, D, causal, scale,
+    # dtype, stream
+    "olm_flash_bwd": (*(_P,) * 12, *(_I,) * 6, _F, _I, _P),
 }
 
 _RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong}  # the others return c_int

@@ -281,7 +281,7 @@ def serve(service: BatchingService, host: str = "0.0.0.0", port: int = 8000):
 
 def main(argv: Optional[List[str]] = None) -> None:
     p = argparse.ArgumentParser(description="OLMoASR GPU batch-serving daemon")
-    p.add_argument("--model", required=True, help="local .pt or .npz checkpoint")
+    p.add_argument("--model", default="small.en", help="released name or ckpt path")
     p.add_argument("--device", default="cuda", help="torch device the model runs on")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000, help="0 picks a free port")

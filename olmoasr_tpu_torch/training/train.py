@@ -13,8 +13,12 @@ package builds it: the clip scales by ``max_norm / norm`` only when
 and leaves the parameters as they were, while the moments move.
 ``torch.optim.AdamW`` over one parameter group computes the same update
 (``p - lr * (adam + wd * p)``) when its learning rate is set so before each
-step. Not ported, because they tune the TPU: ``encoder_flash`` /
-``resolved_flash``, ``OLMOASR_GRADS_BF16``, ``OLMOASR_CE_CHUNK``.
+step. ``attention`` picks the attention kernels, ``"kernel"`` or ``"flash"``
+(``models.whisper.forward_train``): the JAX package picks them with its
+``OLMOASR_ENC_ATTN`` / ``OLMOASR_DEC_ATTN`` / ``OLMOASR_TRAIN_FLASH_DEC``
+switches. Not ported, because they tune the TPU: ``encoder_flash`` /
+``resolved_flash`` (the XLA-attention fallback), ``OLMOASR_GRADS_BF16``,
+``OLMOASR_CE_CHUNK``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class TrainConfig:
     # _scale_by_adam_cast for other dtypes is not ported yet)
     mu_dtype: Any = None
     nu_dtype: Any = None
+    attention: str = "kernel"  # "kernel" (ops.train_attention) or "flash" (ops.flash)
 
     @property
     def warmup_steps(self) -> int:
@@ -89,7 +94,7 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.AdamW:
 
 def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: torch.Tensor,
             padding_mask: Optional[torch.Tensor], *, compute_dtype=torch.bfloat16,
-            remat: bool = True):
+            remat: bool = True, attention: str = "kernel"):
     """Teacher-forced cross entropy that ignores PADDING_TOKEN
     (train_timestamps.py:1444-1450), as logsumexp minus the target's logit;
     returns (loss, aux) with the teacher-forced ``accuracy`` and
@@ -97,7 +102,8 @@ def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: tor
     if mel.dim() == 2:
         raise NotImplementedError("device_mel (raw PCM batches) is not ported")
     logits = model_mod.forward_train(model, mel, text_input, padding_mask,
-                                     compute_dtype=compute_dtype, remat=remat)
+                                     compute_dtype=compute_dtype, remat=remat,
+                                     attention=attention)
     target = text_target.to(logits.device).long()
     valid = target != PADDING_TOKEN
     n_valid = valid.sum().clamp_min(1)
@@ -133,6 +139,7 @@ def make_train_step(dims: ModelDimensions, config: TrainConfig):
                 model, batch["mel"][i], batch["text_input"][i], batch["text_target"][i],
                 None if batch.get("padding_mask") is None else batch["padding_mask"][i],
                 compute_dtype=config.compute_dtype, remat=config.remat,
+                attention=config.attention,
             )
             loss.backward()  # sums into the fp32 .grad of each parameter
             loss_sum = loss_sum + loss.detach()

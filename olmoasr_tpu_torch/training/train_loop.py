@@ -52,9 +52,11 @@ def main(
     max_steps_this_run: Optional[int] = None,
     profile_dir: Optional[str] = None,
     device: str = "cuda",
+    attention: str = "kernel",
 ) -> Dict[str, Any]:
     """Train an OLMoASR variant. Returns the last logged metrics and
-    ``global_step``."""
+    ``global_step``. ``attention`` is ``TrainConfig.attention``: the
+    attention kernels, ``"kernel"`` or ``"flash"``."""
     for unported, what in ((fsdp_size != 1, "fsdp_size != 1 (FSDP)"),
                            (eval_every > 0, "eval_every > 0 (in-loop evaluation)"),
                            (device_mel, "device_mel"), (profile_dir, "profile_dir")):
@@ -69,6 +71,7 @@ def main(
     config = train_mod.TrainConfig(
         train_steps=train_steps, eff_batch_size=eff_batch_size,
         micro_batch_size=micro_batch_size, peak_lr=peak_lr, remat=remat,
+        attention=attention,
     )
     state, meta, manager = ckpt_mod.resume_or_init(
         os.path.join(ckpt_dir, exp_name),

@@ -487,7 +487,7 @@ def cli(argv: Optional[List[str]] = None) -> None:
 
     args = parser.parse_args(argv).__dict__
     model_name = args.pop("model")
-    args.pop("model_dir")  # released names are not downloaded: --model is a path
+    model_dir = args.pop("model_dir")
     output_dir = args.pop("output_dir")
     output_format = args.pop("output_format")
     device = args.pop("device")
@@ -499,7 +499,7 @@ def cli(argv: Optional[List[str]] = None) -> None:
     else:
         temperature = [temperature]
 
-    model = load_model(model_name, device=device)
+    model = load_model(model_name, device=device, download_root=model_dir)
     writer = get_writer(output_format, output_dir)
     word_options = ["highlight_words", "max_line_count", "max_line_width",
                     "max_words_per_line"]

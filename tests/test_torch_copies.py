@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's framework-free modules, pinned to
 their originals: the port imports nothing of ``olmoasr_tpu`` (even its
 modules free of jax), so it carries its own ``models/dims.py``,
-``version.py``, ``tokenizer.py``, ``utils.py``, ``writers.py``,
-``data/transcripts.py``, the serving option parser, the host-side log-mel
-and the training loader's token building. Each test feeds both the same
+``version.py``, the released models' links (``MODEL2LINK``),
+``tokenizer.py``, ``utils.py``, ``writers.py``, ``data/transcripts.py``,
+the serving option parser, the host-side log-mel and the training loader's
+token building. Each test feeds both the same
 inputs and wants the same outputs, exactly."""
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import olmoasr_tpu as jpkg
 import olmoasr_tpu.audio as jaudio
 import olmoasr_tpu.serve as jserve
 import olmoasr_tpu.tokenizer as jtok
@@ -32,6 +34,11 @@ from olmoasr_tpu_torch.training import dataset as tds
 
 TEXTS = ["", " hello world", "Hello, World! 123", " naïve café — ünïcödé ♪♪", "  spaces   inside ",
          "<|endoftext|> is text here", " 'quoted' (brackets) [x] {y}", "\tline\nbreak"]
+
+
+def test_released_model_names():
+    assert port.MODEL2LINK == jpkg.MODEL2LINK
+    assert port.available_models() == jpkg.available_models()
 
 
 def test_model_dims_and_version():
