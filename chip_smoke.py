@@ -8,7 +8,8 @@ printed line each (or a few):
 2. every kernel against its plain PyTorch twin at the slices' shapes, with
    the tolerance and the device times of both (CUDA events around replays of
    a CUDA graph of one call, median of 11 runs): the attention forward and
-   backward at the three training shapes, the flash route's forward and
+   backward at the three training shapes (the backward launched twice and
+   held bit-equal), the flash route's forward and
    backward (``flash_mha_fwd`` / ``flash_mha_bwd``) at the same shapes, the
    beam-ancestry
    ``self_attend_decode``, the fused ``layer_block_decode`` in both its
@@ -17,7 +18,10 @@ printed line each (or a few):
    ``cross_attend_decode`` (the attention kernels beside
    ``scaled_dot_product_attention``) included, the int8 q.K cases also on inputs where the int8 and the exact
    q.K products land far apart, so that a kernel computing the wrong one
-   fails;
+   fails; then the probes of the training attention
+   (``olmoasr_tpu_torch.perf.probe_pack``, ``probe_pipe``, ``probe_bwd``:
+   every variant once at medium.en's training shape, few replays, each that
+   computes attention held against the twin);
 3. the short-form slice: small.en at full width with seeded random weights,
    64 windows of 30 s noise, GPU log-mel, greedy ``decode`` with bf16 and
    with int8 cross K/V (the fused self + cross launch); the encoder of the
@@ -80,9 +84,10 @@ attention forward and backward, both routes, and for
 
 ``python3 chip_smoke.py --ab TREE`` instead compares the kernels of another
 checkout (for example the parent commit, unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists) with this one's on chosen cases, in the
-order TREE, this, this, TREE, each in its own process on the same inputs;
-see :func:`kernel_ab`.
+directory that ``.gitignore`` lists) with this one's on chosen cases (the
+decode kernels, and the training attention's forward and backward at the
+training shapes), in the order TREE, this, this, TREE, each in its own
+process on the same inputs; see :func:`kernel_ab`.
 
 The next-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -653,7 +658,8 @@ def check_attention_bwd(gen) -> list:
     448, text lengths 20-448), the cross attention (B=16, 448 x 1500), all
     bf16, and the decoder self case in fp32; beside each, torch's
     scaled_dot_product_attention backward. In fp32 the kernel still rounds
-    ds and pn to bf16, so a few elements may flip by one bf16 step."""
+    ds and pn to bf16, so a few elements may flip by one bf16 step. Every
+    case launches the backward twice and fails unless both are bit-equal."""
     from olmoasr_tpu_torch.ops.train_attention import (
         train_attention_bwd, train_attention_bwd_plain,
     )
@@ -674,6 +680,11 @@ def check_attention_bwd(gen) -> list:
         k, v = (torch.randn(B, Tk, D, generator=gen).to("cuda", dtype) for _ in range(2))
         args = (q, k, v, do, H, causal, bias)
         got, want = train_attention_bwd(*args), train_attention_bwd_plain(*args)
+        again = train_attention_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"train_attention_bwd {dtype} {label}: two launches differ (the kernel must be "
+                 "deterministic)")
         case = _case("train_attention_bwd", (dtype, label), got, want,
                      lambda: train_attention_bwd(*args), lambda: train_attention_bwd_plain(*args),
                      _attention_bound(q, k, v, do, *got, causal=causal, bias=bias, products=5),
@@ -921,6 +932,83 @@ def phase_kernels() -> dict:
         **check_self_sub_block(gen),
         "self_attend_decode_beam": check_self_ancestry(gen),
     }
+
+
+# the probes of rows 3 and 9 (olmoasr_tpu_torch/perf): each wrapper, the TPU
+# probe function it ports, its variants (the first is its main case; the
+# probes' "base" variants run the production kernels), and what its kernel
+# computes ("fwd": the forward, "scores": the score product alone, "bwd": the
+# backward)
+PROBES = {
+    "probe_seq": ("perf/probe_pack.py:64", "probe_pack", ("seq128", "seq64", "pad64", "pad128"),
+                  "fwd"),
+    "probe_pack": ("perf/probe_pack.py:98", "probe_pack", ("pack128", "pack64"), "fwd"),
+    "probe_scores": ("perf/probe_pack.py:147", "probe_pack",
+                     ("rawd64x128", "rawd64x64", "rawd128x64", "rawd128x128"), "scores"),
+    "probe_pipe": ("perf/probe_pipe.py:49", "probe_pipe", ("pipe128", "pipe64", "seq64", "seq128"),
+                   "fwd"),
+    "probe_ablate": ("perf/probe_pipe.py:127", "probe_pipe", ("ablate",), "fwd"),
+    "probe_bwd_tile": ("perf/probe_bwd.py:125", "probe_bwd", ("bq64", "bq128"), "bwd"),
+    "probe_row": ("perf/probe_bwd.py:38", "probe_bwd", ("row64",), "bwd"),
+}
+PROBE_RUNS = 3  # replays a probe variant is timed over here (the probes' own default is 11)
+
+
+def phase_probes() -> dict:
+    """Every variant of the three probes once, through their entry points
+    (``main`` of ``olmoasr_tpu_torch.perf.probe_pack``, ``probe_pipe``,
+    ``probe_bwd``: medium.en's training shape, each variant timed over
+    PROBE_RUNS graph replays and, where it computes attention, held against
+    the plain twin by the probe itself); the probe wrappers' launches are set
+    to 0 before and read after. Then, per wrapper, the plain version's time,
+    the bound and one library call at the probes' shape."""
+    from olmoasr_tpu_torch.ops.train_attention import (
+        train_attention_bwd_plain, train_attention_fwd_plain,
+    )
+    from olmoasr_tpu_torch.perf import _probes as P
+    from olmoasr_tpu_torch.perf import probe_bwd, probe_pack, probe_pipe
+
+    print("probes of rows 3 and 9 (medium.en, B=16, T=1500, D=1024, H=16):")
+    modules = {"probe_pack": probe_pack, "probe_pipe": probe_pipe, "probe_bwd": probe_bwd}
+    for wrapper in P.WRAPPERS:
+        wrapper.launches = 0
+    rows = {}
+    for name, mod in modules.items():
+        try:
+            rows[name] = {r["variant"]: r for r in mod.main(mod.VARIANTS, runs=PROBE_RUNS)}
+        except SystemExit as exc:
+            fail(f"{name}: {exc}")
+    counts = {w.__name__: w.launches for w in P.WRAPPERS}
+    print(f"  probe launches {counts}")
+    if set(counts) != set(PROBES) or not all(counts.values()):
+        fail(f"probes: a probe kernel was not launched: {counts}")
+    q, k, v, do = P.inputs(4)
+    plain = {"fwd": lambda: train_attention_fwd_plain(q, k, v, P.H),
+             "scores": lambda: P.scores_plain(q, k, P.H, P.DH ** -0.5),
+             "bwd": lambda: train_attention_bwd_plain(q, k, v, do, P.H)}
+    plain_ms = {kind: timed_ms(fn) for kind, fn in plain.items()}
+    fwd_out = plain["fwd"]()
+    bounds = {"fwd": bound(*_attention_bound(q, k, v, fwd_out)),
+              "scores": bound(nbytes(q, k) + q.numel() * 4, 2 * q.shape[0] * P.T * P.T * P.D,
+                              torch.bfloat16),
+              # the outputs dq, dk, dv have the shapes of q, k, v
+              "bwd": bound(*_attention_bound(q, k, v, do, q, k, v, products=5))}
+    library = {"fwd": _sdpa_ms(q, k, v, None, P.H, False, None), "scores": None,
+               "bwd": _sdpa_ms(q, k, v, do, P.H, False, None)}
+    out = {}
+    for wrapper, (replaces, probe, variants, kind) in PROBES.items():
+        mine = [r for v in variants for r in (
+            [x for n, x in rows[probe].items() if n.startswith("sb128")] if v == "ablate"
+            else [rows[probe][v]])]
+        errs = [r["max_abs_err"] for r in mine if r["max_abs_err"] is not None]
+        out[wrapper] = {"replaces": replaces, "launches": counts[wrapper], "cases": mine,
+                        "ms": mine[0]["ms"], "max_abs_err": max(errs) if errs else None,
+                        "plain_ms": plain_ms[kind], "bound_ms": bounds[kind][0],
+                        "bound_by": bounds[kind][1], "library_ms": library[kind]}
+        print(f"  {wrapper}: {mine[0]['variant']} {mine[0]['ms']:.4f} ms, plain "
+              f"{plain_ms[kind]:.4f} ms, bound {bounds[kind][0]:.4f} ms ({bounds[kind][1]}), "
+              f"library {library[kind] if library[kind] is None else round(library[kind], 4)} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1609,9 +1697,9 @@ def write_shards(root: str, n: int = 64, seed: int = 5) -> str:
 # as it does in a real run (its epoch never ends inside the window)
 TRAIN_SAMPLES, TRAIN_MICRO, TRAIN_BATCH, TRAIN_STEPS = 256, 16, 32, 6
 TRAIN_STEPS_FLASH = 3  # the flash route's run: the steps cut, not the width or depth
-ATTN_KERNELS = ("attn_fwd_bf16_kernel", "attn_fwd_f32_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkv_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel")
+ATTN_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel",
+                "attn_fwd_f32_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+                "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # the attention wrappers of each training route: (forward, backward)
 TRAIN_ROUTES = {"kernel": ("train_attention_fwd", "train_attention_bwd"),
                 "flash": ("flash_mha_fwd", "flash_mha_bwd")}
@@ -2106,8 +2194,10 @@ def _ab_inputs(gen) -> dict:
     """name -> (kind, args, keyword args) of the compared cases: the int8
     cross pass (served requests, and their beams), the outlier-q case of
     both, the self pass at 160 rows without a map, with the identity map and
-    with a random one, and the self + cross sub-blocks of a greedy int8 step.
-    Rings are one layer deep: a call reads one layer."""
+    with a random one, the self + cross sub-blocks of a greedy int8 step,
+    and the training attention's forward and backward (rows 3 and 9) at the
+    three training shapes. Rings are one layer deep: a call reads one
+    layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2139,6 +2229,22 @@ def _ab_inputs(gen) -> dict:
         out[f"self bf16, {rows} rows, offset {C - 1}, {label}"] = ("self", self_args, kw)
     out["self + cross int8, 64 rows, offset 224"] = (
         "layer", (*layer_block_args(gen, torch.bfloat16, L=1), 224, 0), {"n_head": H})
+    # rows 3 and 9 at small.en's training shapes: the encoder (the forward at
+    # the inference batch of 64, the backward at the micro batch of 16), the
+    # decoder's causal self-attention with suffix pads, the cross attention
+    lengths = torch.linspace(20, 448, 16).round()
+    pad_bias = torch.where(torch.arange(448)[None] < lengths[:, None], 0.0, float("-inf"))
+    bf = lambda *shape: torch.randn(*shape, generator=gen).to(torch.bfloat16)
+    for kind, B in (("train fwd", 64), ("train bwd", 16)):
+        extra = 1 if kind == "train bwd" else 0  # the output's gradient
+        for label, Tq, Tk, kw in (("encoder 1500x1500", 1500, 1500, {}),
+                                  ("decoder self 448 causal + pad bias", 448, 448,
+                                   {"causal": True, "key_bias": pad_bias}),
+                                  ("cross 448x1500", 448, 1500, {})):
+            B = B if Tq == 1500 else 16
+            q, k, v = bf(B, Tq, D), bf(B, Tk, D), bf(B, Tk, D)
+            args = (q, k, v, *[bf(B, Tq, D) for _ in range(extra)], H)
+            out[f"{kind} {label}, B={B}"] = (kind, args, kw)
     return out
 
 
@@ -2151,12 +2257,16 @@ def _self_views(args):
     return qkv[..., :D], k_ring, v_ring, qkv[..., D:2 * D], qkv[..., 2 * D:], offset, layer
 
 
-def _ab_call(A, kind, args, kw):
-    """The tree's kernel for a case (module A is its ops.attention), or None
-    where the tree does not have it; "layer" falls back to the split chain
-    and returns the residual only."""
+def _ab_call(A, kind, args, kw, TA=None):
+    """The tree's kernel for a case (module A is its ops.attention, TA its
+    ops.train_attention), or None where the tree does not have it; "layer"
+    falls back to the split chain and returns the residual only."""
     import inspect
 
+    if kind == "train fwd":
+        return lambda: TA.train_attention_fwd(*args, **kw)
+    if kind == "train bwd":
+        return lambda: TA.train_attention_bwd(*args, **kw)
     if kind == "cross":
         return lambda: A.cross_block_decode(*args, **kw)
     if kind == "self":
@@ -2173,15 +2283,24 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
     ROOT on the saved inputs; outputs and device times saved to OUT."""
     sys.path.insert(0, os.path.abspath(root))
     from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import train_attention as TA
 
-    if not os.path.abspath(A.__file__).startswith(os.path.abspath(root)):
-        fail(f"imported {A.__file__}, not the tree at {root}")
+    for mod in (A, TA):
+        if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root)):
+            fail(f"imported {mod.__file__}, not the tree at {root}")
     results = {}
     for name, (kind, args, kw) in torch.load(inputs).items():
         to = lambda a: a.cuda() if torch.is_tensor(a) else a
         args, kw = [to(a) for a in args], {k: to(v) for k, v in kw.items()}
-        fn = _ab_call(A, kind, args, kw)
-        results[name] = None if fn is None else {"out": fn().cpu(), "ms": timed_ms(fn)}
+        fn = _ab_call(A, kind, args, kw, TA)
+        if fn is None:
+            results[name] = None
+            continue
+        got = fn()
+        got = tuple(x.cpu() for x in got) if isinstance(got, tuple) else got.cpu()
+        results[name] = {"out": got, "ms": timed_ms(fn)}
+        del args, kw, fn
+        torch.cuda.empty_cache()
     results[GREEDY_INT8_STEP] = _greedy_int8_step()
     torch.save(results, out)
 
@@ -2206,10 +2325,12 @@ def kernel_ab(tree: str) -> None:
     """``--ab TREE``: the cases of :func:`_ab_inputs` through the kernels of
     the checkout at TREE and of this one, in the order TREE, this, this, TREE,
     each run in its own process on the same saved inputs; each output held to
-    this checkout's twins (the int8 cross cases also to the exact-q twin).
+    this checkout's twins (the int8 cross cases also to the exact-q twin; the
+    attention backward's dq, dk and dv each to two bf16 steps of its own).
     Each process also profiles one greedy step over an int8 cross cache.
     Fails if this checkout's kernels leave the tolerance."""
     from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import train_attention as TA
 
     here = os.path.dirname(os.path.abspath(__file__))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2222,6 +2343,13 @@ def kernel_ab(tree: str) -> None:
                           A.cross_block_decode_plain(*args, **kw, quantize_q=False))
         elif kind == "self":
             refs[name] = (A.self_attend_decode_plain(*_self_views(args), **kw), None)
+        elif kind in ("train fwd", "train bwd"):
+            gpu = lambda a: a.cuda() if torch.is_tensor(a) else a
+            plain = (TA.train_attention_fwd_plain if kind == "train fwd"
+                     else TA.train_attention_bwd_plain)
+            want = plain(*map(gpu, args), **{n: gpu(x) for n, x in kw.items()})
+            refs[name] = (tuple(x.cpu() for x in want) if isinstance(want, tuple)
+                          else want.cpu(), None)
         else:
             refs[name] = (A.layer_block_decode_plain(*args, **kw)[0], None)
     runs = []
@@ -2237,7 +2365,8 @@ def kernel_ab(tree: str) -> None:
             runs.append((label, torch.load(out)))
     report, bad = {}, []
     for name, (want, exact) in refs.items():
-        tol = bf16_tol(want)
+        parts = tuple(w.cpu() for w in (want if isinstance(want, tuple) else (want,)))
+        tol = min(bf16_tol(w) for w in parts)
         report[name] = []
         for label, results in runs:
             r = results[name]
@@ -2245,7 +2374,10 @@ def kernel_ab(tree: str) -> None:
                 print(f"  {name} [{label}]: not in this tree")
                 report[name].append(None)
                 continue
-            err = max_err(r["out"], want.cpu())
+            got = r["out"] if isinstance(r["out"], tuple) else (r["out"],)
+            errs = [max_err(g, w) for g, w in zip(got, parts)]  # each to its own tolerance
+            ok = all(e <= bf16_tol(w) for e, w in zip(errs, parts))
+            err = max(errs)
             row = {"tree": label, "ms": r["ms"], "max_abs_err": err, "tol": tol}
             line = f"  {name} [{label}]: {r['ms']:.4f} ms, max_abs_err {err:.3e} (tol {tol:.3e})"
             if exact is not None:
@@ -2253,8 +2385,8 @@ def kernel_ab(tree: str) -> None:
                 line += f", against the exact-q twin {row['exact_q_err']:.3e}"
             print(line)
             report[name].append(row)
-            if label == "this" and not err <= tol:
-                bad.append(f"{name}: {err} > {tol}")
+            if label == "this" and not ok:
+                bad.append(f"{name}: {errs} against two bf16 steps of each output")
     report[GREEDY_INT8_STEP] = []
     for label, results in runs:
         r = results[GREEDY_INT8_STEP]
@@ -2284,6 +2416,7 @@ def main() -> None:
 
     timed(phase_identity)
     cases = timed(phase_kernels)
+    probes = timed(phase_probes)
     short = timed(phase_slice)
     long_form = timed(phase_long_form)
     server = timed(phase_server_traffic)
@@ -2355,6 +2488,12 @@ def main() -> None:
             "library_ms": main_case.get("library_ms"),
             "cases": cases[name],
         })
+    for name, probe in probes.items():  # their path is the probes' own run
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "olmoasr_tpu_torch/csrc/attention_probes.cu",
+                        **{key: probe[key] for key in (
+                            "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "cases")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

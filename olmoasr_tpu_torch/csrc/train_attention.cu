@@ -1,6 +1,6 @@
-// One-pass-softmax attention forward, the port of _attn_fwd
+// Whole-row softmax attention, the port of _attn_fwd and _attn_bwd
 // (olmoasr_tpu/ops/train_attention.py: _make_fwd_row_kernel/_make_fwd_kernel,
-// _softmax_rows, _mask_block).
+// _softmax_rows, _mask_block, _make_bwd_row_kernel).
 //
 // Per (batch, head) and query row i, with q pre-scaled by dh^-0.5 in q's type:
 //   s[j] = q_i . k_j (fp32) + bias[b, j]; s[j] = -1e9 where causal and j > i
@@ -8,19 +8,25 @@
 //   p[j] = exp(s[j] - m)       (fp32); l = sum_j p[j] (fp32)
 //   o_i  = (sum_j bf16(p[j]) * v_j) / l
 // The rounding of p to bf16 before P.V uses the row's final max, so an online
-// softmax (running max, rescaled sums) would round differently. The kernel
-// therefore passes over the keys twice: the first pass finds each row's max,
+// softmax (running max, rescaled sums) would round differently. The kernels
+// therefore pass over the keys twice: the first pass finds each row's max,
 // the second forms p, sums l and accumulates P.V. Keys past the end of the
 // sequence (the ragged last tile) are not keys at all and get p = 0; keys
 // masked by the bias keep the TPU kernel's -1e9 semantics.
 //
 // What bounds it: tensor-core FLOPs. The encoder at small.en, B = 64, T = 1500,
 // dh = 64, 12 heads does 4 * B * H * T^2 * dh = 442 GFLOP of products per layer
-// (the two-pass form adds a second Q.K^T, 1.5x that). The bf16 kernel runs
-// every product on the tensor cores (WMMA 16x16x16, fp32 accumulation) on
-// tiles held in shared memory: a block owns 64 query rows of one (b, h); each
-// of its 4 warps owns 16 rows, so the row max, row sum and P stay warp-local.
-// The fp32 kernel is a plain CUDA-core tiling for exact-precision checks.
+// (the two-pass form adds a second Q.K^T, 1.5x that). bf16 runs on the
+// register-resident mma.sync core of attention_mma.cuh: a block owns 128
+// query rows of one (b, h), 8 warps of 16 rows, two blocks an SM, Q
+// pre-scaled into registers, K and V streamed through a 2-stage cp.async
+// ring, scores, p and O in registers. Its exp is ex2.approx(s log2 e - m log2
+// e), one fma a score, within 5e-6 of exp's relative value (rows whose |m|
+// passes 64 take the unfolded form), so p's bf16 rounding moves by a
+// step only where p lies that close to a rounding boundary: far inside the
+// two-bf16-step tolerance of the checks. The fp32 kernels are a plain
+// CUDA-core tiling for exact-precision checks.
+#include "attention_mma.cuh"
 #include "attention_tiles.cuh"
 
 namespace olm {
@@ -48,136 +54,6 @@ __device__ __forceinline__ float masked_score(float s, const Args& p, const floa
   if (bias_row) s += bias_row[key];
   if (p.causal && key > qi) s = kNeg;
   return s;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: 128 threads, WMMA.
-// ---------------------------------------------------------------------------
-
-constexpr int kDP = kDh + 8;  // bf16 row pitch of Q/K/V/P tiles (144 bytes)
-constexpr size_t kBf16Smem = 4 * kTq * kDP * sizeof(__nv_bfloat16) + kTq * kSP * sizeof(float);
-
-__global__ void __launch_bounds__(128) attn_fwd_bf16_kernel(AttnArgs p) {
-  using bf = __nv_bfloat16;
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf* Qs = reinterpret_cast<bf*>(smem);
-  bf* Ks = Qs + kTq * kDP;
-  bf* Vs = Ks + kTk * kDP;
-  bf* Ps = Vs + kTk * kDP;
-  float* Ss = reinterpret_cast<float*>(Ps + kTq * kDP);
-
-  const int q0 = blockIdx.x * kTq, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t hoff = static_cast<size_t>(h) * kDh;
-  const bf* Q = static_cast<const bf*>(p.q) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const bf* K = static_cast<const bf*>(p.k) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const bf* V = static_cast<const bf*>(p.v) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const float* bias_row = p.bias ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
-
-  // 64 rows x 64 features = 512 chunks of 8 bf16 per tile, 4 per thread
-  for (int c = tid; c < kTq * (kDh / 8); c += 128) {
-    const int r = c / 8, col = (c % 8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < p.Tq) {
-      val = *reinterpret_cast<const uint4*>(Q + static_cast<size_t>(q0 + r) * p.D + col);
-      bf* e = reinterpret_cast<bf*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = from_f<bf>(to_f(e[j]) * p.scale);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * kDP + col) = val;
-  }
-  auto load_tile = [&](const bf* src, bf* dst, int k0) {
-    for (int c = tid; c < kTk * (kDh / 8); c += 128) {
-      const int r = c / 8, col = (c % 8) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);  // zero rows past the end: 0 * p, never NaN
-      if (k0 + r < p.Tk) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(k0 + r) * p.D + col);
-      *reinterpret_cast<uint4*>(dst + r * kDP + col) = val;
-    }
-  };
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> qf[kDh / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * kDP + kk * 16, kDP);
-
-  // this warp's 16 x 64 score block of the current key tile, into Ss
-  auto scores = [&]() {
-#pragma unroll
-    for (int n = 0; n < kTk / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * kDP + kk * 16, kDP);
-        wmma::mma_sync(s, qf[kk], kf, s);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * kSP + n * 16, s, kSP, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // row ownership for the softmax: two lanes per row, 32 columns each
-  const int r = warp * 16 + lane / 2, c0 = (lane % 2) * 32, qi = q0 + r;
-  const int nkt = key_tiles(p, q0);
-
-  float m_row = -INFINITY;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kTk;
-    __syncthreads();
-    load_tile(K, Ks, k0);
-    __syncthreads();
-    scores();
-    float mx = -INFINITY;
-    for (int j = 0; j < 32; ++j)
-      mx = fmaxf(mx, masked_score(Ss[r * kSP + c0 + j], p, bias_row, qi, k0 + c0 + j));
-    m_row = fmaxf(m_row, fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1)));
-    __syncwarp();
-  }
-
-  float l_row = 0.f;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[kDh / 16];
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) wmma::fill_fragment(of[n], 0.0f);
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kTk;
-    __syncthreads();
-    load_tile(K, Ks, k0);
-    load_tile(V, Vs, k0);
-    __syncthreads();
-    scores();
-    for (int j = 0; j < 32; ++j) {
-      const float s = masked_score(Ss[r * kSP + c0 + j], p, bias_row, qi, k0 + c0 + j);
-      const float e = expf(s - m_row);
-      l_row += e;
-      Ps[r * kDP + c0 + j] = from_f<bf>(e);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < kTk / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + warp * 16 * kDP + kk * 16, kDP);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * kDP + n * 16, kDP);
-        wmma::mma_sync(of[n], pf, vf, of[n]);
-      }
-    }
-    __syncwarp();
-  }
-  l_row += __shfl_xor_sync(kFullMask, l_row, 1);
-
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n)
-    wmma::store_matrix_sync(Ss + warp * 16 * kSP + n * 16, of[n], kSP, wmma::mem_row_major);
-  __syncwarp();
-  if (qi < p.Tq) {
-    bf* o = static_cast<bf*>(p.out) + (static_cast<size_t>(b) * p.Tq + qi) * p.D + hoff;
-    for (int j = 0; j < 32; ++j) o[c0 + j] = from_f<bf>(Ss[r * kSP + c0 + j] / l_row);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -307,21 +183,24 @@ __global__ void __launch_bounds__(256) attn_fwd_f32_kernel(AttnArgs p) {
 // cannot hold 1500 x 64 x 2 fp32 accumulators beside K and V, so the work is
 // split in two launches, both deterministic (no atomics; every sum is taken in
 // a fixed order):
-//   (a) attn_bwd_dq_kernel, one block per (64-query tile, h, b): one pass over
+//   (a) attn_bwd_dq_kernel (bf16: attn_bwd_dq_mma_kernel), one block per
+//       (64-query tile, h, b): one pass over
 //       the key tiles for the row max, row sum and sum_j p dp (online, with
 //       rescaling: nothing is rounded there), so delta = (sum_j p dp) / l;
 //       then a second pass forms ds and accumulates dq = ds.K. It leaves each
 //       query's fp32 (max, sum, delta) in a workspace;
-//   (b) attn_bwd_dkv_kernel, one block per (64-key tile, h, b): a loop over
+//   (b) attn_bwd_dkv_kernel (bf16: attn_bwd_dkv_mma_kernel), one block per
+//       (64-key tile, h, b): a loop over
 //       the query tiles (with the causal mask only those on or below the
 //       diagonal) that recomputes pn and dp from the workspace's statistics
 //       and accumulates dK and dV in registers.
 // What bounds it: tensor-core FLOPs. The minimum is five products of
 // 2 T^2 dh per (b, h) (S, dP, dq, dK, dV); this design does nine (S and dP
-// twice in (a) and once more in (b)). bf16 runs every product on the tensor
-// cores (WMMA 16x16x16, fp32 accumulation), each warp owning 16 rows of a
-// 64 x 64 tile; fp32 runs them on the CUDA cores (4 x 4 outputs a thread) for
-// exact-precision training and checks.
+// twice in (a) and once more in (b)). bf16 runs the register-resident
+// mma.sync core of attention_mma.cuh (S, dP, p and ds never leave the
+// registers; tiles stream through cp.async rings; 1 / l is stored, so no
+// element is divided); fp32 runs the kernels below on the CUDA cores (4 x 4
+// outputs a thread) for exact-precision training and checks.
 
 struct BwdArgs {
   const void* q;     // (B, Tq, D)
@@ -550,26 +429,22 @@ extern "C" int olm_attention_fwd(const void* q, const void* k, const void* v, co
                                  int causal, float scale, int dtype, void* stream) {
   using namespace olm;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D != H * kDh) return cudaErrorInvalidValue;
-  AttnArgs p{q, k, v, bias, out, B, H, Tq, Tk, D, bias_bstride, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Tq + kTq - 1) / kTq, H, B);
+  if (dtype == kBF16) {
+    using bf = __nv_bfloat16;
+    const mma::FwdParams p{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                           static_cast<const bf*>(v), bias, out, B, H, Tq, Tk, D,
+                           bias_bstride, causal, scale};
+    return mma::launch_fwd<kDh, 1, mma::kFwdRows, mma::kStages, mma::kExp2>(p, s);
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  AttnArgs p{q, k, v, bias, out, B, H, Tq, Tk, D, bias_bstride, causal, scale};
   // raise the dynamic shared-memory limit once per process (not a stream
   // operation, so a CUDA graph capture of a later call never sees it)
-  static const cudaError_t configured = [] {
-    cudaError_t e = cudaFuncSetAttribute(attn_fwd_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kBf16Smem));
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(attn_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(kF32Smem));
-  }();
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      attn_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kF32Smem));
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  if (dtype == kBF16)
-    attn_fwd_bf16_kernel<<<grid, 128, kBf16Smem, s>>>(p);
-  else if (dtype == kF32)
-    attn_fwd_f32_kernel<<<grid, 256, kF32Smem, s>>>(p);
-  else
-    return cudaErrorInvalidValue;
+  attn_fwd_f32_kernel<<<dim3((Tq + kTq - 1) / kTq, H, B), 256, kF32Smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -579,9 +454,16 @@ extern "C" int olm_attention_bwd(const void* q, const void* k, const void* v, co
                                  float scale, int dtype, void* stream) {
   using namespace olm;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D != H * kDh) return cudaErrorInvalidValue;
-  BwdArgs p{q, k, v, dout, bias, dq, dk, dv, stats, B, H, Tq, Tk, D, bias_bstride, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_bwd<__nv_bfloat16>(p, s);
-  if (dtype == kF32) return launch_bwd<float>(p, s);
-  return cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    using bf = __nv_bfloat16;
+    const mma::BwdParams p{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                           static_cast<const bf*>(v), static_cast<const bf*>(dout), bias,
+                           static_cast<bf*>(dq), static_cast<bf*>(dk), static_cast<bf*>(dv),
+                           stats, B, H, Tq, Tk, D, bias_bstride, causal, scale};
+    return mma::launch_bwd<mma::kBwdRows>(p, s);
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  BwdArgs p{q, k, v, dout, bias, dq, dk, dv, stats, B, H, Tq, Tk, D, bias_bstride, causal, scale};
+  return launch_bwd<float>(p, s);
 }

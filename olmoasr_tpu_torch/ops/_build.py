@@ -70,6 +70,13 @@ _SIGNATURES = {
     # q, k, v, dout, q_ids, kv_ids, m, l, di, dq, dk, dv, B, H, Tq, Tk, D, causal, scale,
     # dtype, stream
     "olm_flash_bwd": (*(_P,) * 12, *(_I,) * 6, _F, _I, _P),
+    # the probes of rows 3 and 9 (csrc/attention_probes.cu; variant codes in perf/_probes.py)
+    # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, variant, stream
+    "olm_probe_fwd": (*(_P,) * 4, _I, _P, *(_I,) * 6, _F, _I, _P),
+    # q, k, out, B, H, Tq, Tk, D, scale, variant, stream
+    "olm_probe_scores": (*(_P,) * 3, *(_I,) * 5, _F, _I, _P),
+    # as olm_attention_bwd, with the variant in place of the dtype
+    "olm_probe_bwd": (*(_P,) * 5, _I, *(_P,) * 4, *(_I,) * 6, _F, _I, _P),
 }
 
 _RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong}  # the others return c_int

@@ -106,9 +106,10 @@ def train_attention_fwd(
 
     Replaces ``olmoasr_tpu/ops/train_attention.py::_attn_fwd``. Bound on the
     card: tensor-core FLOPs (the encoder at small.en, B=64: 442 GFLOP of
-    products per layer). The kernel keeps each 64-query tile's scores, row
-    max, row sum and P in shared memory and registers, passes over K twice
-    (row max, then P.V) and runs every product on the tensor cores in bf16.
+    products per layer). The bf16 kernel (``csrc/attention_mma.cuh``) keeps
+    each 128-query tile's scores, row max, row sum, P and O in registers
+    (mma.sync, 16 rows a warp), streams K and V through a cp.async ring and
+    passes over K twice (row max, then P.V); fp32 runs on the CUDA cores.
     """
     if not q.is_cuda:
         return train_attention_fwd_plain(q, k, v, n_head, causal, key_bias, valid_len)
@@ -210,10 +211,12 @@ def train_attention_bwd(
     Replaces ``olmoasr_tpu/ops/train_attention.py::_attn_bwd``. Bound on the
     card: tensor-core FLOPs, five products of 2 T^2 dh per (b, h) at the
     least (the encoder at small.en, B=16: 276 GFLOP a layer). Two launches
-    (``csrc/train_attention.cu``): per 64-query tile the row statistics and
+    (``csrc/train_attention.cu``; bf16 on the register-resident core of
+    ``csrc/attention_mma.cuh``): per 64-query tile the row statistics and
     dq, then per 64-key tile dK and dV over the query tiles; no atomics, so
-    the result does not depend on scheduling. ``do`` must be contiguous in
-    q's dtype on the card; the CPU twin casts it.
+    the result does not depend on scheduling and two launches agree to the
+    bit. ``do`` must be contiguous in q's dtype on the card; the CPU twin
+    casts it.
     """
     if not q.is_cuda:
         return train_attention_bwd_plain(q, k, v, do, n_head, causal, key_bias, valid_len)

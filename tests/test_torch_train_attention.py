@@ -23,6 +23,8 @@ import pytest
 import torch
 
 from olmoasr_tpu_torch.ops import train_attention as ta
+from olmoasr_tpu_torch.perf import _probes as P
+from olmoasr_tpu_torch.perf import probe_bwd, probe_pack, probe_pipe
 
 H = 2
 CASES = {
@@ -181,3 +183,109 @@ def test_backward_kernel_matches_twin(cuda, shape, dt):
     assert ta.train_attention_bwd.launches == before + 1
     for a, w in zip(got, want):
         assert a.dtype == td and _agree(a.cpu(), w.float().cpu().numpy(), dt == "fp32")
+
+
+# the redesigned bf16 kernels (csrc/attention_mma.cuh) at ragged shapes, at
+# small.en's 12 heads: name -> (B, Tq, Tk, causal, key bias, valid_len)
+RAGGED = {
+    "self T=200": (2, 200, 200, False, False, None),
+    "encoder valid_len=1437": (2, 1500, 1500, False, False, 1437),
+    "decoder self 448 causal + pad bias": (2, 448, 448, True, True, None),
+    "cross 448x1500": (2, 448, 1500, False, False, None),
+}
+
+
+def _cuda_args(cuda, name, seed=5):
+    B, Tq, Tk, causal, bias, valid_len = RAGGED[name]
+    q, k, v, g, kb = _inputs(Tq, Tk, bias, seed=seed, B=B, n_head=12)
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v, g)]
+    return args, (causal, None if kb is None else torch.from_numpy(kb).to(cuda), valid_len)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(RAGGED))
+def test_bf16_kernels_match_twins_at_ragged_shapes(cuda, name):
+    (q, k, v, g), opts = _cuda_args(cuda, name)
+    got = ta.train_attention_fwd(q, k, v, 12, *opts)
+    want = ta.train_attention_fwd_plain(q, k, v, 12, *opts)
+    torch.cuda.synchronize()
+    assert _agree(got.cpu(), want.float().cpu().numpy(), False)
+    got = ta.train_attention_bwd(q, k, v, g, 12, *opts)
+    want = ta.train_attention_bwd_plain(q, k, v, g, 12, *opts)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _agree(a.cpu(), w.float().cpu().numpy(), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["scores past 64", "a row with every key masked"])
+def test_bf16_kernels_match_twins_off_the_fold(cuda, case):
+    """Rows whose max passes 64 (or sits at -1e9: every key masked) take the
+    forward's unfolded exp; both still match the twins."""
+    q, k, v, g, _ = _inputs(200, 200, False, seed=8, B=2, n_head=12)
+    kb = None
+    if case == "scores past 64":
+        q = q * 24  # scores of about 24 times a standard normal
+    else:
+        kb = torch.zeros((2, 200), device=cuda)
+        kb[1] = float("-inf")
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v, g))
+    got = ta.train_attention_fwd(q, k, v, 12, False, kb)
+    want = ta.train_attention_fwd_plain(q, k, v, 12, False, kb)
+    torch.cuda.synchronize()
+    assert _agree(got.cpu(), want.float().cpu().numpy(), False)
+    for a, w in zip(ta.train_attention_bwd(q, k, v, g, 12, False, kb),
+                    ta.train_attention_bwd_plain(q, k, v, g, 12, False, kb)):
+        assert _agree(a.cpu(), w.float().cpu().numpy(), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["encoder valid_len=1437", "decoder self 448 causal + pad bias"])
+def test_backward_launches_are_bit_equal(cuda, name):
+    """No atomics and every sum in a fixed order: two launches agree to the
+    last bit."""
+    (q, k, v, g), opts = _cuda_args(cuda, name, seed=6)
+    first = ta.train_attention_bwd(q, k, v, g, 12, *opts)
+    second = ta.train_attention_bwd(q, k, v, g, 12, *opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+PROBE_CASES = (
+    [("pack", v) for v in probe_pack.VARIANTS]
+    + [("pipe", v) for v in probe_pipe.VARIANTS if v != "ablate"]
+    + [("ablate", ",".join(sorted(d)) or "none") for d, _ in P.ABLATE
+       if not d & {"exp", "sum", "div"}]  # those compute no attention
+    + [("bwd", v) for v in probe_bwd.VARIANTS])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe, variant", PROBE_CASES)
+def test_probe_kernels_match_twins(cuda, probe, variant):
+    """Every probe variant that computes attention against its plain version
+    (the production twin, or for an ablation the twin with that stage
+    changed), at B=2, T=200, 4 heads of 64."""
+    q, k, v, do = P.inputs(4, shape=(2, 200, 256), seed=7, device=cuda)
+    n = 4
+    if probe == "bwd":
+        got, want = probe_bwd.call(variant, q, k, v, do, n), ta.train_attention_bwd_plain(
+            q, k, v, do, n)
+    elif probe == "pack":
+        got, want = probe_pack.call(variant, q, k, v, n), probe_pack.plain(variant, q, k, v, n)
+    else:
+        bias = torch.full((1, 200), -0.25, device=cuda)
+        if probe == "pipe":
+            (_, fn, _), = probe_pipe.cases(variant)
+            drop = frozenset()
+        else:
+            drop = frozenset(variant.split(",")) - {"none"}
+            fn = lambda q, k, v, bias, n: P.probe_ablate(q, k, v, n, drop, bias)
+        got = fn(q, k, v, bias, n)
+        want = P.attn_plain(q, k, v, n, ta._scale(64, q.dtype), bias, drop)
+    torch.cuda.synchronize()
+    for a, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        w = w.float().cpu().numpy()
+        if a.dtype == torch.float32:  # the score probe: fp32 sums in another order
+            assert np.abs(a.cpu().numpy() - w).max() <= 1e-4 * np.abs(w).max()
+        else:
+            assert _agree(a.cpu(), w, False)
