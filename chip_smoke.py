@@ -2195,9 +2195,10 @@ def _ab_inputs(gen) -> dict:
     cross pass (served requests, and their beams), the outlier-q case of
     both, the self pass at 160 rows without a map, with the identity map and
     with a random one, the self + cross sub-blocks of a greedy int8 step,
-    and the training attention's forward and backward (rows 3 and 9) at the
-    three training shapes. Rings are one layer deep: a call reads one
-    layer."""
+    at offsets 224, 100 and 1, the whole layer at 224 and ``mlp_block`` of
+    its 64 rows, and the training attention's forward and backward (rows 3
+    and 9) at the three training shapes. Rings are one layer deep: a call
+    reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2227,8 +2228,14 @@ def _ab_inputs(gen) -> dict:
     for label, anc in maps.items():
         kw = {"n_head": H} if anc is None else {"n_head": H, "beam_anc": anc.cuda(), "beam_k": K}
         out[f"self bf16, {rows} rows, offset {C - 1}, {label}"] = ("self", self_args, kw)
-    out["self + cross int8, 64 rows, offset 224"] = (
-        "layer", (*layer_block_args(gen, torch.bfloat16, L=1), 224, 0), {"n_head": H})
+    layer = layer_block_args(gen, torch.bfloat16, L=1)
+    for offset in (224, 100, 1):
+        out[f"self + cross int8, 64 rows, offset {offset}"] = (
+            "layer", (*layer, offset, 0), {"n_head": H})
+    mlp = _mlp_args(gen, torch.bfloat16)
+    out["whole layer int8, 64 rows, offset 224"] = (
+        "layer", (*layer, 224, 0), {"n_head": H, "include_mlp": True, "mlp": mlp})
+    out["mlp bf16, 64 rows"] = ("mlp", (layer[0], *mlp), {})
     # rows 3 and 9 at small.en's training shapes: the encoder (the forward at
     # the inference batch of 64, the backward at the micro batch of 16), the
     # decoder's causal self-attention with suffix pads, the cross attention
@@ -2269,6 +2276,8 @@ def _ab_call(A, kind, args, kw, TA=None):
         return lambda: TA.train_attention_bwd(*args, **kw)
     if kind == "cross":
         return lambda: A.cross_block_decode(*args, **kw)
+    if kind == "mlp":
+        return lambda: A.mlp_block(*args)
     if kind == "self":
         if "beam_anc" in kw and "beam_anc" not in inspect.signature(A.self_attend_decode).parameters:
             return None
@@ -2290,7 +2299,8 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
             fail(f"imported {mod.__file__}, not the tree at {root}")
     results = {}
     for name, (kind, args, kw) in torch.load(inputs).items():
-        to = lambda a: a.cuda() if torch.is_tensor(a) else a
+        to = lambda a: a.cuda() if torch.is_tensor(a) else [to(t) for t in a] \
+            if isinstance(a, list) else a
         args, kw = [to(a) for a in args], {k: to(v) for k, v in kw.items()}
         fn = _ab_call(A, kind, args, kw, TA)
         if fn is None:
@@ -2350,12 +2360,15 @@ def kernel_ab(tree: str) -> None:
             want = plain(*map(gpu, args), **{n: gpu(x) for n, x in kw.items()})
             refs[name] = (tuple(x.cpu() for x in want) if isinstance(want, tuple)
                           else want.cpu(), None)
+        elif kind == "mlp":
+            refs[name] = (A.mlp_block_plain(*args), None)
         else:
             refs[name] = (A.layer_block_decode_plain(*args, **kw)[0], None)
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
-        cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
+        cpu = lambda a: a.cpu() if torch.is_tensor(a) else [cpu(t) for t in a] \
+            if isinstance(a, list) else a
         torch.save({k: (kind, [cpu(a) for a in args], {n: cpu(v) for n, v in kw.items()})
                     for k, (kind, args, kw) in cases.items()}, inputs)
         for label, root in (("tree", tree), ("this", here), ("this", here), ("tree", tree)):
@@ -2434,7 +2447,7 @@ def main() -> None:
     sources = {
         "cross_block_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
                                "olmoasr_tpu/ops/attention.py:986"),
-        "layer_block_decode": ("olmoasr_tpu_torch/csrc/layer_block.cu",
+        "layer_block_decode": ("olmoasr_tpu_torch/csrc/decode_layer.cu",
                                "olmoasr_tpu/ops/attention.py:1228"),
         "mlp_block": ("olmoasr_tpu_torch/csrc/linear.cu", "olmoasr_tpu/ops/attention.py:669"),
         "train_attention_fwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
@@ -2452,7 +2465,7 @@ def main() -> None:
                                   "olmoasr_tpu/ops/attention.py:322"),
         "cross_attend_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
                                 "olmoasr_tpu/ops/attention.py:725"),
-        "layer_block_decode_mlp": ("olmoasr_tpu_torch/csrc/layer_block.cu",
+        "layer_block_decode_mlp": ("olmoasr_tpu_torch/csrc/decode_layer.cu",
                                    "olmoasr_tpu/ops/attention.py:1228"),
         "flash_mha_fwd": ("olmoasr_tpu_torch/csrc/flash_attention.cu",
                           "olmoasr_tpu/ops/flash.py:72"),

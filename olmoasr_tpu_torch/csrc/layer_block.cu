@@ -8,6 +8,9 @@
 // sampling without best_of, under int8 cross K/V -- the server's default
 // ("sc"), or the whole layer under OLMOASR_LAYER_BLOCK=1.
 //
+// Only its fp32 form is built (the exact checks); the bf16 layer is
+// decode_layer.cu.
+//
 // For the B rows of the residual x (B, D) of layer weights in torch's (out,
 // in) layout, rings of this layer (B, C, D) and the int8 cross cache (B, T, D)
 // with per-position fp32 scales:
@@ -45,9 +48,7 @@
 // Its bytes are those of the split kernels: the cross read (small.en, B = 64,
 // int8: 147 MB per layer), the ring read and the 7 MB of weights (16.5 MB
 // with the MLP's). It replaces their fourteen launches (nineteen with the
-// MLP's). Measured on an H100 at that size it takes about
-// 0.26 ms a layer against 0.17 ms for the split kernels in a CUDA graph: the
-// thirteen dependent phases, not the bytes, bound it.
+// MLP's); its thirteen dependent phases, not the bytes, bound it.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -319,9 +320,7 @@ extern "C" long long olm_layer_block_scratch(int B, int D, int H, int T, int off
   using namespace olm;
   if (B <= 0 || H <= 0 || D % H != 0 || T <= 0 || offset < 0) return 0;
   Plan p;
-  if (dtype == kBF16
-          ? !fits<__nv_bfloat16>(D, H, F) || plan<__nv_bfloat16>(B, D, H, T, offset, F, &p)
-          : dtype != kF32 || !fits<float>(D, H, F) || plan<float>(B, D, H, T, offset, F, &p))
+  if (dtype != kF32 || !fits<float>(D, H, F) || plan<float>(B, D, H, T, offset, F, &p))
     return 0;
   return static_cast<long long>(p.floats);
 }
@@ -402,7 +401,6 @@ extern "C" int olm_layer_block(const void* x, const void* ln1_g, const void* ln1
     cfg.numAttrs = 1;
     return static_cast<int>(cudaLaunchKernelEx(&cfg, layer_block_kernel<Ty>, a));
   };
-  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(nullptr));
   if (dtype == kF32) return run(static_cast<float*>(nullptr));
   return cudaErrorInvalidValue;
 }

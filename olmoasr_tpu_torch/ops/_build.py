@@ -60,6 +60,15 @@ _SIGNATURES = {
     "olm_layer_block": (*(_P,) * 28, *(_I,) * 10, _F, _P),
     # B, D, H, T, offset, F, dtype -> scratch floats
     "olm_layer_block_scratch": (*(_I,) * 7,),
+    # the bf16 layer (csrc/decode_layer.cu): olm_layer_block's arguments less the dtype,
+    # then trace (phase marks, or null) before the stream
+    "olm_decode_layer": (*(_P,) * 28, *(_I,) * 9, _F, _P, _P),
+    # B, D, F -> scratch floats
+    "olm_decode_layer_scratch": (*(_I,) * 3,),
+    # cluster, out, grid (one int), stream
+    "olm_cluster_cooperative_check": (_I, _P, _P, _P),
+    # src, t, sink, smem, grid (one int), stream
+    "olm_decode_layer_step_probe": (_P, _P, _P, _I, _P, _P),
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, bias, bias_bstride, dq, dk, dv, stats, B, H, Tq, Tk, D, causal, scale,
@@ -79,7 +88,8 @@ _SIGNATURES = {
     "olm_probe_bwd": (*(_P,) * 5, _I, *(_P,) * 4, *(_I,) * 6, _F, _I, _P),
 }
 
-_RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong}  # the others return c_int
+_RESTYPES = {"olm_layer_block_scratch": ctypes.c_longlong,
+             "olm_decode_layer_scratch": ctypes.c_longlong}  # the others return c_int
 
 _lock = threading.Lock()
 _loaded: Optional[ctypes.CDLL] = None

@@ -15,12 +15,13 @@ stacked ``(L, B, C, D)`` tensors indexed by layer (int8 rings with
 
 Dispatch: a CUDA tensor launches the hand-written kernel (``csrc/linear.cu``,
 ``csrc/cross_attention.cu``, ``csrc/self_attention.cu``,
-``csrc/layer_block.cu``) or raises; a CPU tensor runs the plain PyTorch twin
-below. There is no fallback from one to the other. Each wrapper counts its
-launches in ``<function>.launches``; ``self_attend_decode.beam_launches``
-counts those with an ancestry map, ``self_attend_decode.q8_launches`` those
-over int8 rings and ``layer_block_decode.mlp_launches`` those of the whole
-layer.
+``csrc/decode_layer.cu`` for ``layer_block_decode`` in bf16,
+``csrc/layer_block.cu`` for it in fp32) or raises; a CPU tensor runs the
+plain PyTorch twin below. There is no fallback from one to the other. Each
+wrapper counts its launches in ``<function>.launches``;
+``self_attend_decode.beam_launches`` counts those with an ancestry map,
+``self_attend_decode.q8_launches`` those over int8 rings and
+``layer_block_decode.mlp_launches`` those of the whole layer.
 
 Precision contract, shared by kernel and twin: LayerNorm in fp32 (eps 1e-5),
 operands of every product rounded to the weight type, products accumulated
@@ -755,13 +756,16 @@ def layer_block_decode(
     It computes what the chain ``ln_matmul`` -> ``self_attend_decode`` ->
     ``matmul_residual`` -> ``cross_block_decode`` computes, but, as the TPU
     kernel, keeps the residual and the projections in fp32 inside the layer
-    and rounds once at the store. The kernel (``csrc/layer_block.cu``) is a
-    cooperative launch whose blocks run the split kernels' block bodies as
-    thirteen phases with grid-wide barriers between them (eighteen with the
-    MLP: its LayerNorm, W1 with the GELU, W2 with bias and residual, each the
-    block bodies ``mlp_block`` launches): one launch where the chain takes
-    fourteen (nineteen), but on the card slower than the chain in a CUDA
-    graph, bound by its dependent phases rather than its bytes.
+    and rounds once at the store. bf16 (``olm_decode_layer``,
+    ``csrc/decode_layer.cu``): one cooperative launch (clusters of 4 blocks)
+    of six phases and five grid-wide barriers (eight and seven with the MLP):
+    each projection takes its LayerNorm as a prologue and splits K over a
+    cluster, whose blocks add their partial tiles through distributed shared
+    memory; each attention phase gives a block one (row, head) and streams
+    all its keys through a cp.async ring that starts filling before the
+    barrier that publishes q. fp32 (``csrc/layer_block.cu``): the split kernels' block
+    bodies as thirteen phases (eighteen with the MLP), for the exact checks.
+    Head widths 32, 64 and 128 in bf16; D up to 1280.
     """
     what = "layer_block_decode"
     _require(include_mlp == (mlp is not None), what,
@@ -817,22 +821,32 @@ def layer_block_decode(
                  and t.device == x.device, what,
                  f"{name} must be contiguous fp32 with B*T elements on {x.device}")
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
-    code = _build.dtype_code(x.dtype)
-    floats = lib.olm_layer_block_scratch(B, D, n_head, T, offset, Fd, code)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _require(D // n_head in (32, 64, 128) and D <= 1280, what,
+                 f"the bf16 kernel takes head widths 32, 64, 128 and D up to 1280, "
+                 f"got {D // n_head} and {D}")
+        floats = lib.olm_decode_layer_scratch(B, D, Fd)
+    else:
+        floats = lib.olm_layer_block_scratch(B, D, n_head, T, offset, Fd, _build.F32)
     _require(floats > 0, what, f"no launch plan for B={B} D={D} heads={n_head} T={T}")
     scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     kv_new = torch.empty((2, B, 1, D), dtype=x.dtype, device=x.device)
-    _build.check(lib.olm_layer_block(
+    ptrs = (
         x.data_ptr(), attn_ln_g.data_ptr(), attn_ln_b.data_ptr(), w_qkv.data_ptr(),
         b_qkv.data_ptr(), attn_o_w.data_ptr(), attn_o_b.data_ptr(), cross_ln_g.data_ptr(),
         cross_ln_b.data_ptr(), cross_q_w.data_ptr(), cross_q_b.data_ptr(), cross_o_w.data_ptr(),
         cross_o_b.data_ptr(), *((t.data_ptr() for t in mlp) if include_mlp else (None,) * 6),
         k_ring.data_ptr(), v_ring.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         ck_scale.data_ptr(), cv_scale.data_ptr(), out.data_ptr(), kv_new.data_ptr(),
-        scratch.data_ptr(), L, layer_idx, B, C, offset, D, n_head, T, Fd, code,
-        _q_scale(D // n_head), stream,
-    ), what)
+        scratch.data_ptr(), L, layer_idx, B, C, offset, D, n_head, T, Fd,
+    )
+    if bf16:  # no trace buffer: perf/probe_decode_layer.py passes one
+        err = lib.olm_decode_layer(*ptrs, _q_scale(D // n_head), None, stream)
+    else:
+        err = lib.olm_layer_block(*ptrs, _build.F32, _q_scale(D // n_head), stream)
+    _build.check(err, what)
     layer_block_decode.launches += 1
     layer_block_decode.mlp_launches += include_mlp
     return out, kv_new
