@@ -18,7 +18,11 @@ printed line each (or a few):
    ``cross_attend_decode`` (the attention kernels beside
    ``scaled_dot_product_attention``) included, the int8 q.K cases also on inputs where the int8 and the exact
    q.K products land far apart, so that a kernel computing the wrong one
-   fails; then the probes of the training attention
+   fails; ``mlp_block`` and ``matmul_residual`` in bf16 at the decode
+   paths' rows (64 greedy, 160 beam, 80 long-form, 5), each beside
+   cuBLAS's products alone (``F.linear``) as a yardstick the port never
+   calls, and whether ``mlp_block``'s graph keeps its launches'
+   programmatic dependence; then the probes of the training attention
    (``olmoasr_tpu_torch.perf.probe_pack``, ``probe_pipe``, ``probe_bwd``:
    every variant once at medium.en's training shape, few replays, each that
    computes attention held against the twin);
@@ -87,7 +91,9 @@ checkout (for example the parent commit, unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) with this one's on chosen cases (the
 decode kernels, and the training attention's forward and backward at the
 training shapes), in the order TREE, this, this, TREE, each in its own
-process on the same inputs; see :func:`kernel_ab`.
+process on the same inputs, then two profiled greedy steps (over an int8
+cross cache, and along ``route="split"`` over a bf16 one) in four
+processes a tree, alternating; see :func:`kernel_ab`.
 
 The next-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -119,13 +125,17 @@ except ImportError as exc:  # pragma: no cover - depends on the machine
     fail(f"needs numpy and torch: {exc}")
 
 RUNS = 11  # timed runs per measurement (odd: the median is one run)
+SPIN_CYCLES = 200_000  # about 0.1 ms of the card's clock: longer than the host takes to queue a replay
 
 
-def timed_ms(fn) -> float:
+def timed_ms(fn, spin: bool = False) -> float:
     """Median device time of one call of ``fn`` in ms over RUNS runs: the call
     is captured once in a CUDA graph and the replays are timed with CUDA
     events, so the host's launch cost (which bounds an eager call at these
-    sizes) stays out of the kernel's time."""
+    sizes) stays out of the kernel's time. The time still holds the host's
+    submission of the replay (4-12 us at decode sizes). ``spin``: each
+    replay is queued behind a spin on the card (``torch.cuda._sleep``), which
+    leaves that out too; ``--ab`` reports both."""
     fn()  # warm-up: builds, caches, one-time attributes
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -136,6 +146,8 @@ def timed_ms(fn) -> float:
     for _ in range(RUNS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         graph.replay()
         end.record()
@@ -190,25 +202,53 @@ def _weights(gen, *shape, fan_in, dtype):
     return (torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5).to("cuda", dtype)
 
 
-def check_mlp(gen) -> list:
-    from olmoasr_tpu_torch.ops.attention import mlp_block, mlp_block_plain
+# the decode paths' rows for the skinny projections (rows 2 and 6): greedy
+# (64 windows), best_of on the long-form slice (16 files x 5), beam search
+# (32 windows x 5), and a count that is no multiple of 16
+PROJ_ROWS = (64, 160, 80, 5)
 
-    B, D, Fd = 64, 768, 3072
+
+def _cublas_ms(*products) -> float:
+    """The yardstick beside rows 2 and 6: cuBLAS's products alone
+    (``F.linear(a, w, b)`` for each (a, w, b), one after the other), which
+    the port never calls: they leave out the LayerNorm, the GELU and the
+    residual."""
+    import torch.nn.functional as F
+
+    return timed_ms(lambda: [F.linear(a, w, b) for a, w, b in products])
+
+
+def check_mlp(gen) -> list:
+    from olmoasr_tpu_torch.ops.attention import _ln_f32, mlp_block, mlp_block_plain
+
+    D, Fd = 768, 3072
     cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        args = (
-            torch.randn(B, 1, D, generator=gen).to("cuda", dtype),
-            (1 + 0.1 * torch.randn(D, generator=gen)).to("cuda", dtype),
-            (0.1 * torch.randn(D, generator=gen)).to("cuda", dtype),
-            _weights(gen, Fd, D, fan_in=D, dtype=dtype),
-            (0.02 * torch.randn(Fd, generator=gen)).to("cuda", dtype),
-            _weights(gen, D, Fd, fan_in=Fd, dtype=dtype),
-            (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype),
-        )
-        got, want = mlp_block(*args), mlp_block_plain(*args)
-        cases.append(_case("mlp_block", dtype, got, want,
-                           lambda: mlp_block(*args), lambda: mlp_block_plain(*args),
-                           (nbytes(*args, got), 4 * B * D * Fd, dtype)))
+    for dtype, rows in ((torch.bfloat16, PROJ_ROWS), (torch.float32, (64,))):
+        ln = ((1 + 0.1 * torch.randn(D, generator=gen)).to("cuda", dtype),
+              (0.1 * torch.randn(D, generator=gen)).to("cuda", dtype))
+        w = (_weights(gen, Fd, D, fan_in=D, dtype=dtype),
+             (0.02 * torch.randn(Fd, generator=gen)).to("cuda", dtype),
+             _weights(gen, D, Fd, fan_in=Fd, dtype=dtype),
+             (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype))
+        for B in rows:
+            args = (torch.randn(B, 1, D, generator=gen).to("cuda", dtype), *ln, *w)
+            got, want = mlp_block(*args), mlp_block_plain(*args)
+            h = _ln_f32(args[0], *ln).to(dtype)[:, 0]
+            u = want.new_empty(B, Fd)
+            cases.append(_case("mlp_block", (dtype, f"B={B}"), got, want,
+                               lambda: mlp_block(*args), lambda: mlp_block_plain(*args),
+                               (nbytes(*args, got), 4 * B * D * Fd, dtype),
+                               yardstick=lambda: _cublas_ms((h, w[0], w[1]), (u, w[2], w[3]))))
+            if dtype == torch.bfloat16 and B == rows[0]:
+                # the times above count the launches' programmatic dependence
+                # only if graph capture keeps it
+                from olmoasr_tpu_torch.perf.probe_proj import programmatic_edges
+
+                edges = cases[0]["programmatic_edges"] = programmatic_edges(lambda: mlp_block(*args))
+                print(f"  mlp_block: its graph keeps {edges} programmatic-dependency edges "
+                      f"(2: W1 on the LayerNorm, W2 on W1)")
+                if edges != 2:
+                    fail(f"mlp_block: graph capture kept {edges} programmatic edges, not 2")
     return cases
 
 
@@ -777,12 +817,18 @@ def check_self_sub_block(gen) -> dict:
         del rings
         wo, bo = _weights(gen, D, D, fan_in=D, dtype=dtype), \
             (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype)
-        mr = (attn, x, wo, bo)
-        out = matmul_residual(*mr)
-        cases["matmul_residual"].append(_case(
-            "matmul_residual", (dtype, f"B={B} D={D}"), out,
-            matmul_residual_plain(*mr), lambda: matmul_residual(*mr),
-            lambda: matmul_residual_plain(*mr), (nbytes(*mr, out), 2 * B * D * D, dtype)))
+        # the attention output of the ring above at the greedy rows, then
+        # seeded rows at the other decode paths' counts (bf16)
+        for rows in (PROJ_ROWS if dtype == torch.bfloat16 else (B,)):
+            a = attn if rows == B else torch.randn(rows, 1, D, generator=gen).to("cuda", dtype)
+            xr = x if rows == B else torch.randn(rows, 1, D, generator=gen).to("cuda", dtype)
+            mr = (a, xr, wo, bo)
+            out = matmul_residual(*mr)
+            cases["matmul_residual"].append(_case(
+                "matmul_residual", (dtype, f"B={rows} D={D}"), out,
+                matmul_residual_plain(*mr), lambda: matmul_residual(*mr),
+                lambda: matmul_residual_plain(*mr), (nbytes(*mr, out), 2 * rows * D * D, dtype),
+                yardstick=lambda: _cublas_ms((a[:, 0], wo, bo))))
     return cases
 
 
@@ -870,11 +916,14 @@ def _agrees(got, want, tol, flips: bool) -> bool:
     return bool(err.max() <= tol) and float((err > FLIP_TOL * scale).float().mean()) <= FLIP_SHARE
 
 
-def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False) -> dict:
+def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False,
+          yardstick=None) -> dict:
     """The kernel's output(s) against the twin's, and both timed. ``got`` and
     ``want`` may be tuples (each part held to its own tolerance);
     ``bound_of`` is (bytes, operations, dtype) of the call; ``flips`` allows
-    FLIP_SHARE of the elements past FLIP_TOL (see there)."""
+    FLIP_SHARE of the elements past FLIP_TOL (see there); ``yardstick``
+    returns the ms of library calls printed beside the kernel's as
+    ``cublas_ms`` (a yardstick the port never calls, not ``library_ms``)."""
     torch.cuda.synchronize()
     parts = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     fp32 = parts[0][0].dtype == torch.float32
@@ -889,9 +938,13 @@ def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False
     out = {"what": str(what), "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
     if bound_of is not None:
         out["bound_ms"], out["bound_by"] = bound(*bound_of)
+    if yardstick is not None:
+        out["cublas_ms"] = yardstick()
     print(f"  {name} {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-          + (f" bound {out['bound_ms']:.4f} ms ({out['bound_by']})" if bound_of else ""))
+          + (f" bound {out['bound_ms']:.4f} ms ({out['bound_by']})" if bound_of else "")
+          + (f" [yardstick: cuBLAS's products alone {out['cublas_ms']:.4f} ms]"
+             if yardstick is not None else ""))
     if not ok:
         fail(f"{name} {what}: kernel disagrees with its plain twin "
              f"(max_abs_err {errs}, tol {tols})")
@@ -2195,10 +2248,11 @@ def _ab_inputs(gen) -> dict:
     cross pass (served requests, and their beams), the outlier-q case of
     both, the self pass at 160 rows without a map, with the identity map and
     with a random one, the self + cross sub-blocks of a greedy int8 step,
-    at offsets 224, 100 and 1, the whole layer at 224 and ``mlp_block`` of
-    its 64 rows, and the training attention's forward and backward (rows 3
-    and 9) at the three training shapes. Rings are one layer deep: a call
-    reads one layer."""
+    at offsets 224, 100 and 1, the whole layer at 224, ``mlp_block`` of its
+    64 rows and at 160, ``matmul_residual`` at 64 and 160 rows, ``ln_matmul``
+    at 64, ``cross_attend_decode`` over 64 windows' bf16 cross cache, and the
+    training attention's forward and backward (rows 3 and 9) at the three
+    training shapes. Rings are one layer deep: a call reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2236,6 +2290,20 @@ def _ab_inputs(gen) -> dict:
     out["whole layer int8, 64 rows, offset 224"] = (
         "layer", (*layer, 224, 0), {"n_head": H, "include_mlp": True, "mlp": mlp})
     out["mlp bf16, 64 rows"] = ("mlp", (layer[0], *mlp), {})
+    # rows 2 and 6 at the beam's 160 rows too; row 6 beside its greedy 64
+    rows_bf = lambda n: torch.randn(n, 1, D, generator=gen).to("cuda", torch.bfloat16)
+    out["mlp bf16, 160 rows"] = ("mlp", (rows_bf(160), *mlp), {})
+    wo = _weights(gen, D, D, fan_in=D, dtype=torch.bfloat16)
+    bo = (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16)
+    for n in (64, 160):
+        out[f"matmul_residual bf16, {n} rows"] = ("mr", (rows_bf(n), rows_bf(n), wo, bo), {})
+    # rows 5 and 8, which this tree's projections leave alone
+    wqkv = _weights(gen, 3 * D, D, fan_in=D, dtype=torch.bfloat16)
+    bqkv = (0.02 * torch.randn(3 * D, generator=gen)).to("cuda", torch.bfloat16)
+    out["ln_matmul bf16, 64 rows"] = ("lnmm", (rows_bf(64), *mlp[:2], wqkv, bqkv), {})
+    kv = [torch.randn(64, T, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(2)]
+    out[f"cross_attend_decode bf16, 64 rows, T={T}"] = ("xattn", (rows_bf(64), *kv),
+                                                         {"n_head": H})
     # rows 3 and 9 at small.en's training shapes: the encoder (the forward at
     # the inference batch of 64, the backward at the micro batch of 16), the
     # decoder's causal self-attention with suffix pads, the cross attention
@@ -2278,6 +2346,12 @@ def _ab_call(A, kind, args, kw, TA=None):
         return lambda: A.cross_block_decode(*args, **kw)
     if kind == "mlp":
         return lambda: A.mlp_block(*args)
+    if kind == "mr":
+        return lambda: A.matmul_residual(*args)
+    if kind == "lnmm":
+        return lambda: A.ln_matmul(*args)
+    if kind == "xattn":
+        return lambda: A.cross_attend_decode(*args, **kw)
     if kind == "self":
         if "beam_anc" in kw and "beam_anc" not in inspect.signature(A.self_attend_decode).parameters:
             return None
@@ -2287,9 +2361,9 @@ def _ab_call(A, kind, args, kw, TA=None):
     return lambda: _chain(args[:-2], args[-2], args[-1], kw["n_head"])
 
 
-def kernel_cases(root: str, inputs: str, out: str) -> None:
-    """``--kernel-cases ROOT INPUTS OUT``: the kernels of the checkout at
-    ROOT on the saved inputs; outputs and device times saved to OUT."""
+def _import_tree(root: str) -> None:
+    """Put the checkout at ROOT first on the path, and make sure its package
+    is the one imported."""
     sys.path.insert(0, os.path.abspath(root))
     from olmoasr_tpu_torch.ops import attention as A
     from olmoasr_tpu_torch.ops import train_attention as TA
@@ -2297,6 +2371,16 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
     for mod in (A, TA):
         if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root)):
             fail(f"imported {mod.__file__}, not the tree at {root}")
+
+
+def kernel_cases(root: str, inputs: str, out: str) -> None:
+    """``--kernel-cases ROOT INPUTS OUT``: the kernels of the checkout at
+    ROOT on the saved inputs; outputs and device times (``timed_ms``, and
+    with each replay queued behind a spin) saved to OUT."""
+    _import_tree(root)
+    from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import train_attention as TA
+
     results = {}
     for name, (kind, args, kw) in torch.load(inputs).items():
         to = lambda a: a.cuda() if torch.is_tensor(a) else [to(t) for t in a] \
@@ -2308,27 +2392,54 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
             continue
         got = fn()
         got = tuple(x.cpu() for x in got) if isinstance(got, tuple) else got.cpu()
-        results[name] = {"out": got, "ms": timed_ms(fn)}
+        results[name] = {"out": got, "ms": timed_ms(fn), "ms_spin": timed_ms(fn, spin=True)}
         del args, kw, fn
         torch.cuda.empty_cache()
-    results[GREEDY_INT8_STEP] = _greedy_int8_step()
     torch.save(results, out)
 
 
-GREEDY_INT8_STEP = "greedy int8 step, 64 rows"
+GREEDY_STEPS = ("greedy int8 step, 64 rows", "greedy bf16 step, route split, 64 rows")
+# the processes of the greedy steps under --ab: the host clock moves between
+# processes, so each tree gets four, alternating
+STEP_ORDER = ("tree", "this", "this", "tree") * 2
 
 
-def _greedy_int8_step() -> dict:
-    """One greedy step of small.en over 64 windows' int8 cross cache, host
-    clock against kernel time (the served path, end to end of the step)."""
+def greedy_steps(root: str, out: str) -> None:
+    """``--greedy-steps ROOT OUT``: :func:`_greedy_steps` through the
+    checkout at ROOT, saved to OUT."""
+    _import_tree(root)
+    torch.save(_greedy_steps(), out)
+
+
+def _greedy_steps() -> dict:
+    """Two greedy steps of small.en over 64 windows, host clock against
+    kernel time: over an int8 cross cache (the served path, end to end of
+    the step) and along ``route="split"`` over a bf16 cross cache, whose
+    layers run rows 5, 4, 6, 1 and 2 once each."""
     from olmoasr_tpu_torch import build_model
+    from olmoasr_tpu_torch import decoding as dec
     from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
     from olmoasr_tpu_torch.decoding import DecodingOptions
+    from olmoasr_tpu_torch.models.whisper import encode_audio
 
     model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
     audio = np.random.default_rng(0).standard_normal((64, N_SAMPLES)).astype(np.float32) * 0.1
     mel = log_mel_spectrogram(torch.from_numpy(audio).cuda())
-    return _profile_greedy_step(model, mel, DecodingOptions(language="en", kv_quant=True))
+    options = DecodingOptions(language="en")
+    prompt = dec._resolve_prompt(dec.get_tokenizer(multilingual=False), options)
+    return {GREEDY_STEPS[0]: _profile_greedy_step(model, mel, DecodingOptions(language="en",
+                                                                             kv_quant=True)),
+            GREEDY_STEPS[1]: _profile_route_step(model, encode_audio(model, mel), prompt, "split",
+                                                 64)}
+
+
+def _verdict(rows, key: str) -> tuple:
+    """("faster", "slower" or "within", this checkout's median over the
+    tree's) for this checkout's runs against the tree's on ``key``."""
+    this = [r[key] for r in rows if r["tree"] == "this"]
+    tree = [r[key] for r in rows if r["tree"] == "tree"]
+    word = "faster" if max(this) < min(tree) else "slower" if min(this) > max(tree) else "within"
+    return word, statistics.median(this) / statistics.median(tree)
 
 
 def kernel_ab(tree: str) -> None:
@@ -2337,7 +2448,12 @@ def kernel_ab(tree: str) -> None:
     each run in its own process on the same saved inputs; each output held to
     this checkout's twins (the int8 cross cases also to the exact-q twin; the
     attention backward's dq, dk and dv each to two bf16 steps of its own).
-    Each process also profiles one greedy step over an int8 cross cache.
+    Each case's time is taken twice, by ``timed_ms`` and with each replay
+    queued behind a spin, and judged under each: "faster" where both runs
+    of this checkout are below both of TREE, "slower" where both are above,
+    else "within". Then the two greedy steps of :func:`_greedy_steps`, in
+    processes of their own in the order STEP_ORDER: each tree's host ms,
+    kernel ms and device launches, their medians and spread.
     Fails if this checkout's kernels leave the tolerance."""
     from olmoasr_tpu_torch.ops import attention as A
     from olmoasr_tpu_torch.ops import train_attention as TA
@@ -2362,6 +2478,12 @@ def kernel_ab(tree: str) -> None:
                           else want.cpu(), None)
         elif kind == "mlp":
             refs[name] = (A.mlp_block_plain(*args), None)
+        elif kind == "mr":
+            refs[name] = (A.matmul_residual_plain(*args), None)
+        elif kind == "lnmm":
+            refs[name] = (A.ln_matmul_plain(*args), None)
+        elif kind == "xattn":
+            refs[name] = (A.cross_attend_decode_plain(*args, **kw), None)
         else:
             refs[name] = (A.layer_block_decode_plain(*args, **kw)[0], None)
     runs = []
@@ -2391,8 +2513,10 @@ def kernel_ab(tree: str) -> None:
             errs = [max_err(g, w) for g, w in zip(got, parts)]  # each to its own tolerance
             ok = all(e <= bf16_tol(w) for e, w in zip(errs, parts))
             err = max(errs)
-            row = {"tree": label, "ms": r["ms"], "max_abs_err": err, "tol": tol}
-            line = f"  {name} [{label}]: {r['ms']:.4f} ms, max_abs_err {err:.3e} (tol {tol:.3e})"
+            row = {"tree": label, "ms": r["ms"], "ms_spin": r["ms_spin"], "max_abs_err": err,
+                   "tol": tol}
+            line = (f"  {name} [{label}]: {r['ms']:.4f} ms ({r['ms_spin']:.4f} behind a spin), "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e})")
             if exact is not None:
                 row["exact_q_err"] = max_err(r["out"], exact.cpu())
                 line += f", against the exact-q twin {row['exact_q_err']:.3e}"
@@ -2400,12 +2524,30 @@ def kernel_ab(tree: str) -> None:
             report[name].append(row)
             if label == "this" and not ok:
                 bad.append(f"{name}: {errs} against two bf16 steps of each output")
-    report[GREEDY_INT8_STEP] = []
-    for label, results in runs:
-        r = results[GREEDY_INT8_STEP]
-        print(f"  {GREEDY_INT8_STEP} [{label}]: host {r['host_ms']:.3f} ms, kernels "
-              f"{r['kernel_ms'] or float('nan'):.3f} ms, {r['device_launches']:.1f} device launches")
-        report[GREEDY_INT8_STEP].append({"tree": label, **r})
+        if all(report[name]):
+            verdicts = {key: _verdict(report[name], key) for key in ("ms", "ms_spin")}
+            print("  " + name + ": this checkout " + "; behind a spin: ".join(
+                f"{word} (median {ratio:.3f} of the tree's)" for word, ratio in verdicts.values()))
+            report[name].append({"verdict": verdicts})
+    steps = {step: {"tree": [], "this": []} for step in GREEDY_STEPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, label in enumerate(STEP_ORDER):
+            out = os.path.join(tmp, f"steps{i}.pt")
+            _run([sys.executable, os.path.abspath(__file__), "--greedy-steps",
+                  tree if label == "tree" else here, out], 600)
+            for step, r in torch.load(out).items():
+                steps[step][label].append(r)
+    for step in GREEDY_STEPS:
+        report[step] = {}
+        for label in ("tree", "this"):
+            runs_of = steps[step][label]
+            stats = {key: sorted(r[key] or float("nan") for r in runs_of)
+                     for key in ("host_ms", "kernel_ms", "device_launches")}
+            report[step][label] = {key: {"runs": v, "median": statistics.median(v)}
+                                   for key, v in stats.items()}
+            print(f"  {step} [{label}, {len(runs_of)} processes]: " + ", ".join(
+                f"{key} median {statistics.median(v):.3f} ({v[0]:.3f}-{v[-1]:.3f})"
+                for key, v in stats.items()))
     print(json.dumps({"ab": report}))
     if bad:
         fail("this checkout's kernels left the tolerance: " + "; ".join(bad))
@@ -2449,11 +2591,11 @@ def main() -> None:
                                "olmoasr_tpu/ops/attention.py:986"),
         "layer_block_decode": ("olmoasr_tpu_torch/csrc/decode_layer.cu",
                                "olmoasr_tpu/ops/attention.py:1228"),
-        "mlp_block": ("olmoasr_tpu_torch/csrc/linear.cu", "olmoasr_tpu/ops/attention.py:669"),
+        "mlp_block": ("olmoasr_tpu_torch/csrc/skinny_proj.cu", "olmoasr_tpu/ops/attention.py:669"),
         "train_attention_fwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
                                 "olmoasr_tpu/ops/train_attention.py:222"),
         "ln_matmul": ("olmoasr_tpu_torch/csrc/linear.cu", "olmoasr_tpu/ops/attention.py:354"),
-        "matmul_residual": ("olmoasr_tpu_torch/csrc/linear.cu",
+        "matmul_residual": ("olmoasr_tpu_torch/csrc/skinny_proj.cu",
                             "olmoasr_tpu/ops/attention.py:412"),
         "self_attend_decode": ("olmoasr_tpu_torch/csrc/self_attention.cu",
                                "olmoasr_tpu/ops/attention.py:495"),
@@ -2522,6 +2664,8 @@ if __name__ == "__main__":
             kernel_ab(sys.argv[2])
         elif sys.argv[1] == "--kernel-cases" and len(sys.argv) == 5:
             kernel_cases(*sys.argv[2:])
+        elif sys.argv[1] == "--greedy-steps" and len(sys.argv) == 4:
+            greedy_steps(*sys.argv[2:])
         else:
             fail(f"usage: {sys.argv[0]} [--ab TREE]")
     else:

@@ -2,14 +2,14 @@
 // row LayerNorm that feeds it.
 //
 // Used by four ported TPU kernels (olmoasr_tpu/ops/attention.py):
-//   * mlp_block (_mlp_kernel): LN, then W1 + b1 + exact GELU, then W2 + b2 +
-//     residual;
 //   * cross_block_decode (_cross_block_kernel): LN, then the q projection,
 //     and the output projection + bias + residual;
 //   * ln_matmul (_ln_matmul_kernel): LN, then the fused QKV projection with
 //     N = 3D;
-//   * matmul_residual (_matmul_residual_kernel): the self-attention output
-//     projection + bias + residual.
+//   * in fp32 only (the checks; skinny_proj.cu takes their bf16 path):
+//     mlp_block (_mlp_kernel): LN, then W1 + b1 + exact GELU, then W2 + b2 +
+//     residual; matmul_residual (_matmul_residual_kernel): the
+//     self-attention output projection + bias + residual.
 //
 // Shapes on the decode path: A is (B, K) with B = batch rows (64 at the
 // slice's size), W is (N, K) in torch's (out, in) layout. At B = 64 the

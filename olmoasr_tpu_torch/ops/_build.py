@@ -41,6 +41,16 @@ _SIGNATURES = {
     "olm_linear": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, g, b, out, M, K, eps, dtype, stream
     "olm_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # the bf16 skinny projection (csrc/skinny_proj.cu): a, w, bias, resid, out, M, N, K,
+    # gelu, stream
+    "olm_proj": (*(_P,) * 5, *(_I,) * 4, _P),
+    # the same for perf/probe_proj.py: ..., gelu, cs, rg, pdl, trace, stream
+    "olm_proj_probe": (*(_P,) * 5, *(_I,) * 7, _P, _P),
+    # x, g, b, h, M, K, stream
+    "olm_proj_layer_norm": (*(_P,) * 4, _I, _I, _P),
+    "olm_proj_marks": (),
+    # a captured cudaGraph_t -> its programmatic-dependency edges
+    "olm_graph_programmatic_edges": (_P,),
     # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_group,
     # kv_dtype, out_dtype, qscale, stream
     "olm_cross_attention": (

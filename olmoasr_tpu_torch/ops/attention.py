@@ -14,6 +14,7 @@ stacked ``(L, B, C, D)`` tensors indexed by layer (int8 rings with
 ``(L, B, 1, C)`` fp32 per-position scales).
 
 Dispatch: a CUDA tensor launches the hand-written kernel (``csrc/linear.cu``,
+``csrc/skinny_proj.cu`` for ``matmul_residual`` and ``mlp_block`` in bf16,
 ``csrc/cross_attention.cu``, ``csrc/self_attention.cu``,
 ``csrc/decode_layer.cu`` for ``layer_block_decode`` in bf16,
 ``csrc/layer_block.cu`` for it in fp32) or raises; a CPU tensor runs the
@@ -104,6 +105,43 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _proj_plain(a, w, bias, resid=None, gelu=False) -> torch.Tensor:
+    """What ``_proj`` computes: epilogue(a @ w.T)."""
+    v = _linear_f32(a, w, bias)
+    if gelu:
+        v = F.gelu(v)
+    if resid is not None:
+        v = resid.float() + v
+    return v.to(a.dtype)
+
+
+def _proj(lib, stream, a, w, bias, out=None, resid=None, gelu=False):
+    """Launch the bf16 skinny projection (csrc/skinny_proj.cu) on (M, K) rows:
+    ``out = round(epilogue(a @ w.T))`` in one launch: + bias, GELU if
+    ``gelu``, then resid + that; programmatically dependent on the launch
+    before it (its weight streams while that one drains). The callers have
+    checked the operands."""
+    M, K = a.shape
+    N = w.shape[0]
+    if out is None:
+        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    _build.check(lib.olm_proj(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        None if resid is None else resid.data_ptr(), out.data_ptr(), M, N, K, int(gelu), stream,
+    ), "skinny projection")
+    return out
+
+
+def _proj_layer_norm(lib, stream, x, g, b) -> torch.Tensor:
+    """Launch the bf16 row LayerNorm of csrc/skinny_proj.cu: (rows, D)."""
+    D = x.shape[-1]
+    h = torch.empty((x.numel() // D, D), dtype=x.dtype, device=x.device)
+    _build.check(lib.olm_proj_layer_norm(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), h.data_ptr(), h.shape[0], D, stream,
+    ), "layer norm")
+    return h
+
+
 # ---------------------------------------------------------------------------
 # mlp_block
 # ---------------------------------------------------------------------------
@@ -131,10 +169,13 @@ def mlp_block(
     its ``_erf_poly`` was a Mosaic work-around, the kernel uses ``erff``).
     Bound on the card: the weight read, 2*D*F elements per layer (small.en
     bf16: 9.4 MB) against 4*B*D*F FLOPs -- at B=64 far below the tensor
-    cores' rate. The kernel (``csrc/linear.cu``) is a LayerNorm launch, then
-    the skinny linear twice (GELU epilogue, then bias + residual epilogue):
-    each streams its weight once per 32-column tile with every batch row in
-    the tile, K split across blocks so that every SM has work.
+    cores' rate, so latency bounds it. In bf16 it is three launches of
+    ``csrc/skinny_proj.cu``: the LayerNorm, W1 with a bias + GELU epilogue
+    into bf16 u, then W2 with a bias + residual epilogue; each block of a
+    product streams its slice of the weight once for up to 160 rows, K split
+    over a thread-block cluster whose partials meet in shared memory, and
+    starts streaming while the launch before it drains. In fp32 (the checks) it is
+    ``csrc/linear.cu``: a LayerNorm launch, then the split-K linear twice.
     """
     if not x.is_cuda:
         return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2)
@@ -150,11 +191,16 @@ def mlp_block(
     _check_operands(what, x.dtype, x.device, x=x, ln_g=ln_g, ln_b=ln_b, w1=w1, b1=b1,
                     w2=w2, b2=b2)
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
-    h = _layer_norm(lib, stream, x, ln_g, ln_b)
-    u = torch.empty((h.shape[0], Fd), dtype=x.dtype, device=x.device)
-    _linear(lib, stream, h, w1, b1, u, gelu=True)
     out = torch.empty_like(x)
-    _linear(lib, stream, u, w2, b2, out.view(-1, D), resid=x.view(-1, D))
+    if x.dtype == torch.bfloat16:
+        _require(D <= 1280, what, f"the bf16 LayerNorm takes D up to 1280, not {D}")
+        u = _proj(lib, stream, _proj_layer_norm(lib, stream, x, ln_g, ln_b), w1, b1, gelu=True)
+        _proj(lib, stream, u, w2, b2, out.view(-1, D), resid=x.view(-1, D))
+    else:
+        h = _layer_norm(lib, stream, x, ln_g, ln_b)
+        u = torch.empty((h.shape[0], Fd), dtype=x.dtype, device=x.device)
+        _linear(lib, stream, h, w1, b1, u, gelu=True)
+        _linear(lib, stream, u, w2, b2, out.view(-1, D), resid=x.view(-1, D))
     mlp_block.launches += 1
     return out
 
@@ -229,8 +275,9 @@ def matmul_residual(
 
     Replaces ``olmoasr_tpu/ops/attention.py::matmul_residual``
     (``_matmul_residual_kernel``). Bound on the card: the weight read, D*D
-    elements per layer (small.en bf16: 1.2 MB). The kernel is
-    ``csrc/linear.cu``'s skinny linear with the bias-and-residual epilogue.
+    elements per layer (small.en bf16: 1.2 MB), so latency. In bf16 the
+    kernel is one launch of ``csrc/skinny_proj.cu`` with the bias-and-residual
+    epilogue; in fp32 (the checks) ``csrc/linear.cu``'s split-K linear.
     """
     if not x.is_cuda:
         return matmul_residual_plain(attn, x, w, b)
@@ -241,7 +288,8 @@ def matmul_residual(
     _check_operands(what, x.dtype, x.device, attn=attn, x=x, w=w, b=b)
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     out = torch.empty_like(x)
-    _linear(lib, stream, attn.view(-1, D), w, b, out.view(-1, D), resid=x.view(-1, D))
+    launch = _proj if x.dtype == torch.bfloat16 else _linear
+    launch(lib, stream, attn.view(-1, D), w, b, out.view(-1, D), resid=x.view(-1, D))
     matmul_residual.launches += 1
     return out
 

@@ -10,7 +10,7 @@ at the output's largest magnitude (the JAX kernel rounds the softmax weights
 to bf16 for the value product, the twin keeps them fp32).
 
 GPU (``pytest.mark.gpu``, skipped without a card): the bf16 layer kernel of
-``csrc/decode_layer.cu`` and ``mlp_block`` (``csrc/linear.cu``) against the
+``csrc/decode_layer.cu`` and ``mlp_block`` (``csrc/skinny_proj.cu``) against the
 twins at small.en widths over ragged rows, ring depths and cross lengths; a
 case where the int8 and the exact q.K products land far apart, reached
 through the cross q projection; two launches bit-equal. Run on the card with

@@ -11,8 +11,14 @@ land far apart (``_outlier_q_case``); the int8 self rings the same way
 (``_outlier_self_case``).
 
 On the CPU each wrapper runs its plain PyTorch twin, so these tests pin the
-twins' semantics to the TPU kernels. Tests marked ``gpu`` hold the CUDA
-kernels against the same twins; they skip where torch has no CUDA device.
+twins' semantics to the TPU kernels; ``mlp_block`` and ``matmul_residual``
+also at the beam's 160 rows and at 5, in fp32 and bf16. Tests marked
+``gpu`` hold the CUDA kernels against the same twins; they skip where torch
+has no CUDA device. The bf16 skinny projection (``csrc/skinny_proj.cu``,
+rows 2 and 6) is held there at every decode path's rows (1, 5, 64, 80,
+160, and 200 for a second pass over W), K of 768 and 3072, with and without
+GELU and residual, two calls bit-equal, its programmatically dependent
+launches bit-equal to serial ones.
 JAX is imported inside the fixture that needs it, so that the ``gpu`` tests
 also run where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_ops.py``.
@@ -32,7 +38,8 @@ import numpy as np
 import pytest
 import torch
 
-from olmoasr_tpu_torch.ops import attention, train_attention
+from olmoasr_tpu_torch.ops import _build, attention, train_attention
+from olmoasr_tpu_torch.perf import probe_proj
 
 ATOL = 2e-4
 ATTN_ATOL = 5e-4
@@ -551,6 +558,72 @@ def test_mlp_block_matches_jax_kernel(jx):
     assert attention.mlp_block.launches == before
 
 
+def _as(act, a):
+    """numpy fp32 -> (jax array, torch tensor) holding the same values in the
+    activation type."""
+    import jax.numpy as jnp
+
+    t = _t(a) if act == "fp32" else _t(a).to(torch.bfloat16)
+    return jnp.asarray(t.float().numpy()).astype(jnp.float32 if act == "fp32" else jnp.bfloat16), t
+
+
+def _close_act(got, want, act):
+    want = np.asarray(want, np.float32)
+    atol = ATOL if act == "fp32" else 2.0 ** -6 * float(np.abs(want).max())
+    _close(got, want, atol)
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [5, 160])
+def test_mlp_block_plain_matches_jax_kernel_at_decode_rows(jx, rows, act):
+    """The twin that the bf16 kernel (csrc/skinny_proj.cu) is held to, at the
+    beam's 160 rows and at a row count that is no multiple of 16."""
+    rng = _rng(11)
+    p = _block_params(rng)
+    xj, xt = _as(act, rng.standard_normal((rows, 1, D)).astype(np.float32))
+    names = ("ln_g", "ln_b", "w1", "b1", "w2", "b2")
+    stacked = [_as(act, p[n])[0] for n in names]
+    want = jx.attn.mlp_block(xj, *stacked, jx.jnp.int32(LAYER), interpret=True)
+    mine = [_as(act, np.ascontiguousarray(p[n][LAYER].T if n in ("w1", "w2") else p[n][LAYER]))[1]
+            for n in names]
+    got = attention.mlp_block_plain(xt, *mine)
+    assert got.dtype == xt.dtype and got.shape == (rows, 1, D)
+    _close_act(got, want, act)
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [5, 160])
+def test_matmul_residual_plain_matches_jax_kernel_at_decode_rows(jx, rows, act):
+    rng = _rng(12)
+    p = _block_params(rng)
+    (aj, at), (xj, xt) = (_as(act, rng.standard_normal((rows, 1, D)).astype(np.float32))
+                          for _ in range(2))
+    want = jx.attn.matmul_residual(aj, xj, _as(act, p["wo"])[0], _as(act, p["bo"])[0],
+                                   jx.jnp.int32(LAYER), interpret=True)
+    got = attention.matmul_residual_plain(
+        at, xt, _as(act, np.ascontiguousarray(p["wo"][LAYER].T))[1], _as(act, p["bo"][LAYER])[1])
+    assert got.dtype == xt.dtype and got.shape == (rows, 1, D)
+    _close_act(got, want, act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_plain_composes_the_twins(dtype):
+    """The skinny projection's plain version (what the gpu tests and
+    perf/probe_proj hold the kernel to) composes to mlp_block_plain and
+    matmul_residual_plain bit for bit."""
+    g = torch.Generator().manual_seed(13)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dtype)
+    x, attn = r(7, D), r(7, D)
+    ln = (1 + r(D, scale=0.1), r(D, scale=0.1))
+    w1, b1, w2, b2 = r(FF, D, scale=D ** -0.5), r(FF, scale=0.1), r(D, FF, scale=FF ** -0.5), \
+        r(D, scale=0.1)
+    u = attention._proj_plain(attention._ln_f32(x, *ln).to(dtype), w1, b1, gelu=True)
+    assert torch.equal(attention._proj_plain(u, w2, b2, resid=x),
+                       attention.mlp_block_plain(x, *ln, w1, b1, w2, b2))
+    assert torch.equal(attention._proj_plain(attn, w2[:, :D].contiguous(), b2, resid=x),
+                       attention.matmul_residual_plain(attn, x, w2[:, :D].contiguous(), b2))
+
+
 @pytest.mark.parametrize("valid_len", [None, 53])
 def test_enc_self_attention_matches_jax_kernel(jx, valid_len):
     jnp = jx.jnp
@@ -659,6 +732,99 @@ def test_mlp_kernel_matches_twin(cuda, act):
     torch.cuda.synchronize()
     tol = 1e-4 if dt == torch.float32 else _bf16_tol(want)
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _proj(a, w, bias, resid=None, gelu=False):
+    return attention._proj(_build.lib(), _build.stream_ptr(a.device), a, w, bias, resid=resid,
+                           gelu=gelu)
+
+
+def _proj_layer_norm(x, g, b):
+    return attention._proj_layer_norm(_build.lib(), _build.stream_ptr(x.device), x, g, b)
+
+
+# the bf16 skinny projection (csrc/skinny_proj.cu): (K, N, epilogue) of the
+# decode step's products -- Wo (+ residual), W1 (+ GELU), W2 (+ residual) --
+# and the other mixes of GELU and residual
+PROJ_CASES = [(768, 768, "resid"), (768, 3072, "gelu"), (3072, 768, "resid"), (3072, 768, ""),
+              (768, 768, "gelu resid"), (3072, 3072, "gelu resid")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 5, 64, 80, 160, 200])
+@pytest.mark.parametrize("K,N,epi", PROJ_CASES)
+def test_skinny_proj_kernel_matches_twin(cuda, M, K, N, epi):
+    """Every row count of the decode paths (1, ragged 5, greedy 64, long-form
+    80, beam 160; 200 takes a second pass over W), twice: the same bits."""
+    g = torch.Generator().manual_seed(M * 7 + K)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
+    kw = dict(a=r(M, K), w=r(N, K, scale=K ** -0.5), bias=r(N, scale=0.1), gelu="gelu" in epi)
+    if "resid" in epi:
+        kw["resid"] = r(M, N)
+    got = _proj(**kw)
+    again = probe_proj.launch(**kw, pdl=False)
+    want = attention._proj_plain(**kw)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 5, 64, 80, 160])
+def test_mlp_and_matmul_residual_bf16_kernels(cuda, M):
+    """The wrappers of rows 2 and 6 at the decode paths' rows: one launch
+    counted a call, the twin's values, the same bits twice."""
+    g = torch.Generator().manual_seed(M)
+    Dm, Fm = 768, 3072
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
+    x = r(M, 1, Dm)
+    mlp = (1 + r(Dm, scale=0.1), r(Dm, scale=0.1), r(Fm, Dm, scale=Dm ** -0.5),
+           r(Fm, scale=0.1), r(Dm, Fm, scale=Fm ** -0.5), r(Dm, scale=0.1))
+    mr = (r(M, 1, Dm), x, r(Dm, Dm, scale=Dm ** -0.5), r(Dm, scale=0.1))
+    for fn, plain, args in ((attention.mlp_block, attention.mlp_block_plain, (x, *mlp)),
+                            (attention.matmul_residual, attention.matmul_residual_plain, mr)):
+        before = fn.launches
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want), fn.__name__
+        assert torch.equal(got, again), fn.__name__
+    # the wrapper's programmatically dependent launches, against the same
+    # launches each waiting for the one before in full
+    u = probe_proj.launch(_proj_layer_norm(x, *mlp[:2]), *mlp[2:4], gelu=True, pdl=False)
+    serial = probe_proj.launch(u, *mlp[4:], resid=x.view(M, Dm), pdl=False)
+    assert torch.equal(attention.mlp_block(x, *mlp).view(M, Dm), serial)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 5, 64, 160])
+@pytest.mark.parametrize("K", [768, 1280])
+def test_skinny_proj_layer_norm_matches_twin(cuda, M, K):
+    g = torch.Generator().manual_seed(M + K)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
+    x, ln = 3 + r(M, K), (1 + r(K, scale=0.1), r(K, scale=0.1))
+    got = _proj_layer_norm(x, *ln)
+    want = attention._ln_f32(x, *ln).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.gpu
+def test_skinny_proj_refuses_what_it_does_not_take(cuda):
+    """A LayerNorm past 1280 columns, K that is no multiple of 8 and (through
+    the probe's entry) a cluster past 8 blocks raise: the launch is refused,
+    nothing falls back."""
+    a = torch.zeros(4, 2048, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(64, 2048, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="layer norm"):
+        _proj_layer_norm(a, a[0], a[0])
+    with pytest.raises(RuntimeError, match="skinny projection"):
+        _proj(a[:, :2044].contiguous(), w[:, :2044].contiguous(), b)
+    with pytest.raises(RuntimeError, match="skinny projection"):
+        probe_proj.launch(a, w, b, cs=9)
 
 
 @pytest.mark.gpu
