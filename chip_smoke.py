@@ -264,7 +264,9 @@ def _cross_bound(args, got, kv_group=1):
 
 def check_cross(gen) -> list:
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
-    from olmoasr_tpu_torch.ops.attention import cross_block_decode, cross_block_decode_plain
+    from olmoasr_tpu_torch.ops.attention import (
+        _ln_f32, cross_block_decode, cross_block_decode_plain,
+    )
 
     B, T, D, H = 64, 1500, 768, 12
     cases = []
@@ -288,9 +290,14 @@ def check_cross(gen) -> list:
             ks = vs = torch.ones(B, 1, T, device="cuda")
         args = (x, *w, ck, cv, ks.contiguous(), vs.contiguous(), H)
         got, want = cross_block_decode(*args), cross_block_decode_plain(*args)
+        # beside the bf16 ones, cuBLAS's two projections alone (q's, then
+        # the output's over rows of the same shape)
+        h = _ln_f32(x, *w[:2]).to(act)[:, 0]
         cases.append(_case("cross_block_decode", (act, kv), got, want,
                            lambda: cross_block_decode(*args),
-                           lambda: cross_block_decode_plain(*args), _cross_bound(args, got)))
+                           lambda: cross_block_decode_plain(*args), _cross_bound(args, got),
+                           yardstick=(lambda: _cublas_ms((h, w[2], w[3]), (h, w[4], w[5])))
+                           if act == torch.bfloat16 else None))
     # best_of samples and beams: 5 token rows over each of 16 cache rows, in
     # bf16 and over the int8 cache of a served request (int8 q.K)
     G, Bc = 5, 16
@@ -786,7 +793,7 @@ def check_self_sub_block(gen) -> dict:
     as row views of the fused projection, as decode_step passes them) and
     matmul_residual, at the decode step's widths."""
     from olmoasr_tpu_torch.ops.attention import (
-        ln_matmul, ln_matmul_plain, matmul_residual, matmul_residual_plain,
+        _ln_f32, ln_matmul, ln_matmul_plain, matmul_residual, matmul_residual_plain,
         self_attend_decode, self_attend_decode_plain,
     )
 
@@ -800,10 +807,18 @@ def check_self_sub_block(gen) -> dict:
             (0.02 * torch.randn(3 * D, generator=gen)).to("cuda", dtype)
         args = (x, *ln, w, b)
         qkv = ln_matmul(*args)
-        cases["ln_matmul"].append(_case(
-            "ln_matmul", (dtype, f"B={B} D={D} N={3 * D}"), qkv, ln_matmul_plain(*args),
-            lambda: ln_matmul(*args), lambda: ln_matmul_plain(*args),
-            (nbytes(*args, qkv), 2 * B * D * 3 * D, dtype)))
+        # the greedy rows above, then seeded rows at the other decode paths'
+        # counts (bf16); cuBLAS's product alone beside each
+        for rows in (PROJ_ROWS if dtype == torch.bfloat16 else (B,)):
+            xr = x if rows == B else torch.randn(rows, 1, D, generator=gen).to("cuda", dtype)
+            lm = (xr, *ln, w, b)
+            got = qkv if rows == B else ln_matmul(*lm)
+            h = _ln_f32(xr, *ln).to(dtype)[:, 0]
+            cases["ln_matmul"].append(_case(
+                "ln_matmul", (dtype, f"B={rows} D={D} N={3 * D}"), got, ln_matmul_plain(*lm),
+                lambda: ln_matmul(*lm), lambda: ln_matmul_plain(*lm),
+                (nbytes(*lm, got), 2 * rows * D * 3 * D, dtype),
+                yardstick=lambda: _cublas_ms((h, w, b))))
         q, kn, vn = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
         rings = [torch.randn(L, B, C, D, generator=gen).to("cuda", dtype) for _ in range(2)]
         for offset in (224, 100, 1):
@@ -918,7 +933,8 @@ def _agrees(got, want, tol, flips: bool) -> bool:
 
 def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False,
           yardstick=None) -> dict:
-    """The kernel's output(s) against the twin's, and both timed. ``got`` and
+    """The kernel's output(s) against the twin's, and both timed (the kernel
+    also with each replay behind a spin, ``ms_spin``). ``got`` and
     ``want`` may be tuples (each part held to its own tolerance);
     ``bound_of`` is (bytes, operations, dtype) of the call; ``flips`` allows
     FLIP_SHARE of the elements past FLIP_TOL (see there); ``yardstick``
@@ -934,14 +950,15 @@ def _case(name, what, got, want, kernel_fn, plain_fn, bound_of=None, flips=False
         tols.append(tol)
         ok = ok and bool(torch.isfinite(g).all()) and _agrees(g, w, tol, flips)
     err, tol = max(errs), min(tols)
-    ms, plain_ms = timed_ms(kernel_fn), timed_ms(plain_fn)
-    out = {"what": str(what), "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+    ms, ms_spin, plain_ms = timed_ms(kernel_fn), timed_ms(kernel_fn, spin=True), timed_ms(plain_fn)
+    out = {"what": str(what), "max_abs_err": err, "tol": tol, "ms": ms, "ms_spin": ms_spin,
+           "plain_ms": plain_ms}
     if bound_of is not None:
         out["bound_ms"], out["bound_by"] = bound(*bound_of)
     if yardstick is not None:
         out["cublas_ms"] = yardstick()
     print(f"  {name} {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+          f"kernel {ms:.4f} ms ({ms_spin:.4f} behind a spin) plain {plain_ms:.4f} ms"
           + (f" bound {out['bound_ms']:.4f} ms ({out['bound_by']})" if bound_of else "")
           + (f" [yardstick: cuBLAS's products alone {out['cublas_ms']:.4f} ms]"
              if yardstick is not None else ""))
@@ -1013,8 +1030,9 @@ def phase_probes() -> dict:
     ``probe_bwd``: medium.en's training shape, each variant timed over
     PROBE_RUNS graph replays and, where it computes attention, held against
     the plain twin by the probe itself); the probe wrappers' launches are set
-    to 0 before and read after. Then, per wrapper, the plain version's time,
-    the bound and one library call at the probes' shape."""
+    to 0 before and read after. Then, per wrapper, its main variant's time
+    with each replay behind a spin, the plain version's time, the bound and
+    one library call at the probes' shape."""
     from olmoasr_tpu_torch.ops.train_attention import (
         train_attention_bwd_plain, train_attention_fwd_plain,
     )
@@ -1048,6 +1066,12 @@ def phase_probes() -> dict:
               "bwd": bound(*_attention_bound(q, k, v, do, q, k, v, products=5))}
     library = {"fwd": _sdpa_ms(q, k, v, None, P.H, False, None), "scores": None,
                "bwd": _sdpa_ms(q, k, v, do, P.H, False, None)}
+    # a variant's call, for its time with each replay behind a spin
+    bias = torch.zeros((1, P.T), dtype=torch.float32, device="cuda")
+    calls = {"probe_pack": lambda var: lambda: probe_pack.call(var, q, k, v, P.H),
+             "probe_pipe": lambda var: lambda fn=probe_pipe.cases(var)[0][1]: fn(q, k, v, bias,
+                                                                                 P.H),
+             "probe_bwd": lambda var: lambda: probe_bwd.call(var, q, k, v, do, P.H)}
     out = {}
     for wrapper, (replaces, probe, variants, kind) in PROBES.items():
         mine = [r for v in variants for r in (
@@ -1055,10 +1079,13 @@ def phase_probes() -> dict:
             else [rows[probe][v]])]
         errs = [r["max_abs_err"] for r in mine if r["max_abs_err"] is not None]
         out[wrapper] = {"replaces": replaces, "launches": counts[wrapper], "cases": mine,
-                        "ms": mine[0]["ms"], "max_abs_err": max(errs) if errs else None,
+                        "ms": mine[0]["ms"],
+                        "ms_spin": timed_ms(calls[probe](variants[0]), spin=True),
+                        "max_abs_err": max(errs) if errs else None,
                         "plain_ms": plain_ms[kind], "bound_ms": bounds[kind][0],
                         "bound_by": bounds[kind][1], "library_ms": library[kind]}
-        print(f"  {wrapper}: {mine[0]['variant']} {mine[0]['ms']:.4f} ms, plain "
+        print(f"  {wrapper}: {mine[0]['variant']} {mine[0]['ms']:.4f} ms "
+              f"({out[wrapper]['ms_spin']:.4f} behind a spin), plain "
               f"{plain_ms[kind]:.4f} ms, bound {bounds[kind][0]:.4f} ms ({bounds[kind][1]}), "
               f"library {library[kind] if library[kind] is None else round(library[kind], 4)} ms")
     return out
@@ -2250,9 +2277,11 @@ def _ab_inputs(gen) -> dict:
     with a random one, the self + cross sub-blocks of a greedy int8 step,
     at offsets 224, 100 and 1, the whole layer at 224, ``mlp_block`` of its
     64 rows and at 160, ``matmul_residual`` at 64 and 160 rows, ``ln_matmul``
-    at 64, ``cross_attend_decode`` over 64 windows' bf16 cross cache, and the
+    at 64, ``cross_attend_decode`` over 64 windows' bf16 cross cache, the
     training attention's forward and backward (rows 3 and 9) at the three
-    training shapes. Rings are one layer deep: a call reads one layer."""
+    training shapes, then ``ln_matmul`` at 160 rows and the cross sub-block
+    over a bf16 cross cache at 64 rows over 64 and 160 over 32. Rings are
+    one layer deep: a call reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2297,7 +2326,7 @@ def _ab_inputs(gen) -> dict:
     bo = (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16)
     for n in (64, 160):
         out[f"matmul_residual bf16, {n} rows"] = ("mr", (rows_bf(n), rows_bf(n), wo, bo), {})
-    # rows 5 and 8, which this tree's projections leave alone
+    # row 5 at the greedy 64 rows, and row 8
     wqkv = _weights(gen, 3 * D, D, fan_in=D, dtype=torch.bfloat16)
     bqkv = (0.02 * torch.randn(3 * D, generator=gen)).to("cuda", torch.bfloat16)
     out["ln_matmul bf16, 64 rows"] = ("lnmm", (rows_bf(64), *mlp[:2], wqkv, bqkv), {})
@@ -2320,6 +2349,22 @@ def _ab_inputs(gen) -> dict:
             q, k, v = bf(B, Tq, D), bf(B, Tk, D), bf(B, Tk, D)
             args = (q, k, v, *[bf(B, Tq, D) for _ in range(extra)], H)
             out[f"{kind} {label}, B={B}"] = (kind, args, kw)
+    # rows 5 and 1 on the split chain (the bf16 greedy and beam steps): QKV
+    # at the beam's 160 rows, the cross sub-block over a bf16 cross cache at
+    # 64 windows and at 32 windows x 5 (last, so that the cases above keep
+    # the inputs of earlier trees' runs)
+    out["ln_matmul bf16, 160 rows"] = ("lnmm", (rows_bf(160), *mlp[:2], wqkv, bqkv), {})
+    for B, G in ((64, 1), (32, K)):
+        w = [(1 + 0.1 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+             (0.1 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+             _weights(gen, D, D, fan_in=D, dtype=torch.bfloat16),
+             (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+             _weights(gen, D, D, fan_in=D, dtype=torch.bfloat16),
+             (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16)]
+        cache = [torch.randn(B, T, D, generator=gen).to("cuda", torch.bfloat16) for _ in range(2)]
+        ones = torch.ones(B, 1, T, device="cuda")
+        out[f"cross bf16, {B * G} rows over {B}"] = (
+            "cross", (rows_bf(B * G), *w, *cache, ones, ones, H), {"kv_group": G})
     return out
 
 
@@ -2465,8 +2510,10 @@ def kernel_ab(tree: str) -> None:
     refs = {}
     for name, (kind, args, kw) in cases.items():
         if kind == "cross":
+            exact = args[7].dtype == torch.int8  # the int8 cache: also the exact-q twin
             refs[name] = (A.cross_block_decode_plain(*args, **kw),
-                          A.cross_block_decode_plain(*args, **kw, quantize_q=False))
+                          A.cross_block_decode_plain(*args, **kw, quantize_q=False)
+                          if exact else None)
         elif kind == "self":
             refs[name] = (A.self_attend_decode_plain(*_self_views(args), **kw), None)
         elif kind in ("train fwd", "train bwd"):
@@ -2586,33 +2633,28 @@ def main() -> None:
     if leaked:
         fail(f"imported {leaked}: the port must not load jax or the JAX package")
 
+    # each kernel's sources (its CUDA files, the first its own) and the TPU
+    # kernel it replaces
+    C = "olmoasr_tpu_torch/csrc/"
     sources = {
-        "cross_block_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
+        "cross_block_decode": ((C + "cross_attention.cu", C + "skinny_proj.cu"),
                                "olmoasr_tpu/ops/attention.py:986"),
-        "layer_block_decode": ("olmoasr_tpu_torch/csrc/decode_layer.cu",
-                               "olmoasr_tpu/ops/attention.py:1228"),
-        "mlp_block": ("olmoasr_tpu_torch/csrc/skinny_proj.cu", "olmoasr_tpu/ops/attention.py:669"),
-        "train_attention_fwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
+        "layer_block_decode": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),
+        "mlp_block": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:669"),
+        "train_attention_fwd": ((C + "train_attention.cu",),
                                 "olmoasr_tpu/ops/train_attention.py:222"),
-        "ln_matmul": ("olmoasr_tpu_torch/csrc/linear.cu", "olmoasr_tpu/ops/attention.py:354"),
-        "matmul_residual": ("olmoasr_tpu_torch/csrc/skinny_proj.cu",
-                            "olmoasr_tpu/ops/attention.py:412"),
-        "self_attend_decode": ("olmoasr_tpu_torch/csrc/self_attention.cu",
-                               "olmoasr_tpu/ops/attention.py:495"),
-        "self_attend_decode_beam": ("olmoasr_tpu_torch/csrc/self_attention.cu",
+        "ln_matmul": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:354"),
+        "matmul_residual": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:412"),
+        "self_attend_decode": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:495"),
+        "self_attend_decode_beam": ((C + "self_attention.cu",),
                                     "olmoasr_tpu/ops/attention.py:254"),
-        "train_attention_bwd": ("olmoasr_tpu_torch/csrc/train_attention.cu",
+        "train_attention_bwd": ((C + "train_attention.cu",),
                                 "olmoasr_tpu/ops/train_attention.py:412"),
-        "self_attend_decode_q8": ("olmoasr_tpu_torch/csrc/self_attention.cu",
-                                  "olmoasr_tpu/ops/attention.py:322"),
-        "cross_attend_decode": ("olmoasr_tpu_torch/csrc/cross_attention.cu",
-                                "olmoasr_tpu/ops/attention.py:725"),
-        "layer_block_decode_mlp": ("olmoasr_tpu_torch/csrc/decode_layer.cu",
-                                   "olmoasr_tpu/ops/attention.py:1228"),
-        "flash_mha_fwd": ("olmoasr_tpu_torch/csrc/flash_attention.cu",
-                          "olmoasr_tpu/ops/flash.py:72"),
-        "flash_mha_bwd": ("olmoasr_tpu_torch/csrc/flash_attention.cu",
-                          "olmoasr_tpu/ops/flash.py:72"),
+        "self_attend_decode_q8": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:322"),
+        "cross_attend_decode": ((C + "cross_attention.cu",), "olmoasr_tpu/ops/attention.py:725"),
+        "layer_block_decode_mlp": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),
+        "flash_mha_fwd": ((C + "flash_attention.cu",), "olmoasr_tpu/ops/flash.py:72"),
+        "flash_mha_bwd": ((C + "flash_attention.cu",), "olmoasr_tpu/ops/flash.py:72"),
     }
     # the path that runs each kernel: the long-form slice at the CLI's
     # defaults, for the fused launch the server's default traffic, for the
@@ -2625,11 +2667,12 @@ def main() -> None:
              "layer_block_decode_mlp": routes["route layer"],
              "cross_attend_decode": routes["route attend"]}
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, (files, replaces) in sources.items():
         main_case = cases[name][0]  # the main path's shape and dtype
         path = paths.get(name, long_form)
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": files[0], "sources": list(files),
+            "replaces": replaces,
             "launches": path["launches"][name],
             "launches_long_form": long_form["launches"][name],
             "launches_server_traffic": server["launches"][name],
@@ -2638,17 +2681,18 @@ def main() -> None:
             "launches_training_flash_step": training_flash["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "ms": main_case["ms"], "ms_spin": main_case["ms_spin"],
+            "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case.get("library_ms"),
             "cases": cases[name],
         })
     for name, probe in probes.items():  # their path is the probes' own run
         kernels.append({"name": name, "route": "cuda",
-                        "source": "olmoasr_tpu_torch/csrc/attention_probes.cu",
+                        "source": C + "attention_probes.cu", "sources": [C + "attention_probes.cu"],
                         **{key: probe[key] for key in (
-                            "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "cases")}})
+                            "replaces", "launches", "max_abs_err", "ms", "ms_spin", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms", "cases")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 // The bf16 decode layer for one decode step in ONE cooperative launch:
 // olm_decode_layer replaces layer_block_decode
 // (olmoasr_tpu/ops/attention.py:1228, _layer_block_impl) in both its modes,
-// "sc" (the self and cross sub-blocks; the MLP follows as mlp_block, which
-// stays on linear.cu) and the whole layer (include_mlp). layer_block.cu
+// "sc" (the self and cross sub-blocks; the MLP follows as mlp_block, on
+// skinny_proj.cu) and the whole layer (include_mlp). layer_block.cu
 // keeps the fp32 layer block for the exact checks.
 //
 // What they compute (the plain twins of ops/attention.py define it):

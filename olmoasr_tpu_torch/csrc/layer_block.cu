@@ -110,8 +110,9 @@ __device__ __forceinline__ void each_row(int M, F&& body) {
 template <typename T>
 __device__ __forceinline__ void project(const void* h, const void* w, float* ws, int M, int N,
                                         int K, int splits, int per) {
-  const LinearArgs p{h, w, nullptr, nullptr, nullptr, ws, M, N, K, per, 1, 1, 0};
-  const int tiles_n = (N + kBN - 1) / kBN, tiles = linear_tiles(M, N);
+  const LinearArgs p{static_cast<const float*>(h), static_cast<const float*>(w), nullptr, nullptr,
+                     nullptr, ws, M, N, K, per, 1, 0};
+  const int tiles_n = (N + kFT - 1) / kFT, tiles = linear_tiles(M, N);
   each_item(tiles * splits, [&](int i) {
     const int tile = i % tiles;
     linear_tile<T>(p, tile % tiles_n, tile / tiles_n, i / tiles);

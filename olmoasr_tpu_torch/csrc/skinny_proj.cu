@@ -1,28 +1,37 @@
 // Skinny bf16 projection for the decode step in ONE launch a product:
-// out = round(epilogue(A @ W^T)), K split over the blocks of a thread-block
+// out = epilogue(A @ W^T), K split over the blocks of a thread-block
 // cluster and the split partials summed in distributed shared memory; and
-// the row LayerNorm that feeds the MLP's first product.
+// the row LayerNorm that feeds a product.
 //
-// Replaces, on the bf16 path, two TPU kernels of olmoasr_tpu/ops/attention.py:
+// Replaces, on the bf16 path, the projections of four TPU kernels of
+// olmoasr_tpu/ops/attention.py (every bf16 projection of the split decode
+// chain):
 //   * matmul_residual (_matmul_residual_kernel, :412): one launch, A the
 //     attention output, epilogue + bias + residual;
 //   * mlp_block (_mlp_kernel, :669): three launches, the LayerNorm of x into
 //     bf16 h, W1 over h with a bias + exact GELU epilogue into bf16 u (M, F),
-//     then W2 over u with a bias + residual epilogue.
-// The fp32 paths of both stay on linear.cu (checks, not speed).
+//     then W2 over u with a bias + residual epilogue;
+//   * ln_matmul (_ln_matmul_kernel, :354): two launches, the LayerNorm, then
+//     the fused QKV projection (N = 3D) with a bias epilogue;
+//   * cross_block_decode (_cross_block_kernel, :897): its LayerNorm, its q
+//     projection with a bias epilogue stored in fp32 unrounded (the cross
+//     pass of cross_attention.cu reads fp32 q), and its output projection
+//     with a bias + residual epilogue.
+// The fp32 paths of all four stay on linear.cu (checks, not speed).
 //
 // What they compute (the plain twins of ops/attention.py define it): h is
 // the fp32 LayerNorm (eps 1e-5, two passes) rounded to bf16; each product is
 // summed in fp32, then v + bias, the GELU, residual + v, in fp32, and one
-// rounding at the store.
+// rounding at the store (none where the output is fp32).
 //
 // What bounds them. At the decode step's rows (64 greedy, 80 long-form, 160
 // for 32 windows x 5 beams) a product moves its weight once (small.en: Wo
-// 1.2 MB, W1 and W2 4.7 MB each: 0.35-1.4 us at 3.35 TB/s) and its
-// 2 * M * N * K operations are far below the tensor cores' rate, so a launch
-// is bound by latency: its start, device memory's, the barriers'. linear.cu
-// split K through device memory (fp32 partials as large as the weight) and
-// summed them in a second launch.
+// and Wq 1.2 MB, QKV 3.5 MB, W1 and W2 4.7 MB each: 0.35-1.4 us at
+// 3.35 TB/s) and its 2 * M * N * K operations are far below the tensor
+// cores' rate, so a launch is bound by latency: its start, device memory's,
+// the barriers'. The split-K linear these launches replaced wrote fp32
+// partials as large as the weight through device memory and summed them in
+// a second launch.
 //
 // The design against that:
 //   * One ordinary launch a product. The grid is (N / kBN column tiles) x CS
@@ -39,7 +48,7 @@
 //     above (a ring with all of a slice in flight at once was no faster: its
 //     issue stalls once the SM's loads are queued). A block covers up to
 //     kMaxRows = 160 rows (the beam's 32 x 5) in one pass over its W; more
-//     rows take further passes. Where the grid is small (Wo), or the rows
+//     rows take further passes. Where the grid is small (Wo, Wq), or the rows
 //     pass 128 and the grid stays within 192 blocks (W2), the rows are spread
 //     over two groups of blocks, each of which streams W (the second read
 //     mostly from L2): twice the blocks in flight beat the single read there
@@ -48,8 +57,10 @@
 //     blocks start while that one drains and stream their W, which does not
 //     depend on it, before griddepcontrol.wait; A and the residual are read
 //     after it. Each launch lets the next one start once its own stream is
-//     done (griddepcontrol.launch_dependents); the LayerNorm lets W1 start at
-//     once.
+//     done (griddepcontrol.launch_dependents); the LayerNorm lets the
+//     product after it start at once. (cross_block_decode's Wo follows the
+//     cross pass's combine, which lets nothing start early: Wo's blocks
+//     start as the combine's last blocks end.)
 //   * mma.sync m16n8k16, bf16 operands, fp32 accumulation, operands through
 //     ldmatrix from padded shared rows (an odd number of 16-byte chunks, so
 //     the 8 rows an ldmatrix reads fall in 8 bank groups). A warp takes
@@ -105,10 +116,11 @@ struct Args {
   const bf* w;      // (N, K)
   const bf* bias;   // (N,)
   const bf* resid;  // (M, N), or null
-  bf* out;          // (M, N)
+  void* out;        // (M, N): bf16, or fp32 where out_f32
   unsigned long long* trace;  // (grid, kMarks) global-timer marks, or null
   int M, N, K;
   int gelu;
+  int out_f32;  // store the fp32 sums unrounded
   int mp;     // rows of a pass: a multiple of 16, at most kMaxRows
   int ns;     // ring stages, 2 or 3
   int slice;  // K columns of a rank: a multiple of kKC
@@ -336,7 +348,8 @@ __device__ __forceinline__ void stream_send_mt(int mt, const Args& p, bf* ring, 
 }
 
 // The epilogue of a pair of outputs (m, n), (m, n + 1), from their fp32
-// sums: + bias, the GELU, residual + that (zeros without one), one rounding.
+// sums: + bias, the GELU, residual + that (zeros without one), one rounding
+// at a bf16 store, none at an fp32 one.
 __device__ __forceinline__ void store_pair(const Args& p, int m, int n, float2 v, float2 bias,
                                            float2 res) {
   v.x += bias.x;
@@ -349,8 +362,12 @@ __device__ __forceinline__ void store_pair(const Args& p, int m, int n, float2 v
     v.x = res.x + v.x;
     v.y = res.y + v.y;
   }
-  *reinterpret_cast<__nv_bfloat162*>(p.out + static_cast<size_t>(m) * p.N + n) =
-      __floats2bfloat162_rn(v.x, v.y);
+  const size_t i = static_cast<size_t>(m) * p.N + n;
+  if (p.out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + i) = v;
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf*>(p.out) + i) =
+        __floats2bfloat162_rn(v.x, v.y);
 }
 
 __device__ __forceinline__ float2 load_pair(const bf* x) {
@@ -525,12 +542,31 @@ constexpr int kMaxDevices = 64;
 // The cluster size and row groups a shape takes unless the probe names them
 // (perf/probe_proj.py's sweeps at small.en's products and 64, 80 and 160
 // rows): K slices of 192 columns or more, at most 8 of them, each a whole
-// number of ring stages and none of them empty; the rows spread over two
-// groups of blocks where the grid would have 48 blocks or fewer (Wo), or
-// the rows pass 128 (the beam's) and two groups stay within 192 blocks (W2,
-// not W1).
+// number of ring stages and none of them empty. Where that grid would hold
+// 49-160 blocks, under one and a quarter an SM (QKV: 144), the grid doubles:
+// up to 128 rows with slices of 128 columns or more (QKV: 6 x 128, 216
+// blocks), past them with slices of 256 or more over two groups of rows
+// (QKV: 3 x 256 x 2 groups). (Past 128 rows QKV's 6 slices of 128 cost 4 us
+// a call more when launched programmatically dependent on the LayerNorm
+// than when not, two blocks of 106 KB an SM; 3 x 2 groups of 83 KB do not.)
+// W2, whose 8 slices are the most there are, keeps them. Otherwise the
+// rows spread over two groups of blocks where the grid would have 48
+// blocks or fewer (Wo, Wq), or the rows pass 128 (the beam's) and two
+// groups stay within 192 blocks (W2; not W1).
 void choose(int M, int N, int K, int& cs, int& rg) {
-  if (cs == 0) cs = cdiv(K, round_up(cdiv(K, std::clamp(K / 192, 1, kMaxCS)), kKC));
+  if (cs == 0) {
+    const int tiles = cdiv(N, kBN);
+    int want = std::clamp(K / 192, 1, kMaxCS);
+    if (tiles * want > 48 && tiles * want <= 160) {
+      if (M <= 128) {
+        want = std::clamp(K / 128, want, kMaxCS);
+      } else {
+        want = std::clamp(K / 256, 1, kMaxCS);
+        if (rg == 0) rg = 2;
+      }
+    }
+    cs = cdiv(K, round_up(cdiv(K, want), kKC));
+  }
   if (rg == 0) {
     const int blocks = cdiv(N, kBN) * cs;
     rg = blocks <= 48 || (M > 128 && 2 * blocks <= 192) ? 2 : 1;
@@ -538,8 +574,8 @@ void choose(int M, int N, int K, int& cs, int& rg) {
 }
 
 int proj(const void* a, const void* w, const void* bias, const void* resid, void* out, int M,
-         int N, int K, int gelu, int cs, int rg, bool pdl, unsigned long long* trace,
-         cudaStream_t stream) {
+         int N, int K, int gelu, int out_f32, int cs, int rg, bool pdl,
+         unsigned long long* trace, cudaStream_t stream) {
   static int sms[kMaxDevices] = {};  // each device's SM count, 0 until its first launch
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 2 != 0 || bias == nullptr || cs < 0 ||
       rg < 0)
@@ -560,7 +596,7 @@ int proj(const void* a, const void* w, const void* bias, const void* resid, void
   }
   // rows of a pass: the rows spread over rg groups, none of them empty
   Args p{static_cast<const bf*>(a), static_cast<const bf*>(w), static_cast<const bf*>(bias),
-         static_cast<const bf*>(resid), static_cast<bf*>(out), trace, M, N, K, gelu != 0,
+         static_cast<const bf*>(resid), out, trace, M, N, K, gelu != 0, out_f32 != 0,
          std::min(round_up(cdiv(M, rg), 16), kMaxRows), 2, round_up(cdiv(K, cs), kKC)};
   const int groups = std::min(rg, cdiv(M, p.mp));
   const int grid_x = cdiv(N, kBN) * cs, blocks = grid_x * groups;
@@ -592,12 +628,12 @@ int proj(const void* a, const void* w, const void* bias, const void* resid, void
 }  // namespace sp
 }  // namespace olm
 
-// out (M, N) = round(epilogue(A @ W^T)), bf16 throughout; resid may be
-// null; launched programmatically dependent on the launch before it in the
-// stream.
+// out (M, N) = epilogue(A @ W^T): bf16 operands, resid may be null; out is
+// bf16 (one rounding at the store), or fp32 unrounded where out_f32;
+// launched programmatically dependent on the launch before it in the stream.
 extern "C" int olm_proj(const void* a, const void* w, const void* bias, const void* resid,
-                        void* out, int M, int N, int K, int gelu, void* stream) {
-  return olm::sp::proj(a, w, bias, resid, out, M, N, K, gelu, 0, 0, true, nullptr,
+                        void* out, int M, int N, int K, int gelu, int out_f32, void* stream) {
+  return olm::sp::proj(a, w, bias, resid, out, M, N, K, gelu, out_f32, 0, 0, true, nullptr,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -606,9 +642,9 @@ extern "C" int olm_proj(const void* a, const void* w, const void* bias, const vo
 // olm_proj's choice); pdl 0 makes the launch wait for the one before in
 // full; trace, if not null, takes sp::kMarks global-timer marks a block.
 extern "C" int olm_proj_probe(const void* a, const void* w, const void* bias, const void* resid,
-                              void* out, int M, int N, int K, int gelu, int cs, int rg, int pdl,
-                              unsigned long long* trace, void* stream) {
-  return olm::sp::proj(a, w, bias, resid, out, M, N, K, gelu, cs, rg, pdl != 0, trace,
+                              void* out, int M, int N, int K, int gelu, int out_f32, int cs,
+                              int rg, int pdl, unsigned long long* trace, void* stream) {
+  return olm::sp::proj(a, w, bias, resid, out, M, N, K, gelu, out_f32, cs, rg, pdl != 0, trace,
                        static_cast<cudaStream_t>(stream));
 }
 

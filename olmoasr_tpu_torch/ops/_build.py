@@ -37,15 +37,16 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # a, w, bias, resid, out, ws, M, N, K, splits, dtype, out_f32, gelu, stream
-    "olm_linear": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g, b, out, M, K, eps, dtype, stream
+    # the fp32 linear (csrc/linear.cu): a, w, bias, resid, out, ws, M, N, K, splits, dtype,
+    # gelu, stream
+    "olm_linear": (*(_P,) * 6, *(_I,) * 6, _P),
+    # fp32: x, g, b, out, M, K, eps, dtype, stream
     "olm_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     # the bf16 skinny projection (csrc/skinny_proj.cu): a, w, bias, resid, out, M, N, K,
-    # gelu, stream
-    "olm_proj": (*(_P,) * 5, *(_I,) * 4, _P),
-    # the same for perf/probe_proj.py: ..., gelu, cs, rg, pdl, trace, stream
-    "olm_proj_probe": (*(_P,) * 5, *(_I,) * 7, _P, _P),
+    # gelu, out_f32, stream
+    "olm_proj": (*(_P,) * 5, *(_I,) * 5, _P),
+    # the same for perf/probe_proj.py: ..., gelu, out_f32, cs, rg, pdl, trace, stream
+    "olm_proj_probe": (*(_P,) * 5, *(_I,) * 8, _P, _P),
     # x, g, b, h, M, K, stream
     "olm_proj_layer_norm": (*(_P,) * 4, _I, _I, _P),
     "olm_proj_marks": (),

@@ -13,12 +13,14 @@ per-position scales ``(B, 1, T)`` (ones when unquantized), the self rings the
 stacked ``(L, B, C, D)`` tensors indexed by layer (int8 rings with
 ``(L, B, 1, C)`` fp32 per-position scales).
 
-Dispatch: a CUDA tensor launches the hand-written kernel (``csrc/linear.cu``,
-``csrc/skinny_proj.cu`` for ``matmul_residual`` and ``mlp_block`` in bf16,
-``csrc/cross_attention.cu``, ``csrc/self_attention.cu``,
-``csrc/decode_layer.cu`` for ``layer_block_decode`` in bf16,
-``csrc/layer_block.cu`` for it in fp32) or raises; a CPU tensor runs the
-plain PyTorch twin below. There is no fallback from one to the other. Each
+Dispatch: a CUDA tensor launches the hand-written kernel (in bf16
+``csrc/skinny_proj.cu`` for every projection and LayerNorm of ``ln_matmul``,
+``matmul_residual``, ``cross_block_decode`` and ``mlp_block``, in fp32
+``csrc/linear.cu`` for them; ``csrc/cross_attention.cu``,
+``csrc/self_attention.cu``, ``csrc/decode_layer.cu`` for
+``layer_block_decode`` in bf16, ``csrc/layer_block.cu`` for it in fp32) or
+raises; a CPU tensor runs the plain PyTorch twin below. There is no
+fallback from one to the other. Each
 wrapper counts its launches in ``<function>.launches``;
 ``self_attend_decode.beam_launches`` counts those with an ancestry map,
 ``self_attend_decode.q8_launches`` those over int8 rings and
@@ -68,12 +70,12 @@ def _check_operands(what: str, dtype: torch.dtype, device, **tensors) -> None:
         _require(t.device == device, what, f"{name} is on {t.device}, not {device}")
         _require(t.dtype == dtype, what, f"{name} is {t.dtype}, not {dtype}")
         _require(t.is_contiguous(), what, f"{name} must be contiguous")
-        # the bf16 linear kernel reads rows in 16-byte chunks
+        # the bf16 kernels read rows in 16-byte chunks
         _require(t.data_ptr() % 16 == 0, what, f"{name} must be 16-byte aligned")
 
 
 def _layer_norm(lib, stream, x, g, b):
-    """Launch the row LayerNorm: (rows, D) in x's dtype."""
+    """Launch the fp32 row LayerNorm of csrc/linear.cu: (rows, D)."""
     D = x.shape[-1]
     rows = x.numel() // D
     h = torch.empty((rows, D), dtype=x.dtype, device=x.device)
@@ -85,8 +87,8 @@ def _layer_norm(lib, stream, x, g, b):
 
 
 def _linear(lib, stream, a, w, bias, out, resid=None, gelu=False):
-    """Launch ``out = epilogue(a @ w.T)`` with K split over enough blocks to
-    put about two on every SM (csrc/linear.cu)."""
+    """Launch the fp32 ``out = epilogue(a @ w.T)`` with K split over enough
+    blocks to put about two on every SM (csrc/linear.cu)."""
     M, K = a.shape
     N = w.shape[0]
     blocks = -(-N // 32) * -(-M // 32)
@@ -96,7 +98,7 @@ def _linear(lib, stream, a, w, bias, out, resid=None, gelu=False):
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         None if resid is None else resid.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), M, N, K, splits,
-        _build.dtype_code(w.dtype), int(out.dtype == torch.float32), int(gelu), stream,
+        _build.dtype_code(w.dtype), int(gelu), stream,
     ), "linear")
 
 
@@ -105,29 +107,31 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _proj_plain(a, w, bias, resid=None, gelu=False) -> torch.Tensor:
-    """What ``_proj`` computes: epilogue(a @ w.T)."""
+def _proj_plain(a, w, bias, resid=None, gelu=False, out_f32=False) -> torch.Tensor:
+    """What ``_proj`` computes: epilogue(a @ w.T), rounded to a's dtype, or
+    the fp32 sums unrounded where ``out_f32``."""
     v = _linear_f32(a, w, bias)
     if gelu:
         v = F.gelu(v)
     if resid is not None:
         v = resid.float() + v
-    return v.to(a.dtype)
+    return v if out_f32 else v.to(a.dtype)
 
 
-def _proj(lib, stream, a, w, bias, out=None, resid=None, gelu=False):
+def _proj(lib, stream, a, w, bias, out=None, resid=None, gelu=False, out_f32=False):
     """Launch the bf16 skinny projection (csrc/skinny_proj.cu) on (M, K) rows:
-    ``out = round(epilogue(a @ w.T))`` in one launch: + bias, GELU if
-    ``gelu``, then resid + that; programmatically dependent on the launch
-    before it (its weight streams while that one drains). The callers have
-    checked the operands."""
+    ``out = epilogue(a @ w.T)`` in one launch: + bias, GELU if ``gelu``,
+    then resid + that, rounded to bf16 (fp32 unrounded where ``out_f32``);
+    programmatically dependent on the launch before it (its weight streams
+    while that one drains). The callers have checked the operands."""
     M, K = a.shape
     N = w.shape[0]
     if out is None:
-        out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+        out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype, device=a.device)
     _build.check(lib.olm_proj(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        None if resid is None else resid.data_ptr(), out.data_ptr(), M, N, K, int(gelu), stream,
+        None if resid is None else resid.data_ptr(), out.data_ptr(), M, N, K, int(gelu),
+        int(out_f32), stream,
     ), "skinny projection")
     return out
 
@@ -238,9 +242,11 @@ def ln_matmul(
 
     Replaces ``olmoasr_tpu/ops/attention.py::ln_matmul``
     (``_ln_matmul_kernel``). Bound on the card: the weight read, 3*D*D
-    elements per layer (small.en bf16: 3.5 MB) against 6*B*D*D FLOPs. The
-    kernel (``csrc/linear.cu``) is the row LayerNorm launch, then the split-K
-    skinny linear with N = 3D and a bias epilogue.
+    elements per layer (small.en bf16: 3.5 MB) against 6*B*D*D FLOPs, so
+    latency. In bf16 it is two launches of ``csrc/skinny_proj.cu``: the row
+    LayerNorm into bf16 h, then the QKV product (N = 3D) with a bias
+    epilogue, programmatically dependent on the LayerNorm. In fp32 (the
+    checks) ``csrc/linear.cu``: a LayerNorm launch, then the split-K linear.
     """
     if not x.is_cuda:
         return ln_matmul_plain(x, ln_g, ln_b, w, b)
@@ -250,9 +256,12 @@ def ln_matmul(
     _require(tuple(ln_g.shape) == (D,) and tuple(ln_b.shape) == (D,), what, "LN shapes")
     _check_operands(what, x.dtype, x.device, x=x, ln_g=ln_g, ln_b=ln_b, w=w, b=b)
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
-    h = _layer_norm(lib, stream, x, ln_g, ln_b)
     out = torch.empty((x.shape[0], 1, N), dtype=x.dtype, device=x.device)
-    _linear(lib, stream, h, w, b, out.view(-1, N))
+    if x.dtype == torch.bfloat16:
+        _require(D <= 1280, what, f"the bf16 LayerNorm takes D up to 1280, not {D}")
+        _proj(lib, stream, _proj_layer_norm(lib, stream, x, ln_g, ln_b), w, b, out.view(-1, N))
+    else:
+        _linear(lib, stream, _layer_norm(lib, stream, x, ln_g, ln_b), w, b, out.view(-1, N))
     ln_matmul.launches += 1
     return out
 
@@ -424,14 +433,17 @@ def cross_block_decode(
     reads cache row b // kv_group (best_of samples of one window share its
     cache). Bound on the card: the cross cache read, 2*B*T*D elements per
     layer and step for B cache rows (small.en, B=64, bf16: 295 MB per layer).
-    Launches: the LayerNorm and the q projection (``csrc/linear.cu``, fp32
-    q); the split-T attention and its combine (``csrc/cross_attention.cu``:
-    one block per 128-key chunk, head and query row, 16-byte loads, so the
-    cache read spreads over every SM; a group's rows are grid neighbours and
-    share the read through L2); the output projection with bias + residual
-    (``csrc/linear.cu``). int8 keys under bf16 activations take the TPU
-    kernel's int8 q.K product (q rounded per head, ``__dp4a``;
-    :func:`qk_logits`); fp32 activations keep the exact product.
+    Launches: the LayerNorm and the q projection with its bias, stored fp32
+    unrounded; the split-T attention and its combine
+    (``csrc/cross_attention.cu``: one block per 128-key chunk, head and query
+    row, 16-byte loads, so the cache read spreads over every SM; a group's
+    rows are grid neighbours and share the read through L2); the output
+    projection with bias + residual. In bf16 the LayerNorm and the two
+    projections run on ``csrc/skinny_proj.cu`` (five launches in all; q's
+    product and Wo each programmatically dependent on the launch before it),
+    in fp32 (the checks) on ``csrc/linear.cu``. int8 keys under bf16
+    activations take the TPU kernel's int8 q.K product (q rounded per head,
+    ``__dp4a``; :func:`qk_logits`); fp32 activations keep the exact product.
     """
     if not x.is_cuda:
         return cross_block_decode_plain(
@@ -459,9 +471,13 @@ def cross_block_decode(
                     wo=wo, bo=bo)
     _require(tuple(wq.shape) == (D, D) and tuple(wo.shape) == (D, D), what, "weight shapes")
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
-    h = _layer_norm(lib, stream, x, ln_g, ln_b)
+    bf16 = x.dtype == torch.bfloat16
     q = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    _linear(lib, stream, h, wq, bq, q)
+    if bf16:
+        _require(D <= 1280, what, f"the bf16 LayerNorm takes D up to 1280, not {D}")
+        _proj(lib, stream, _proj_layer_norm(lib, stream, x, ln_g, ln_b), wq, bq, q, out_f32=True)
+    else:
+        _linear(lib, stream, _layer_norm(lib, stream, x, ln_g, ln_b), wq, bq, q)
     m_part, l_part, acc_part = _partials(
         B, n_head, lib.olm_decode_attention_chunks(T), dh, x.device)
     attn = torch.empty((B, D), dtype=x.dtype, device=x.device)
@@ -472,7 +488,7 @@ def cross_block_decode(
         _build.dtype_code(x.dtype), _q_scale(dh), stream,
     ), "cross_block_decode (attention)")
     out = torch.empty_like(x)
-    _linear(lib, stream, attn, wo, bo, out.view(B, D), resid=x.view(B, D))
+    (_proj if bf16 else _linear)(lib, stream, attn, wo, bo, out.view(B, D), resid=x.view(B, D))
     cross_block_decode.launches += 1
     return out
 

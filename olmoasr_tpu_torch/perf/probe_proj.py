@@ -1,24 +1,28 @@
 """Where the time of the decode step's skinny projections goes, on the card
-(PERF.md §6 rows 2 and 6): ``csrc/skinny_proj.cu`` beside the
-``csrc/linear.cu`` launches it replaced, at small.en's widths (D=768,
-F=3072) and the decode step's rows (64 greedy, 160 for 32 windows x 5 beams).
+(PERF.md §6 rows 1, 2, 5 and 6): ``csrc/skinny_proj.cu`` at small.en's
+widths (D=768, F=3072) and the decode step's rows (64 greedy, 80 for 16
+files x 5 on the long-form slice, 160 for 32 windows x 5 beams).
 
 For each row count, from replays of CUDA graphs; each time is given twice:
 ``ms``, a graph of one call as ``chip_smoke.timed_ms`` takes it, and
 ``ms_b2b``, per call in a graph of 20 calls back to back.
 
-- ``linear``: linear.cu's launches, each alone: the LayerNorm, W1 (+ GELU;
-  split K and its sum launch), W2 (+ residual), Wo (+ residual), and
-  ``mlp_block``'s five together;
-- ``proj``: the new launches at the kernel's own cluster size and row
-  groups, each alone and waiting for the launch before in full (``pdl``
-  off): the LayerNorm, W1, W2, Wo; then ``mlp_block``'s three launches with
-  and without the programmatic dependence, and ``matmul_residual``;
+- ``proj``: each launch at the kernel's own cluster size and row groups,
+  alone and waiting for the launch before in full (``pdl`` off): the
+  LayerNorm, W1, W2, Wo, the fused QKV of ``ln_matmul`` and the cross q
+  projection Wq of ``cross_block_decode`` (stored fp32); then
+  ``mlp_block``'s three launches with and without the programmatic
+  dependence, ``matmul_residual`` and ``ln_matmul``;
 - ``sweep``: every product (``pdl`` off) at clusters of 1-8 blocks and the
   rows in one or two groups of blocks;
-- ``programmatic_edges``: the edges of a graph capture of ``mlp_block``
-  then ``matmul_residual`` that keep the programmatic dependence (3: W1 on
-  the LayerNorm, W2 on W1, Wo on W2);
+- ``ln_matmul pdl``: ``ln_matmul``'s two launches with QKV at the kernel's
+  choice and at the two choices its rule weighs (6 slices in one row
+  group, 3 in two), each with and without the programmatic dependence on
+  the LayerNorm;
+- ``programmatic_edges``: the edges of a graph capture of ``mlp_block``,
+  ``matmul_residual`` and ``ln_matmul`` that keep the programmatic
+  dependence (4: W1 on the LayerNorm, W2 on W1, Wo on W2, QKV on its
+  LayerNorm);
 - ``trace``: one traced launch of each product at the kernel's choice: over
   the blocks, the longest and the mean time from the first block's start to
   the block's start, then each step to the next mark (STEPS: W's first
@@ -26,9 +30,11 @@ For each row count, from replays of CUDA graphs; each time is given twice:
   done, the partials in, the stores issued); and the span from the first
   start to the last end.
 
-Each new launch is held against the plain version (two bf16 steps at the
-output's largest magnitude). Run: ``python -m
-olmoasr_tpu_torch.perf.probe_proj`` (one JSON line per row count).
+Each launch is held against the plain version (two bf16 steps at the
+output's largest magnitude; for the fp32 store 1e-4 of it, at least 1e-4).
+The times of the split-K bf16 launches these replaced are in PERF.md §6;
+``chip_smoke.py --ab`` compares against a tree that has them. Run: ``python -m olmoasr_tpu_torch.perf.probe_proj`` (one JSON line
+per row count).
 """
 
 from __future__ import annotations
@@ -43,16 +49,18 @@ from olmoasr_tpu_torch.ops import _build
 from olmoasr_tpu_torch.ops import attention as A
 
 D, F = 768, 3072
-ROWS = (64, 160)
+ROWS = (64, 80, 160)
 RUNS = 11
 CLUSTERS = (1, 2, 3, 4, 6, 8)
 ROW_GROUPS = (1, 2)
+LNMM_CHOICES = ((0, 0), (6, 1), (3, 2))  # QKV's (cluster size, row groups); 0: the kernel's
 CALLS = 20  # calls in one graph for the back-to-back time
 # the marks of csrc/skinny_proj.cu, each named by the step that ends at it
 STEPS = ("start", "w issued", "a issued", "first in", "stream", "partials", "epilogue")
 
 
-def launch(a, w, bias, resid=None, gelu=False, cs=0, rg=0, pdl=True, trace=None):
+def launch(a, w, bias, resid=None, gelu=False, out_f32=False, cs=0, rg=0, pdl=True,
+           trace=None):
     """One launch of csrc/skinny_proj.cu through its probe entry
     (``olm_proj_probe``): ``cs`` and ``rg`` name the cluster size and the
     groups of blocks the rows are spread over (0: the kernel's choice, as
@@ -60,11 +68,12 @@ def launch(a, w, bias, resid=None, gelu=False, cs=0, rg=0, pdl=True, trace=None)
     wait for the one before in full; ``trace``, an int64 tensor, takes the
     blocks' timer marks."""
     M, K = a.shape
-    out = torch.empty((M, w.shape[0]), dtype=a.dtype, device=a.device)
+    out = torch.empty((M, w.shape[0]), dtype=torch.float32 if out_f32 else a.dtype,
+                      device=a.device)
     _build.check(_build.lib().olm_proj_probe(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         None if resid is None else resid.data_ptr(), out.data_ptr(), M, w.shape[0], K,
-        int(gelu), cs, rg, int(pdl), None if trace is None else trace.data_ptr(),
+        int(gelu), int(out_f32), cs, rg, int(pdl), None if trace is None else trace.data_ptr(),
         _build.stream_ptr(a.device),
     ), "skinny projection")
     return out
@@ -106,10 +115,12 @@ def _inputs(gen, M):
     w1, b1, w2, b2 = r(F, D, scale=D ** -0.5), r(F, scale=0.02), r(D, F, scale=F ** -0.5), \
         r(D, scale=0.02)
     wo, bo, attn = r(D, D, scale=D ** -0.5), r(D, scale=0.02), r(M, D)
+    wqkv, bqkv, wq, bq = r(3 * D, D, scale=D ** -0.5), r(3 * D, scale=0.02), \
+        r(D, D, scale=D ** -0.5), r(D, scale=0.02)
     h = A._ln_f32(x, *ln).to(torch.bfloat16)
     u = A._proj_plain(h, w1, b1, gelu=True)
     return {"x": x, "ln": ln, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "wo": wo, "bo": bo,
-            "attn": attn, "h": h, "u": u}
+            "wqkv": wqkv, "bqkv": bqkv, "wq": wq, "bq": bq, "attn": attn, "h": h, "u": u}
 
 
 def _products(t):
@@ -118,28 +129,9 @@ def _products(t):
         "w1": dict(a=t["h"], w=t["w1"], bias=t["b1"], gelu=True),
         "w2": dict(a=t["u"], w=t["w2"], bias=t["b2"], resid=t["x"]),
         "wo": dict(a=t["attn"], w=t["wo"], bias=t["bo"], resid=t["x"]),
+        "qkv": dict(a=t["h"], w=t["wqkv"], bias=t["bqkv"]),
+        "wq f32": dict(a=t["h"], w=t["wq"], bias=t["bq"], out_f32=True),
     }
-
-
-def _linear_ms(t) -> dict:
-    lib, stream = _build.lib(), lambda: _build.stream_ptr(torch.device("cuda"))
-    M = t["x"].shape[0]
-    u = torch.empty((M, F), dtype=torch.bfloat16, device="cuda")
-    out = torch.empty((M, D), dtype=torch.bfloat16, device="cuda")
-    calls = {
-        "layer norm": lambda: A._layer_norm(lib, stream(), t["x"], *t["ln"]),
-        "w1": lambda: A._linear(lib, stream(), t["h"], t["w1"], t["b1"], u, gelu=True),
-        "w2": lambda: A._linear(lib, stream(), t["u"], t["w2"], t["b2"], out, resid=t["x"]),
-        "wo": lambda: A._linear(lib, stream(), t["attn"], t["wo"], t["bo"], out, resid=t["x"]),
-    }
-    out_ms = {name: _both_ms(fn) for name, fn in calls.items()}
-
-    def mlp():
-        h = A._layer_norm(lib, stream(), t["x"], *t["ln"])
-        A._linear(lib, stream(), h, t["w1"], t["b1"], u, gelu=True)
-        A._linear(lib, stream(), u, t["w2"], t["b2"], out, resid=t["x"])
-    out_ms["mlp_block"] = _both_ms(mlp)
-    return out_ms
 
 
 def _checked_ms(kw, cs=0, rg=0):
@@ -153,7 +145,8 @@ def _checked_ms(kw, cs=0, rg=0):
         return {"error": str(exc).splitlines()[0]}
     want = A._proj_plain(**kw)
     err = float((got.float() - want.float()).abs().max())
-    tol = 2.0 ** -6 * float(want.float().abs().max())
+    big = float(want.float().abs().max())
+    tol = 1e-4 * max(1.0, big) if want.dtype == torch.float32 else 2.0 ** -6 * big
     return {**_both_ms(call), "max_abs_err": err, "ok": err <= tol}
 
 
@@ -192,7 +185,7 @@ def programmatic_edges(fn) -> int:
 def probe(M: int) -> dict:
     t = _inputs(torch.Generator().manual_seed(M), M)
     products = _products(t)
-    out = {"rows": M, "linear": _linear_ms(t)}
+    out = {"rows": M}
     out["proj"] = {name: _checked_ms(kw) for name, kw in products.items()}
     out["proj"]["layer norm"] = _both_ms(lambda: _layer_norm(t["x"], *t["ln"]))
     out["proj"]["mlp_block"] = _both_ms(
@@ -204,10 +197,18 @@ def probe(M: int) -> dict:
     out["proj"]["mlp_block pdl off"] = _both_ms(serial)
     out["proj"]["matmul_residual"] = _both_ms(
         lambda: A.matmul_residual(t["attn"][:, None], t["x"][:, None], t["wo"], t["bo"]))
-    # mlp_block then matmul_residual: LN -> W1 -> W2 -> Wo, three such edges
+    lnmm = lambda: A.ln_matmul(t["x"][:, None], *t["ln"], t["wqkv"], t["bqkv"])
+    out["proj"]["ln_matmul"] = _both_ms(lnmm)
+    # mlp_block, matmul_residual, ln_matmul: LN -> W1 -> W2 -> Wo, then LN ->
+    # QKV, four such edges
     out["programmatic_edges"] = programmatic_edges(lambda: (
         A.mlp_block(t["x"][:, None], *t["ln"], t["w1"], t["b1"], t["w2"], t["b2"]),
-        A.matmul_residual(t["attn"][:, None], t["x"][:, None], t["wo"], t["bo"])))
+        A.matmul_residual(t["attn"][:, None], t["x"][:, None], t["wo"], t["bo"]), lnmm()))
+    out["ln_matmul pdl"] = {
+        f"cs{c} rg{g} pdl {'on' if pdl else 'off'}": _both_ms(
+            lambda c=c, g=g, pdl=pdl: launch(_layer_norm(t["x"], *t["ln"]), t["wqkv"], t["bqkv"],
+                                             cs=c, rg=g, pdl=pdl))
+        for c, g in LNMM_CHOICES for pdl in (True, False)}
     out["sweep"] = {name: {f"cs{cs} rg{rg}": _checked_ms(kw, cs, rg)
                            for cs in CLUSTERS for rg in ROW_GROUPS}
                     for name, kw in products.items()}

@@ -11,14 +11,16 @@ land far apart (``_outlier_q_case``); the int8 self rings the same way
 (``_outlier_self_case``).
 
 On the CPU each wrapper runs its plain PyTorch twin, so these tests pin the
-twins' semantics to the TPU kernels; ``mlp_block`` and ``matmul_residual``
-also at the beam's 160 rows and at 5, in fp32 and bf16. Tests marked
-``gpu`` hold the CUDA kernels against the same twins; they skip where torch
-has no CUDA device. The bf16 skinny projection (``csrc/skinny_proj.cu``,
-rows 2 and 6) is held there at every decode path's rows (1, 5, 64, 80,
-160, and 200 for a second pass over W), K of 768 and 3072, with and without
-GELU and residual, two calls bit-equal, its programmatically dependent
-launches bit-equal to serial ones.
+twins' semantics to the TPU kernels; ``mlp_block``, ``matmul_residual`` and
+``ln_matmul`` also at the beam's 160 rows and at 5, ``cross_block_decode``
+at 32 windows x 5 rows and at 7, in fp32 and bf16. Tests marked ``gpu``
+hold the CUDA kernels against the same twins; they skip where torch has no
+CUDA device. The bf16 skinny projection (``csrc/skinny_proj.cu``, rows 1,
+2, 5 and 6) is held there at every decode path's rows (1, 5, 64, 80, 160,
+and 200 for a second pass over W), K of 768 and 3072, with and without GELU
+and residual, the QKV width and the fp32 store of the cross q, two calls
+bit-equal, its programmatically dependent launches bit-equal to serial
+ones; ``csrc/linear.cu`` refuses bf16.
 JAX is imported inside the fixture that needs it, so that the ``gpu`` tests
 also run where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_ops.py``.
@@ -606,22 +608,86 @@ def test_matmul_residual_plain_matches_jax_kernel_at_decode_rows(jx, rows, act):
     _close_act(got, want, act)
 
 
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [5, 160])
+def test_ln_matmul_plain_matches_jax_kernel_at_decode_rows(jx, rows, act):
+    """The twin that the bf16 QKV launches (csrc/skinny_proj.cu) are held
+    to, at the beam's 160 rows and at a row count that is no multiple of
+    16."""
+    rng = _rng(14)
+    p = _block_params(rng)
+    xj, xt = _as(act, rng.standard_normal((rows, 1, D)).astype(np.float32))
+    names = ("ln_g", "ln_b", "wqkv", "bqkv")
+    want = jx.attn.ln_matmul(xj, *[_as(act, p[n])[0] for n in names], jx.jnp.int32(LAYER),
+                             interpret=True)
+    mine = [_as(act, np.ascontiguousarray(p[n][LAYER].T if n == "wqkv" else p[n][LAYER]))[1]
+            for n in names]
+    got = attention.ln_matmul_plain(xt, *mine)
+    assert got.dtype == xt.dtype and got.shape == (rows, 1, 3 * D)
+    _close_act(got, want, act)
+
+
+@pytest.mark.parametrize("act", ["fp32", "bf16"])
+@pytest.mark.parametrize("windows,group", [(32, 5), (7, 1)])
+def test_cross_block_decode_plain_matches_jax_kernel_at_decode_rows(jx, windows, group, act):
+    """The twin that row 1's bf16 launches (the projections on
+    csrc/skinny_proj.cu, the cross pass on csrc/cross_attention.cu) are held
+    to, over a cache in the activation type: the beam's 32 windows x 5 rows
+    (kv_group 5, 160 rows) and a ragged 7 rows of one window each."""
+    jnp = jx.jnp
+    rng = _rng(15)
+    p = _block_params(rng)
+    xj, xt = _as(act, rng.standard_normal((windows * group, 1, D)).astype(np.float32))
+    (ckj, ckt), (cvj, cvt) = (_as(act, rng.standard_normal((L, windows, T, D)).astype(np.float32))
+                              for _ in range(2))
+    ones = jnp.ones((L, windows, T), jnp.float32)
+    names = ("ln_g", "ln_b", "wq", "bq", "wo", "bo")
+    want = jx.attn.cross_block_decode(
+        xj, *[_as(act, p[n])[0] for n in names], ckj, cvj, ones, ones, jnp.int32(LAYER),
+        n_head=H, interpret=True, wv_mode="dot", kv_group=group,
+    )
+    mine = [_as(act, np.ascontiguousarray(p[n][LAYER].T if n in ("wq", "wo") else p[n][LAYER]))[1]
+            for n in names]
+    scale = torch.ones(windows, 1, T)
+    got = attention.cross_block_decode_plain(xt, *mine, ckt[LAYER], cvt[LAYER], scale, scale, H,
+                                             group)
+    assert got.dtype == xt.dtype and got.shape == (windows * group, 1, D)
+    _close_act(got, want, act)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_proj_plain_composes_the_twins(dtype):
     """The skinny projection's plain version (what the gpu tests and
-    perf/probe_proj hold the kernel to) composes to mlp_block_plain and
-    matmul_residual_plain bit for bit."""
+    perf/probe_proj hold the kernel to) composes to mlp_block_plain,
+    matmul_residual_plain, ln_matmul_plain and, with the fp32 store for q,
+    cross_block_decode_plain bit for bit."""
     g = torch.Generator().manual_seed(13)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dtype)
     x, attn = r(7, D), r(7, D)
     ln = (1 + r(D, scale=0.1), r(D, scale=0.1))
     w1, b1, w2, b2 = r(FF, D, scale=D ** -0.5), r(FF, scale=0.1), r(D, FF, scale=FF ** -0.5), \
         r(D, scale=0.1)
-    u = attention._proj_plain(attention._ln_f32(x, *ln).to(dtype), w1, b1, gelu=True)
+    h = attention._ln_f32(x, *ln).to(dtype)
+    u = attention._proj_plain(h, w1, b1, gelu=True)
     assert torch.equal(attention._proj_plain(u, w2, b2, resid=x),
                        attention.mlp_block_plain(x, *ln, w1, b1, w2, b2))
     assert torch.equal(attention._proj_plain(attn, w2[:, :D].contiguous(), b2, resid=x),
                        attention.matmul_residual_plain(attn, x, w2[:, :D].contiguous(), b2))
+    wqkv, bqkv = w1[:3 * D].contiguous(), b1[:3 * D].contiguous()
+    assert torch.equal(attention._proj_plain(h, wqkv, bqkv),
+                       attention.ln_matmul_plain(x, *ln, wqkv, bqkv))
+    # the cross sub-block: q's product stored fp32 unrounded, then scaled
+    wq, bq, wo, bo = r(D, D, scale=D ** -0.5), r(D, scale=0.1), r(D, D, scale=D ** -0.5), \
+        r(D, scale=0.1)
+    ck, cv = r(7, T, D), r(7, T, D)
+    ones = torch.ones(7, 1, T)
+    q = attention._proj_plain(h, wq, bq, out_f32=True)
+    assert q.dtype == torch.float32
+    q = q * attention._q_scale(D // H)
+    a = attention._cross_attend_plain(q[:, None], ck, cv, ones, ones, H, False).to(dtype)
+    assert torch.equal(attention._proj_plain(a[:, 0], wo, bo, resid=x),
+                       attention.cross_block_decode_plain(x[:, None], *ln, wq, bq, wo, bo, ck,
+                                                          cv, ones, ones, H)[:, 0])
 
 
 @pytest.mark.parametrize("valid_len", [None, 53])
@@ -734,20 +800,27 @@ def test_mlp_kernel_matches_twin(cuda, act):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
-def _proj(a, w, bias, resid=None, gelu=False):
+def _proj(a, w, bias, resid=None, gelu=False, out_f32=False):
     return attention._proj(_build.lib(), _build.stream_ptr(a.device), a, w, bias, resid=resid,
-                           gelu=gelu)
+                           gelu=gelu, out_f32=out_f32)
 
 
 def _proj_layer_norm(x, g, b):
     return attention._proj_layer_norm(_build.lib(), _build.stream_ptr(x.device), x, g, b)
 
 
+def _fp32_tol(want):
+    """fp32 sums of the same exact bf16 products in another order."""
+    return 1e-4 * max(1.0, float(want.abs().max()))
+
+
 # the bf16 skinny projection (csrc/skinny_proj.cu): (K, N, epilogue) of the
-# decode step's products -- Wo (+ residual), W1 (+ GELU), W2 (+ residual) --
-# and the other mixes of GELU and residual
+# decode step's products -- Wo (+ residual), W1 (+ GELU), W2 (+ residual),
+# QKV (bias alone), the cross q (bias, stored fp32) -- and the other mixes
+# of GELU and residual
 PROJ_CASES = [(768, 768, "resid"), (768, 3072, "gelu"), (3072, 768, "resid"), (3072, 768, ""),
-              (768, 768, "gelu resid"), (3072, 3072, "gelu resid")]
+              (768, 768, "gelu resid"), (3072, 3072, "gelu resid"), (768, 2304, ""),
+              (768, 768, "f32")]
 
 
 @pytest.mark.gpu
@@ -758,15 +831,17 @@ def test_skinny_proj_kernel_matches_twin(cuda, M, K, N, epi):
     80, beam 160; 200 takes a second pass over W), twice: the same bits."""
     g = torch.Generator().manual_seed(M * 7 + K)
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
-    kw = dict(a=r(M, K), w=r(N, K, scale=K ** -0.5), bias=r(N, scale=0.1), gelu="gelu" in epi)
+    kw = dict(a=r(M, K), w=r(N, K, scale=K ** -0.5), bias=r(N, scale=0.1), gelu="gelu" in epi,
+              out_f32="f32" in epi)
     if "resid" in epi:
         kw["resid"] = r(M, N)
     got = _proj(**kw)
     again = probe_proj.launch(**kw, pdl=False)
     want = attention._proj_plain(**kw)
     torch.cuda.synchronize()
-    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
-    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+    assert got.shape == (M, N) and got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    tol = _fp32_tol(want) if kw["out_f32"] else _bf16_tol(want)
+    assert float((got.float() - want.float()).abs().max()) <= tol
     assert torch.equal(got, again)
 
 
@@ -796,6 +871,76 @@ def test_mlp_and_matmul_residual_bf16_kernels(cuda, M):
     u = probe_proj.launch(_proj_layer_norm(x, *mlp[:2]), *mlp[2:4], gelu=True, pdl=False)
     serial = probe_proj.launch(u, *mlp[4:], resid=x.view(M, Dm), pdl=False)
     assert torch.equal(attention.mlp_block(x, *mlp).view(M, Dm), serial)
+
+
+def _cross_serial(x, ln_g, ln_b, wq, bq, wo, bo, ck, cv, ks, vs, n_head, kv_group):
+    """cross_block_decode's bf16 launches, each waiting for the one before in
+    full: the LayerNorm, q's product stored fp32, the cross pass and its
+    combine, the output projection."""
+    lib, stream = _build.lib(), _build.stream_ptr(x.device)
+    B, _, Dc = x.shape
+    T_ = ck.shape[1]
+    q = probe_proj.launch(_proj_layer_norm(x, ln_g, ln_b), wq, bq, out_f32=True, pdl=False)
+    parts = attention._partials(B, n_head, lib.olm_decode_attention_chunks(T_), Dc // n_head,
+                                x.device)
+    attn = torch.empty((B, Dc), dtype=x.dtype, device=x.device)
+    _build.check(lib.olm_cross_attention(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        *[t.data_ptr() for t in parts], attn.data_ptr(), B, T_, Dc, n_head, kv_group,
+        _build.dtype_code(ck.dtype), _build.dtype_code(x.dtype), attention._q_scale(Dc // n_head),
+        stream), "cross attention")
+    return probe_proj.launch(attn, wo, bo, resid=x.view(B, Dc), pdl=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 5, 64, 80, 160])
+def test_ln_matmul_and_cross_block_bf16_kernels(cuda, M):
+    """The bf16 wrappers of rows 5 and 1 at the decode paths' rows (80 and
+    160 as 5 rows a window over a bf16 cross cache): one launch counted a
+    call, the twin's values, the same bits twice, and the programmatically
+    dependent launches bit-equal to launches that each wait for the one
+    before in full."""
+    g = torch.Generator().manual_seed(100 + M)
+    Dm, Hm, Tm = 768, 12, 300
+    G = 5 if M in (80, 160) else 1
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, torch.bfloat16)
+    x = r(M, 1, Dm)
+    ln = (1 + r(Dm, scale=0.1), r(Dm, scale=0.1))
+    lm = (x, *ln, r(3 * Dm, Dm, scale=Dm ** -0.5), r(3 * Dm, scale=0.1))
+    ones = torch.ones(M // G, 1, Tm, device=cuda)
+    cross = (x, *ln, r(Dm, Dm, scale=Dm ** -0.5), r(Dm, scale=0.1), r(Dm, Dm, scale=Dm ** -0.5),
+             r(Dm, scale=0.1), r(M // G, Tm, Dm), r(M // G, Tm, Dm), ones, ones, Hm, G)
+    for fn, plain, args in ((attention.ln_matmul, attention.ln_matmul_plain, lm),
+                            (attention.cross_block_decode, attention.cross_block_decode_plain,
+                             cross)):
+        before = fn.launches
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, fn.__name__
+        assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want), fn.__name__
+        assert torch.equal(got, again), fn.__name__
+    serial = probe_proj.launch(_proj_layer_norm(x, *ln), *lm[3:], pdl=False)
+    assert torch.equal(attention.ln_matmul(*lm).view(M, 3 * Dm), serial)
+    assert torch.equal(attention.cross_block_decode(*cross).view(M, Dm), _cross_serial(*cross))
+
+
+@pytest.mark.gpu
+def test_linear_refuses_bf16(cuda):
+    """csrc/linear.cu is fp32 only: its product and its LayerNorm refuse
+    bf16 (the bf16 projections run on csrc/skinny_proj.cu)."""
+    lib, stream = _build.lib(), _build.stream_ptr(cuda)
+    a = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty(4, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="linear"):
+        attention._linear(lib, stream, a, a.new_zeros(64, 64), a[0], out)
+    with pytest.raises(RuntimeError, match="layer norm"):
+        attention._layer_norm(lib, stream, a, a[0], a[0])
+    f = a.float()  # the fp32 forms of the same calls launch
+    attention._linear(lib, stream, f, f.new_zeros(64, 64), f[0], out.float())
+    attention._layer_norm(lib, stream, f, f[0], f[0])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
