@@ -1777,9 +1777,13 @@ def write_shards(root: str, n: int = 64, seed: int = 5) -> str:
 # as it does in a real run (its epoch never ends inside the window)
 TRAIN_SAMPLES, TRAIN_MICRO, TRAIN_BATCH, TRAIN_STEPS = 256, 16, 32, 6
 TRAIN_STEPS_FLASH = 3  # the flash route's run: the steps cut, not the width or depth
+# (the flash route's bf16 kernels are the mma kernels under the flash policy,
+# told apart from the kernel route's by the phase that profiles them; its
+# backward's di pass is flash_di_kernel; the flash_*_kernel ones are its fp32)
 ATTN_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel",
                 "attn_fwd_f32_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
-                "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+                "flash_di_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
 # the attention wrappers of each training route: (forward, backward)
 TRAIN_ROUTES = {"kernel": ("train_attention_fwd", "train_attention_bwd"),
                 "flash": ("flash_mha_fwd", "flash_mha_bwd")}
@@ -2279,9 +2283,10 @@ def _ab_inputs(gen) -> dict:
     64 rows and at 160, ``matmul_residual`` at 64 and 160 rows, ``ln_matmul``
     at 64, ``cross_attend_decode`` over 64 windows' bf16 cross cache, the
     training attention's forward and backward (rows 3 and 9) at the three
-    training shapes, then ``ln_matmul`` at 160 rows and the cross sub-block
-    over a bf16 cross cache at 64 rows over 64 and 160 over 32. Rings are
-    one layer deep: a call reads one layer."""
+    training shapes, then ``ln_matmul`` at 160 rows, the cross sub-block
+    over a bf16 cross cache at 64 rows over 64 and 160 over 32, and the
+    flash route's forward and backward (row 10) at ``check_flash``'s bf16
+    shapes. Rings are one layer deep: a call reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2365,6 +2370,26 @@ def _ab_inputs(gen) -> dict:
         ones = torch.ones(B, 1, T, device="cuda")
         out[f"cross bf16, {B * G} rows over {B}"] = (
             "cross", (rows_bf(B * G), *w, *cache, ones, ones, H), {"kv_group": G})
+    # row 10 at check_flash's bf16 shapes (the backward from the plain
+    # forward's residuals, so that both trees read the same ones)
+    from olmoasr_tpu_torch.ops.flash import flash_mha_fwd_plain
+
+    pad_ids = (torch.arange(448)[None] >= lengths[:, None]).int()
+    for kind in ("flash fwd", "flash bwd"):
+        for label, Tq, Tk, causal, ids in (("encoder 1500x1500", 1500, 1500, False, None),
+                                           ("decoder self 448 causal + pad ids", 448, 448, True,
+                                            pad_ids),
+                                           ("cross 448x1500", 448, 1500, False, None)):
+            B = 64 if kind == "flash fwd" and Tq == 1500 else 16
+            q, k, v = bf(B, Tq, D), bf(B, Tk, D), bf(B, Tk, D)
+            if kind == "flash fwd":
+                args = (q, k, v, H, causal, ids, ids)
+            else:
+                gpu = lambda t: None if t is None else t.cuda()
+                o, m, l = (t.cpu() for t in flash_mha_fwd_plain(
+                    *map(gpu, (q, k, v)), H, causal, gpu(ids), gpu(ids)))
+                args = (q, k, v, o, m, l, bf(B, Tq, D), H, causal, ids, ids)
+            out[f"{kind} {label}, B={B}"] = (kind, args, {})
     return out
 
 
@@ -2377,12 +2402,17 @@ def _self_views(args):
     return qkv[..., :D], k_ring, v_ring, qkv[..., D:2 * D], qkv[..., 2 * D:], offset, layer
 
 
-def _ab_call(A, kind, args, kw, TA=None):
+def _ab_call(A, kind, args, kw, TA=None, F=None):
     """The tree's kernel for a case (module A is its ops.attention, TA its
-    ops.train_attention), or None where the tree does not have it; "layer"
-    falls back to the split chain and returns the residual only."""
+    ops.train_attention, F its ops.flash), or None where the tree does not
+    have it; "layer" falls back to the split chain and returns the residual
+    only."""
     import inspect
 
+    if kind == "flash fwd":
+        return lambda: F.flash_mha_fwd(*args, **kw)
+    if kind == "flash bwd":
+        return lambda: F.flash_mha_bwd(*args, **kw)
     if kind == "train fwd":
         return lambda: TA.train_attention_fwd(*args, **kw)
     if kind == "train bwd":
@@ -2411,9 +2441,10 @@ def _import_tree(root: str) -> None:
     is the one imported."""
     sys.path.insert(0, os.path.abspath(root))
     from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import flash as F
     from olmoasr_tpu_torch.ops import train_attention as TA
 
-    for mod in (A, TA):
+    for mod in (A, TA, F):
         if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root)):
             fail(f"imported {mod.__file__}, not the tree at {root}")
 
@@ -2424,6 +2455,7 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
     with each replay queued behind a spin) saved to OUT."""
     _import_tree(root)
     from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import flash as F
     from olmoasr_tpu_torch.ops import train_attention as TA
 
     results = {}
@@ -2431,7 +2463,7 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
         to = lambda a: a.cuda() if torch.is_tensor(a) else [to(t) for t in a] \
             if isinstance(a, list) else a
         args, kw = [to(a) for a in args], {k: to(v) for k, v in kw.items()}
-        fn = _ab_call(A, kind, args, kw, TA)
+        fn = _ab_call(A, kind, args, kw, TA, F)
         if fn is None:
             results[name] = None
             continue
@@ -2501,6 +2533,7 @@ def kernel_ab(tree: str) -> None:
     kernel ms and device launches, their medians and spread.
     Fails if this checkout's kernels leave the tolerance."""
     from olmoasr_tpu_torch.ops import attention as A
+    from olmoasr_tpu_torch.ops import flash as F
     from olmoasr_tpu_torch.ops import train_attention as TA
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2516,10 +2549,12 @@ def kernel_ab(tree: str) -> None:
                           if exact else None)
         elif kind == "self":
             refs[name] = (A.self_attend_decode_plain(*_self_views(args), **kw), None)
-        elif kind in ("train fwd", "train bwd"):
+        elif kind in ("train fwd", "train bwd", "flash fwd", "flash bwd"):
             gpu = lambda a: a.cuda() if torch.is_tensor(a) else a
-            plain = (TA.train_attention_fwd_plain if kind == "train fwd"
-                     else TA.train_attention_bwd_plain)
+            plain = {"train fwd": TA.train_attention_fwd_plain,
+                     "train bwd": TA.train_attention_bwd_plain,
+                     "flash fwd": F.flash_mha_fwd_plain,
+                     "flash bwd": F.flash_mha_bwd_plain}[kind]
             want = plain(*map(gpu, args), **{n: gpu(x) for n, x in kw.items()})
             refs[name] = (tuple(x.cpu() for x in want) if isinstance(want, tuple)
                           else want.cpu(), None)
@@ -2653,8 +2688,10 @@ def main() -> None:
         "self_attend_decode_q8": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:322"),
         "cross_attend_decode": ((C + "cross_attention.cu",), "olmoasr_tpu/ops/attention.py:725"),
         "layer_block_decode_mlp": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),
-        "flash_mha_fwd": ((C + "flash_attention.cu",), "olmoasr_tpu/ops/flash.py:72"),
-        "flash_mha_bwd": ((C + "flash_attention.cu",), "olmoasr_tpu/ops/flash.py:72"),
+        "flash_mha_fwd": ((C + "flash_attention.cu", C + "attention_mma.cuh"),
+                          "olmoasr_tpu/ops/flash.py:72"),
+        "flash_mha_bwd": ((C + "flash_attention.cu", C + "attention_mma.cuh"),
+                          "olmoasr_tpu/ops/flash.py:72"),
     }
     # the path that runs each kernel: the long-form slice at the CLI's
     # defaults, for the fused launch the server's default traffic, for the

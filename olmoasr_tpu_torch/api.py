@@ -20,7 +20,8 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 
 class OLMoASR(model_mod.Whisper):
     """Whisper-architecture model with ``transcribe``, ``decode``,
-    ``embed_audio``, ``logits`` and ``forward`` (reference ``OLMoASR`` API)."""
+    ``embed_audio``, ``logits`` and ``forward`` (reference ``OLMoASR`` API);
+    ``device`` and ``dtype`` are the ``Whisper`` module's."""
 
     @property
     def is_multilingual(self) -> bool:
@@ -30,9 +31,19 @@ class OLMoASR(model_mod.Whisper):
     def num_languages(self) -> int:
         return self.dims.n_vocab - 51765 - int(self.is_multilingual)
 
+    def num_params(self) -> int:
+        """Elements of the parameters: the leaves of the JAX package's param
+        tree. The encoder's sinusoidal ``positional_embedding`` is a buffer
+        here and a constant there, so neither counts it."""
+        return sum(p.numel() for p in self.parameters())
+
+    def astype(self, dtype: torch.dtype) -> "OLMoASR":
+        """The weights cast to ``dtype`` in place; returns the model."""
+        return self.to(dtype)
+
     def half(self) -> "OLMoASR":
         """The weights cast to bf16 in place, as the JAX package's ``half``."""
-        return self.to(torch.bfloat16)
+        return self.astype(torch.bfloat16)
 
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,7 +1,8 @@
 // Register-resident attention tiles for Hopper's tensor cores, in the
 // FlashAttention-2 style: the core of the bf16 training-attention kernels
-// (train_attention.cu: the forward, the dq and the dk/dv launches) and of
-// their timing probes (attention_probes.cu).
+// (train_attention.cu: the forward, the dq and the dk/dv launches), of their
+// timing probes (attention_probes.cu) and, under the flash score policy
+// (kFlash below), of the flash route's bf16 kernels (flash_attention.cu).
 //
 // Every product is mma.sync.m16n8k16 (bf16 operands, fp32 accumulation). A
 // warp owns 16 rows of its block's tile. Operands come from XOR-swizzled
@@ -27,6 +28,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -268,9 +271,12 @@ enum : int {
   kDropDiv = 16,  // o = P.V, not divided by l
   kBf16Exp = 32,  // exp in bf16
   kExp2 = 64,  // exp as ex2.approx(x log2 e): the production forward's
+  kFlash = 128,  // the flash score policy (row 10; see "the flash policy" below)
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
+// the stock Pallas flash kernel's DEFAULT_MASK_VALUE, -0.7 * FLT_MAX in fp32
+constexpr float kFlashMask = static_cast<float>(-0.7 * 3.4028234663852886e38);
 // |row max| up to which the forward folds it into the exp's fma: the fold
 // moves the exponent by at most |m| log2(e) 2^-24, here 5.5e-6, so p by 4e-6
 // of itself at most (ex2.approx adds 2^-22)
@@ -309,6 +315,12 @@ struct FwdParams {
   int bias_bstride;  // Tk when the bias has a row per batch, 0 when shared
   int causal;
   float scale;  // dh^-0.5 as a bf16 value
+  // the flash policy's (null otherwise): segment ids, both or neither, and
+  // the residuals the forward writes
+  const int* q_ids;  // (B, Tq)
+  const int* kv_ids;  // (B, Tk)
+  float* m;  // (B, H, Tq) row max
+  float* l;  // (B, H, Tq) row sum of the unrounded p
 };
 
 struct BwdParams {
@@ -326,6 +338,22 @@ struct BwdParams {
   int causal;
   float scale;
 };
+
+// the flash policy's backward (stats unused): segment ids, both or neither,
+// and the forward's residuals with the caller's di = sum(o * do) in place of
+// the workspace. A struct of its own, so that row 9's launches take the
+// arguments they took before (with these fields in BwdParams, ptxas spilled
+// more in row 9's dk/dv launch).
+struct FlashBwdParams : BwdParams {
+  const int* q_ids;  // (B, Tq)
+  const int* kv_ids;  // (B, Tk)
+  const float* m;  // (B, H, Tq)
+  const float* l;
+  const float* di;
+};
+
+template <bool FLASH>
+using BwdArgs = std::conditional_t<FLASH, FlashBwdParams, BwdParams>;
 
 // the key tiles a query tile [q0, q0 + rows) needs: with the causal mask,
 // keys past its last row are masked in every row and give p = 0
@@ -374,6 +402,46 @@ __device__ __forceinline__ void mask_tile(float (&s)[NB][4], int qrow, int key0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the flash policy (row 10, the stock Pallas TPU flash attention): the fp32
+// score times the scale after the product (q is not pre-scaled); segment ids
+// on both sides, where a query's id differs from the key's, or causal and
+// key > query, -0.7 FLT_MAX is ADDED to the score (a row whose keys so far
+// are all masked then has p = 1 on them, as the stock kernel does, until a
+// real key wipes them out); keys past the end are -inf. The forward is one
+// pass with the running max (p rounded to bf16 against it) and writes the
+// residuals m and l; the backward takes them and the caller's di.
+// ---------------------------------------------------------------------------
+
+// the flash score of a warp's 16 x 8*NB block (rows qrow and qrow + 8 of
+// this thread with segment ids qid; keys key0.., their ids kid_s, or null
+// without ids)
+template <int NB>
+__device__ __forceinline__ void flash_mask_tile(float (&s)[NB][4], int qrow, const int (&qid)[2],
+                                                int key0, int Tk, const int* kid_s, bool diag,
+                                                int causal, float scale) {
+  const int tq = threadIdx.x & 3;
+  if (kid_s || diag || key0 + NB * 8 > Tk) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * j + 2 * tq + (e & 1), key = key0 + kc, r = e >> 1;
+        float x = s[j][e] * scale;
+        if (key >= Tk)
+          x = -INFINITY;
+        else if ((kid_s && kid_s[kc] != qid[r]) || (causal && key > qrow + 8 * r))
+          x += kFlashMask;
+        s[j][e] = x;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+  }
+}
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -400,16 +468,23 @@ constexpr int fwd_min_blocks() {
 // for the row max; pass 2 computes S, p, l and P.V with O in registers.
 // Both passes stream the key tiles through one cp.async ring of STAGES
 // stages (K alone in pass 1). Causal rows stop at the diagonal tile and only
-// tiles that cross a warp's diagonal are masked.
+// tiles that cross a warp's diagonal are masked. Under kFlash (row 10) there
+// is one pass: the kv ids ride in the bias slice's place, and each tile
+// raises the running max m, rescales l and O by exp(m_old - m) and adds its
+// p (rounded against the new m) and P.V; a warp skips the key tiles wholly
+// above its diagonal (there p = 0 exactly); m and l go out beside O.
 template <int DH, int HEADS, int BQ, int STAGES, int FLAGS>
 __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ * 2>()))
     attn_fwd_mma_kernel(FwdParams p) {
   constexpr int W = HEADS * DH, NT = HEADS * BQ * 2, NO = DH / 8;
-  constexpr bool kMaxPass = (FLAGS & kDropMax) == 0;
+  constexpr bool kOnline = (FLAGS & kFlash) != 0;
+  constexpr bool kMaxPass = (FLAGS & kDropMax) == 0 && !kOnline;
+  static_assert(!kOnline || HEADS == 1, "the flash policy takes one head a block");
   extern __shared__ __align__(128) unsigned char smem[];
   bf* Qs = reinterpret_cast<bf*>(smem);
   bf* ring = Qs + BQ * W;
   float* bias_ring = reinterpret_cast<float*>(ring + STAGES * 2 * kBK * W);
+  int* id_ring = reinterpret_cast<int*>(bias_ring);  // the flash policy's kv ids
 
   const int q0 = blockIdx.x * BQ, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
@@ -418,8 +493,9 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
   const bf* Q = p.q + static_cast<size_t>(b) * p.Tq * p.D + hoff;
   const bf* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const bf* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const float* bias_row = ((FLAGS & kDropBias) == 0 && p.bias)
+  const float* bias_row = ((FLAGS & kDropBias) == 0 && p.bias && !kOnline)
                               ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
+  const int* kid_row = kOnline && p.kv_ids ? p.kv_ids + static_cast<size_t>(b) * p.Tk : nullptr;
 
   const int nkt = key_tile_count(p.Tk, p.causal, q0, BQ);
   const int pass1 = kMaxPass ? nkt : 0, total = pass1 + nkt;
@@ -435,6 +511,10 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
         cp_async4(bias_ring + st * kBK + threadIdx.x, bias_row + (key < p.Tk ? key : 0),
                   key < p.Tk);
       }
+      if (kid_row && threadIdx.x < kBK) {
+        const int key = k0 + threadIdx.x;
+        cp_async4(id_ring + st * kBK + threadIdx.x, kid_row + (key < p.Tk ? key : 0), key < p.Tk);
+      }
     }
     cp_commit();
   };
@@ -448,13 +528,14 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
     for (int s = 0; s < STAGES - 1; ++s) fetch(s);
     cp_wait<STAGES - 2>();
   }
-  scale_tile<W, BQ, NT>(Qs, p.scale);
+  if constexpr (!kOnline) scale_tile<W, BQ, NT>(Qs, p.scale);
   __syncthreads();
   uint32_t qf[DH / 16][4];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) ld_a<W>(qf[kk], Qs, row0, col0 + kk * 16);
 
-  float m[2] = {kMaxPass ? -INFINITY : 0.f, kMaxPass ? -INFINITY : 0.f};
+  constexpr bool kRunMax = kMaxPass || kOnline;
+  float m[2] = {kRunMax ? -INFINITY : 0.f, kRunMax ? -INFINITY : 0.f};
   float l[2] = {0.f, 0.f};
   // exp as ex2 with the max folded into one fma (the production form)
   constexpr bool kFold = (FLAGS & (kExp2 | kDropExp | kBf16Exp)) == kExp2;
@@ -463,6 +544,12 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
   float o[NO][4];
   zero(o);
   const int qrow = q0 + row0 + g;  // this thread's rows: qrow, qrow + 8
+  int qid[2] = {0, 0};  // the flash policy's query ids
+  if (kOnline && p.q_ids) {
+    const int* ids = p.q_ids + static_cast<size_t>(b) * p.Tq;
+    qid[0] = qrow < p.Tq ? ids[qrow] : 0;
+    qid[1] = qrow + 8 < p.Tq ? ids[qrow + 8] : 0;
+  }
 
   for (int i = 0; i < total; ++i) {
     if constexpr (STAGES == 1) {  // load, then compute
@@ -480,6 +567,8 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
     const int k0 = (second ? i - pass1 : i) * kBK;
     const bf* Ks = ring + st * 2 * kBK * W;
     const float* bias_s = bias_row ? bias_ring + st * kBK : nullptr;
+    // the flash policy: a tile wholly above this warp's diagonal adds p = 0
+    if (kOnline && p.causal && k0 > q0 + row0 + 15) continue;
 
     float s[kBK / 8][4];
     zero(s);
@@ -493,7 +582,32 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
         mma16816(s[2 * nb + 1], qf[kk], bfr[2], bfr[3]);
       }
     }
-    mask_tile(s, qrow, k0, p.Tk, bias_s, p.causal && k0 + kBK - 1 > q0 + row0, p.causal);
+    if constexpr (kOnline) {
+      flash_mask_tile(s, qrow, qid, k0, p.Tk, kid_row ? id_ring + st * kBK : nullptr,
+                      p.causal && k0 + kBK - 1 > q0 + row0, p.causal, p.scale);
+      // the running max; the tile holds key k0 < Tk, whose score is finite
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        const float nm = fmaxf(m[r], quad_max(tmax));
+        const float c = expf(m[r] - nm);  // 0 on the first tile (m = -inf)
+        l[r] *= c;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          o[j][2 * r] *= c;
+          o[j][2 * r + 1] *= c;
+        }
+        m[r] = nm;
+        ml[r] = nm * kLog2e;
+      }
+      // a row whose max is large (all its keys so far masked: m * log2 e
+      // overflows) takes the unfolded form
+      folded = kFold && !__any_sync(kFullMask, fmaxf(fabsf(m[0]), fabsf(m[1])) > kFoldMax);
+    } else {
+      mask_tile(s, qrow, k0, p.Tk, bias_s, p.causal && k0 + kBK - 1 > q0 + row0, p.causal);
+    }
     if (!second) {  // pass 1: the row max
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
@@ -537,6 +651,17 @@ __global__ void __launch_bounds__(HEADS * BQ * 2, (fwd_min_blocks<DH, HEADS * BQ
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
   }
+  if constexpr (kOnline) {  // the residuals: the row max and the row sum
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qrow + 8 * r;
+      if ((lane & 3) == 0 && qi < p.Tq) {
+        const size_t row = (static_cast<size_t>(b) * p.H + blockIdx.y) * p.Tq + qi;
+        p.m[row] = m[r];
+        p.l[row] = l[r];
+      }
+    }
+  }
   // the warp's own rows of the Q tile take its output (no other warp reads them)
   __syncwarp();
   stage_acc<W, NO>(Qs, o, row0, col0, [&](float x, int h) {
@@ -579,14 +704,20 @@ constexpr size_t dq_smem() {
 // rounded there), then delta = sum(p dp) / l, and writes (max, 1 / l,
 // delta) to the workspace. Pass 2 computes S and dP again, forms
 // ds = bf16(pn (dp - delta)) in registers and accumulates dq = ds . K.
-template <int BQ>
-__global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
+// Under the flash policy (FLASH) the statistics are the forward's m, 1 / l
+// and the caller's di, read per row, so only pass 2 runs: the kv ids ride in
+// the bias slice's place, ds = bf16((dp - di) p scale) with
+// p = exp(s - m) / l, and a warp skips the key tiles wholly above its
+// diagonal (there ds = 0 exactly).
+template <int BQ, bool FLASH>
+__global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdArgs<FLASH> p) {
   constexpr int W = 64, NT = BQ * 2, STAGES = kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   bf* Qs = reinterpret_cast<bf*>(smem);
   bf* dOs = Qs + BQ * W;
   bf* ring = dOs + BQ * W;
   float* bias_ring = reinterpret_cast<float*>(ring + STAGES * 2 * kBK * W);
+  int* id_ring = reinterpret_cast<int*>(bias_ring);  // the flash policy's kv ids
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
@@ -596,12 +727,16 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
   const bf* dO = p.dout + static_cast<size_t>(b) * p.Tq * p.D + hoff;
   const bf* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const bf* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const float* bias_row = p.bias ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
+  const float* bias_row =
+      p.bias && !FLASH ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
+  const int* kid_row = nullptr;
+  if constexpr (FLASH) kid_row = p.kv_ids ? p.kv_ids + static_cast<size_t>(b) * p.Tk : nullptr;
 
-  const int nkt = key_tile_count(p.Tk, p.causal, q0, BQ), total = 2 * nkt;
+  // the flash policy has its statistics: pass 2 alone
+  const int nkt = key_tile_count(p.Tk, p.causal, q0, BQ), total = FLASH ? nkt : 2 * nkt;
   auto fetch = [&](int i) {
     if (i < total) {
-      const int k0 = (i < nkt ? i : i - nkt) * kBK, st = i % STAGES;
+      const int k0 = (FLASH || i < nkt ? i : i - nkt) * kBK, st = i % STAGES;
       bf* Ks = ring + st * 2 * kBK * W;
       load_tile<W, kBK, NT>(Ks, K, k0, p.Tk, p.D);
       load_tile<W, kBK, NT>(Ks + kBK * W, V, k0, p.Tk, p.D);
@@ -609,6 +744,10 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
         const int key = k0 + threadIdx.x;
         cp_async4(bias_ring + st * kBK + threadIdx.x, bias_row + (key < p.Tk ? key : 0),
                   key < p.Tk);
+      }
+      if (kid_row && threadIdx.x < kBK) {
+        const int key = k0 + threadIdx.x;
+        cp_async4(id_ring + st * kBK + threadIdx.x, kid_row + (key < p.Tk ? key : 0), key < p.Tk);
       }
     }
     cp_commit();
@@ -618,9 +757,23 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) fetch(s);
   cp_wait<STAGES - 2>();
-  scale_tile<W, BQ, NT>(Qs, p.scale);
+  if constexpr (!FLASH) scale_tile<W, BQ, NT>(Qs, p.scale);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f};
+  int qid[2] = {0, 0};
+  if constexpr (FLASH) {  // m, 1 / l and di of this thread's rows (0 past the end)
+    const size_t srow = (static_cast<size_t>(b) * p.H + h) * p.Tq;
+    const int* ids = p.q_ids ? p.q_ids + static_cast<size_t>(b) * p.Tq : nullptr;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qrow + 8 * r;
+      const bool in = qi < p.Tq;
+      m[r] = in ? p.m[srow + qi] : 0.f;
+      l[r] = in ? 1.f / p.l[srow + qi] : 0.f;
+      pd[r] = in ? p.di[srow + qi] : 0.f;
+      qid[r] = ids && in ? ids[qi] : 0;
+    }
+  }
   float dq[8][4];
   zero(dq);
   for (int i = 0; i < total; ++i) {
@@ -628,17 +781,23 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
     __syncthreads();
     fetch(i + STAGES - 1);
     const int st = i % STAGES;
-    const bool second = i >= nkt;
-    const int k0 = (second ? i - nkt : i) * kBK;
+    const bool second = FLASH || i >= nkt;
+    const int k0 = (FLASH || !second ? i : i - nkt) * kBK;
     const bf* Ks = ring + st * 2 * kBK * W;
     const float* bias_s = bias_row ? bias_ring + st * kBK : nullptr;
+    if (FLASH && p.causal && k0 > q0 + row0 + 15) continue;
 
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
     product_nt<W, 64, 8>(s, Qs, row0, 0, Ks, 0, 0);
     product_nt<W, 64, 8>(dp, dOs, row0, 0, Ks + kBK * W, 0, 0);
-    mask_tile(s, qrow, k0, p.Tk, bias_s, p.causal && k0 + kBK - 1 > q0 + row0, p.causal);
+    if constexpr (FLASH) {
+      flash_mask_tile(s, qrow, qid, k0, p.Tk, kid_row ? id_ring + st * kBK : nullptr,
+                      p.causal && k0 + kBK - 1 > q0 + row0, p.causal, p.scale);
+    } else {
+      mask_tile(s, qrow, k0, p.Tk, bias_s, p.causal && k0 + kBK - 1 > q0 + row0, p.causal);
+    }
     if (!second) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -694,19 +853,23 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
       continue;
     }
     // pass 2: ds = bf16(pn (dp - delta)) into the A fragments, dq += ds . K
+    // (flash: ds = bf16((dp - di) p scale), p = exp(s - m) (1 / l))
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        s[j][e] = expf(s[j][e] - m[r]) * l[r] * (dp[j][e] - pd[r]);
+        if constexpr (FLASH)
+          s[j][e] = (dp[j][e] - pd[r]) * (expf(s[j][e] - m[r]) * l[r]) * p.scale;
+        else
+          s[j][e] = expf(s[j][e] - m[r]) * l[r] * (dp[j][e] - pd[r]);
       }
     product_pv<W, 8>(dq, s, Ks, 0, 0);
   }
-  // dq rounded to q's type, then times the scale in q's type; staged in the
-  // warp's own rows of the Q tile
+  // dq rounded to q's type, then times the scale in q's type (flash: the
+  // scale is in ds); staged in the warp's own rows of the Q tile
   __syncwarp();
-  const float scale = p.scale;
+  const float scale = FLASH ? 1.f : p.scale;
   stage_acc<W, 8>(Qs, dq, row0, 0,
                   [scale](float x, int) { return __bfloat162float(__float2bfloat16(x)) * scale; });
   __syncwarp();
@@ -718,8 +881,13 @@ __global__ void __launch_bounds__(BQ * 2) attn_bwd_dq_mma_kernel(BwdParams p) {
 // backward (row 9), launch (b): per 64-key tile dK and dV
 // ---------------------------------------------------------------------------
 
-constexpr size_t kDkvSmem =
-    (2 * kBK * 64 + kStages * 2 * 64 * 64) * sizeof(bf) + kStages * 3 * 64 * sizeof(float);
+// the resident K and V, STAGES x (Q, dO) and STAGES x the statistics (the
+// flash policy's q ids a fourth vector)
+template <bool FLASH>
+constexpr size_t dkv_smem() {
+  return (2 * kBK * 64 + kStages * 2 * 64 * 64) * sizeof(bf) +
+         kStages * (FLASH ? 4 : 3) * 64 * sizeof(float);
+}
 
 // One block owns 64 keys of one (b, h), a warp 16 of them; K and V stay
 // resident, the query tiles of Q, dO and their statistics stream through the
@@ -728,15 +896,20 @@ constexpr size_t kDkvSmem =
 // delta) formed there and rounded to bf16 into the A fragments of
 // dV += pn^T . dO and dK += ds^T . q, whose accumulators stay in registers.
 // Query rows past the end read zeros (their 1 / l is 0, so pn = ds = 0);
-// key rows past the end are computed and never stored.
+// key rows past the end are computed and never stored. Under the flash
+// policy (FLASH) the statistics are the forward's m and l (each thread turns
+// the l it loaded into 1 / l) and the caller's di, beside the q ids; the kv
+// ids of this thread's two keys stay in registers, q is not pre-scaled, and
+// ds = (dp - di) pn scale.
 // three blocks an SM (at most 170 registers a thread)
-__global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
-  constexpr int W = 64, NT = 128, BQ = 64, STAGES = kStages;
+template <bool FLASH>
+__global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdArgs<FLASH> p) {
+  constexpr int W = 64, NT = 128, BQ = 64, STAGES = kStages, NS = FLASH ? 4 : 3;
   extern __shared__ __align__(128) unsigned char smem[];
   bf* Ks = reinterpret_cast<bf*>(smem);
   bf* Vs = Ks + kBK * W;
   bf* ring = Vs + kBK * W;  // STAGES x (Q, dO)
-  float* stat_ring = reinterpret_cast<float*>(ring + STAGES * 2 * BQ * W);  // STAGES x 3 x 64
+  float* stat_ring = reinterpret_cast<float*>(ring + STAGES * 2 * BQ * W);  // STAGES x NS x 64
 
   const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
@@ -746,11 +919,22 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
   const bf* dO = p.dout + static_cast<size_t>(b) * p.Tq * p.D + hoff;
   const bf* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const bf* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const float* bias_row = p.bias ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
+  const float* bias_row =
+      p.bias && !FLASH ? p.bias + static_cast<size_t>(b) * p.bias_bstride : nullptr;
   float kb[2] = {0.f, 0.f};
   if (bias_row) {
     kb[0] = key < p.Tk ? bias_row[key] : 0.f;
     kb[1] = key + 8 < p.Tk ? bias_row[key + 8] : 0.f;
+  }
+  bool ids = false;
+  int kid[2] = {0, 0};  // the flash policy's kv ids of this thread's keys
+  if constexpr (FLASH) {
+    ids = p.kv_ids != nullptr;
+    if (ids) {
+      const int* row = p.kv_ids + static_cast<size_t>(b) * p.Tk;
+      kid[0] = key < p.Tk ? row[key] : 0;
+      kid[1] = key + 8 < p.Tk ? row[key + 8] : 0;
+    }
   }
   const size_t srow = (static_cast<size_t>(b) * p.H + h) * p.Tq;
   const size_t plane = static_cast<size_t>(p.B) * p.H * p.Tq;
@@ -763,10 +947,20 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
       bf* Qs = ring + st * 2 * BQ * W;
       load_tile<W, BQ, NT>(Qs, Q, q0, p.Tq, p.D);
       load_tile<W, BQ, NT>(Qs + BQ * W, dO, q0, p.Tq, p.D);
-      for (int c = threadIdx.x; c < 3 * BQ; c += NT) {
-        const int e = q0 + c % BQ;
-        cp_async4(stat_ring + st * 3 * BQ + c,
-                  p.stats + (c / BQ) * plane + srow + (e < p.Tq ? e : 0), e < p.Tq);
+      if constexpr (FLASH) {  // m, l, di, then the q ids
+        for (int c = threadIdx.x; c < (ids ? 4 : 3) * BQ; c += NT) {
+          const int e = q0 + c % BQ, pl = c / BQ, row = e < p.Tq ? e : 0;
+          const void* src =
+              pl == 3 ? static_cast<const void*>(p.q_ids + static_cast<size_t>(b) * p.Tq + row)
+                      : (pl == 0 ? p.m : pl == 1 ? p.l : p.di) + srow + row;
+          cp_async4(stat_ring + st * NS * BQ + c, src, e < p.Tq);
+        }
+      } else {
+        for (int c = threadIdx.x; c < 3 * BQ; c += NT) {
+          const int e = q0 + c % BQ;
+          cp_async4(stat_ring + st * 3 * BQ + c,
+                    p.stats + (c / BQ) * plane + srow + (e < p.Tq ? e : 0), e < p.Tq);
+        }
       }
     }
     cp_commit();
@@ -784,8 +978,15 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
     const int st = i % STAGES;
     bf* Qs = ring + st * 2 * BQ * W;
     const bf* dOs = Qs + BQ * W;
-    const float* ms = stat_ring + st * 3 * BQ;
-    scale_tile<W, BQ, NT>(Qs, p.scale);
+    const float* ms = stat_ring + st * NS * BQ;
+    if constexpr (FLASH) {
+      // l -> 1 / l on the entries this thread loaded (0 past the end)
+      float* ls = stat_ring + st * NS * BQ + BQ;
+      for (int c = threadIdx.x; c < 3 * BQ; c += NT)
+        if (c / BQ == 1) ls[c - BQ] = ls[c - BQ] > 0.f ? 1.f / ls[c - BQ] : 0.f;
+    } else {
+      scale_tile<W, BQ, NT>(Qs, p.scale);
+    }
     __syncthreads();
     fetch(i + STAGES - 1);
     const int q0 = (qt0 + i) * BQ;
@@ -794,14 +995,21 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
     zero(s);
     product_nt<W, 64, 8>(s, Ks, row0, 0, Qs, 0, 0);  // S^T: keys x queries
     const bool diag = p.causal && q0 < k0 + kBK;
+    const int* qids = reinterpret_cast<const int*>(ms + 3 * BQ);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + 2 * tq + (e & 1), r = e >> 1;
-        float x = s[j][e] + kb[r];
-        if (diag && key + 8 * r > q0 + c) x = kMaskNeg;
-        s[j][e] = expf(x - ms[c]) * ms[BQ + c];  // pn
+        if constexpr (FLASH) {
+          float x = s[j][e] * p.scale;
+          if ((ids && qids[c] != kid[r]) || (diag && key + 8 * r > q0 + c)) x += kFlashMask;
+          s[j][e] = expf(x - ms[c]) * ms[BQ + c];  // pn
+        } else {
+          float x = s[j][e] + kb[r];
+          if (diag && key + 8 * r > q0 + c) x = kMaskNeg;
+          s[j][e] = expf(x - ms[c]) * ms[BQ + c];  // pn
+        }
       }
     product_pv<W, 8>(dv, s, dOs, 0, 0);  // dV += bf16(pn)^T . dO
     float dp[8][4];
@@ -810,7 +1018,12 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - ms[2 * BQ + 8 * j + 2 * tq + (e & 1)];
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (FLASH)
+          s[j][e] = (dp[j][e] - ms[2 * BQ + 8 * j + 2 * tq + (e & 1)]) * s[j][e] * p.scale;
+        else
+          s[j][e] *= dp[j][e] - ms[2 * BQ + 8 * j + 2 * tq + (e & 1)];
+      }
     product_pv<W, 8>(dk, s, Qs, 0, 0);  // dK += bf16(ds)^T . q
   }
   // the warp's own rows of K and V take dK and dV (no other warp reads them)
@@ -824,12 +1037,13 @@ __global__ void __launch_bounds__(128, 3) attn_bwd_dkv_mma_kernel(BwdParams p) {
                       p.D);
 }
 
-// the two launches of the backward: dq (with the statistics), then dk/dv
-template <int BQ>
-int launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t kA = dq_smem<BQ>(), kB = kDkvSmem;
-  auto dq_kernel = attn_bwd_dq_mma_kernel<BQ>;
-  auto dkv_kernel = attn_bwd_dkv_mma_kernel;
+// the two launches of the backward: dq (with the statistics; the flash
+// policy has them from the forward), then dk/dv
+template <int BQ, bool FLASH = false>
+int launch_bwd(const BwdArgs<FLASH>& p, cudaStream_t stream) {
+  constexpr size_t kA = dq_smem<BQ>(), kB = dkv_smem<FLASH>();
+  auto dq_kernel = attn_bwd_dq_mma_kernel<BQ, FLASH>;
+  auto dkv_kernel = attn_bwd_dkv_mma_kernel<FLASH>;
   static const cudaError_t configured = [&] {
     cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kA));

@@ -1,10 +1,8 @@
-// 64 x 64 tiles of the attention kernels (train_attention.cu, flash_attention.cu):
-// the tile sizes, the per-type block shape, loads and stores of one head's rows,
-// and the two tile products, on the tensor cores (WMMA 16x16x16, fp32
-// accumulation) for bf16 and on the CUDA cores for fp32.
+// 64 x 64 tiles of the fp32 attention kernels (train_attention.cu,
+// flash_attention.cu; their bf16 kernels run on attention_mma.cuh): the tile
+// sizes, the block shape, loads and stores of one head's rows, and the two
+// tile products on the CUDA cores, for exact-precision checks.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -26,11 +24,6 @@ __device__ __forceinline__ int key_tiles(const Args& p, int q0) {
 
 template <typename T>
 struct BwdCfg;
-template <>
-struct BwdCfg<__nv_bfloat16> {
-  static constexpr int kThreads = 128;  // 4 warps x 16 rows
-  static constexpr int kPitch = kDh + 8;  // bf16 row pitch (144 bytes: WMMA-aligned)
-};
 template <>
 struct BwdCfg<float> {
   static constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
@@ -64,29 +57,7 @@ __device__ __forceinline__ void load_rows(const T* src, T* dst, int r0, int n, i
   }
 }
 
-// C (fp32, pitch kSP) = A . B^T for 64 x 64 operand tiles stored row-major
-__device__ __forceinline__ void tile_nt(const __nv_bfloat16* A, const __nv_bfloat16* Bm, float* C) {
-  using namespace nvcuda;
-  using bf = __nv_bfloat16;
-  constexpr int P = BwdCfg<bf>::kPitch;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> af[kDh / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) wmma::load_matrix_sync(af[kk], A + warp * 16 * P + kk * 16, P);
-#pragma unroll
-  for (int n = 0; n < kTk / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::col_major> bfr;
-      wmma::load_matrix_sync(bfr, Bm + n * 16 * P + kk * 16, P);
-      wmma::mma_sync(acc, af[kk], bfr, acc);
-    }
-    wmma::store_matrix_sync(C + warp * 16 * kSP + n * 16, acc, kSP, wmma::mem_row_major);
-  }
-}
-
+// C (pitch kSP) = A . B^T for 64 x 64 operand tiles stored row-major
 __device__ __forceinline__ void tile_nt(const float* A, const float* Bm, float* C) {
   constexpr int P = BwdCfg<float>::kPitch;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -108,39 +79,6 @@ __device__ __forceinline__ void tile_nt(const float* A, const float* Bm, float* 
 // a 64 x 64 fp32 accumulator: acc += A . B for row-major operand tiles
 template <typename T>
 struct TileAcc;
-
-template <>
-struct TileAcc<__nv_bfloat16> {
-  using bf = __nv_bfloat16;
-  static constexpr int P = BwdCfg<bf>::kPitch;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[kDh / 16];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) nvcuda::wmma::fill_fragment(f[n], 0.0f);
-  }
-  __device__ __forceinline__ void add(const bf* A, const bf* Bm) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int kk = 0; kk < kTk / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf, wmma::row_major> af;
-      wmma::load_matrix_sync(af, A + warp * 16 * P + kk * 16, P);
-#pragma unroll
-      for (int n = 0; n < kDh / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Bm + kk * 16 * P + n * 16, P);
-        wmma::mma_sync(f[n], af, bfr, f[n]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* C) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n)
-      nvcuda::wmma::store_matrix_sync(C + warp * 16 * kSP + n * 16, f[n], kSP,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
 
 template <>
 struct TileAcc<float> {

@@ -6,59 +6,62 @@
 //
 // Per (batch, head), query row i, key tiles of 64 taken in order:
 //   s   = fp32(q_i . k_j) * scale                  (q is not pre-scaled)
-//   s  += kMaskValue where q_ids[i] != kv_ids[j], or causal and j > i
+//   s  += -0.7 FLT_MAX where q_ids[i] != kv_ids[j], or causal and j > i
 //   m'  = max(m, max_j s); p = exp(s - m'); c = exp(m - m') * l
 //   l'  = sum_j p + c;     acc = acc * (c / l') + (round(p) . V) / l'
 // round() is to the input type (bf16: before P.V on the tensor cores; fp32: a
 // no-op). The forward writes o and the fp32 row max m and sum l, the residuals
-// of the stock kernel. The backward takes di = sum(o * do) from the caller
-// (a torch reduction, as the stock kernel computes it outside its kernels):
+// of the stock kernel. The backward first takes di = sum(o * do) in a pass
+// of its own (the stock kernel takes it from XLA, outside its kernels):
 //   p  = exp(s - m) * (1 / l); dp = do . v^T (fp32); ds = (dp - di) * p * scale
 //   dv = round(p)^T . do; dk = round(ds)^T . q; dq = round(ds) . k
 // Keys past Tk (the ragged last tile) are not keys: their p is 0. Key tiles
 // wholly above the diagonal are skipped (the stock kernel's below_or_on_diag):
 // there every score is masked and adds exp(mask - m) = 0.
 //
-// The TPU kernel walks a sequential grid and carries m, l and the accumulator
-// in VMEM scratch from one key block to the next. Here the loop over key tiles
-// runs inside one block, which keeps each row's m and l in registers and its
-// accumulator in registers too (the row's owner threads apply the per-row
-// rescale to a P.V tile that the tensor cores leave in shared memory). The
-// backward is two launches, both deterministic (no atomics): per 64-key tile,
-// dk and dv accumulate over the query tiles (for causal, only those at or
-// below the diagonal); per 64-query tile, dq accumulates over the key tiles.
-//
 // What bounds it: tensor-core FLOPs. At the encoder shape of small.en (B = 64,
 // T = 1500, 12 heads of 64) the forward does 4 B H T^2 dh = 442 GFLOP of
 // products per layer (0.447 ms at 989 TFLOP/s), against 4 x 147 MB of q, k,
 // v and o (0.176 ms at 3.35 TB/s); the backward needs five products of
 // 2 T^2 dh per (b, h) (S, dP, dV, dK, dQ) and does seven: the dq launch
-// computes S and dP again. bf16 runs every product on the tensor cores (WMMA
-// 16x16x16, fp32 accumulation), each warp owning 16 rows of a 64 x 64 tile;
-// fp32 runs them on the CUDA cores for exact-precision checks.
+// computes S and dP again. The di pass is bound by the bytes of o and do.
+//
+// bf16 runs on the register-resident mma.sync core of attention_mma.cuh (the
+// training attention's, rows 3 and 9) under its flash score policy (kFlash):
+// the forward is one block per 128 query rows of one (b, h), 8 warps of 16
+// rows, Q fragments in registers, K, V and the kv ids streamed through a
+// 2-stage cp.async ring, and the scores, the running max and sum, p and O in
+// registers (p packed to bf16 straight into the P.V fragments; its exp is
+// ex2.approx with the running max folded into one fma while |m| <= 64, the
+// unfolded form past it, as for a row whose keys so far are all masked).
+// The backward is the two launches of row 9 under the same policy: per 64
+// query rows dq over the key tiles (S, dP and dQ: the statistics come from
+// the forward, so row 9's first pass is not run), then per 64 keys dk and dv
+// over the query tiles, with m, 1 / l, di and the q ids streamed beside Q and
+// dO; the accurate expf, no atomics. fp32 runs the plain CUDA-core tiling
+// below for exact-precision checks (no rounding on the route in fp32).
 // Head width 64 only (every OLMoASR/Whisper size).
+#include "attention_mma.cuh"
 #include "attention_tiles.cuh"
 
 namespace olm {
 namespace {
 
-// the stock kernel's DEFAULT_MASK_VALUE, -0.7 * FLT_MAX rounded to fp32
-constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
-
+// the fp32 kernels' arguments
 struct FlashArgs {
-  const void* q;       // (B, Tq, D), head h at columns h*64..
-  const void* k;       // (B, Tk, D)
-  const void* v;       // (B, Tk, D)
-  const void* dout;    // (B, Tq, D), q's type (backward)
+  const float* q;      // (B, Tq, D), head h at columns h*64..
+  const float* k;      // (B, Tk, D)
+  const float* v;      // (B, Tk, D)
+  const float* dout;   // (B, Tq, D) (backward)
   const int* q_ids;    // (B, Tq) segment ids, or null (no segment mask)
   const int* kv_ids;   // (B, Tk), null with q_ids
-  void* out;           // (B, Tq, D) (forward)
+  float* out;          // (B, Tq, D) (forward)
   float* m;            // (B, H, Tq) row max: written by the forward, read by the backward
   float* l;            // (B, H, Tq) row sum
   const float* di;     // (B, H, Tq) sum(o * do) (backward)
-  void* dq;            // (B, Tq, D)
-  void* dk;            // (B, Tk, D)
-  void* dv;            // (B, Tk, D)
+  float* dq;           // (B, Tq, D)
+  float* dk;           // (B, Tk, D)
+  float* dv;           // (B, Tk, D)
   int B, H, Tq, Tk, D;
   int causal;
   float scale;  // dh^-0.5, applied to the fp32 scores
@@ -71,13 +74,15 @@ __device__ __forceinline__ float flash_score(float dot, const FlashArgs& p, int 
   if (key >= p.Tk) return -INFINITY;
   const float s = __fmul_rn(dot, p.scale);
   const bool keep = (p.q_ids == nullptr || qid == kid) && !(p.causal && key > qi);
-  return keep ? s : __fadd_rn(s, kMaskValue);
+  return keep ? s : __fadd_rn(s, mma::kFlashMask);
 }
 
-template <typename T>
+using T = float;
+constexpr int P = BwdCfg<T>::kPitch, NT = BwdCfg<T>::kThreads;
+
 constexpr size_t flash_smem(int operand_tiles, int score_tiles, int vectors) {
-  return operand_tiles * kTq * BwdCfg<T>::kPitch * sizeof(T) +
-         score_tiles * kTq * kSP * sizeof(float) + vectors * kTq * sizeof(float);
+  return operand_tiles * kTq * P * sizeof(T) + score_tiles * kTq * kSP * sizeof(float) +
+         vectors * kTq * sizeof(float);
 }
 
 // the 64 segment ids of rows r0.. (0 past n, or when there are no ids)
@@ -85,9 +90,7 @@ __device__ __forceinline__ void load_ids(const int* ids, int* dst, int r0, int n
   for (int e = threadIdx.x; e < kTq; e += nt) dst[e] = ids && r0 + e < n ? ids[r0 + e] : 0;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_fwd_kernel(FlashArgs p) {
-  constexpr int P = BwdCfg<T>::kPitch, NT = BwdCfg<T>::kThreads;
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs p) {
   constexpr int kLanes = NT / kTq, kCols = kTk / kLanes;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
@@ -99,9 +102,9 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_fwd_kernel(FlashArg
 
   const int q0 = blockIdx.x * kTq, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const size_t hoff = static_cast<size_t>(h) * kDh;
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* Q = p.q + static_cast<size_t>(b) * p.Tq * p.D + hoff;
+  const T* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const int* kv_ids = p.kv_ids ? p.kv_ids + static_cast<size_t>(b) * p.Tk : nullptr;
 
   load_rows(Q, Qs, q0, p.Tq, p.D, false, 1.f);
@@ -158,7 +161,7 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_fwd_kernel(FlashArg
       acc[j] = __fadd_rn(__fmul_rn(acc[j], corr), __fmul_rn(Ss[r * kSP + c0 + j], inv));
   }
   if (qi < p.Tq) {
-    T* o = static_cast<T*>(p.out) + (static_cast<size_t>(b) * p.Tq + qi) * p.D + hoff + c0;
+    T* o = p.out + (static_cast<size_t>(b) * p.Tq + qi) * p.D + hoff + c0;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) o[j] = from_f<T>(acc[j]);
     if (tid % kLanes == 0) {
@@ -169,9 +172,7 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_fwd_kernel(FlashArg
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dq_kernel(FlashArgs p) {
-  constexpr int P = BwdCfg<T>::kPitch, NT = BwdCfg<T>::kThreads;
+__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(FlashArgs p) {
   constexpr int kLanes = NT / kTq, kCols = kTk / kLanes;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
@@ -185,10 +186,10 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dq_kernel(Flash
 
   const int q0 = blockIdx.x * kTq, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const size_t hoff = static_cast<size_t>(h) * kDh;
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const T* dO = static_cast<const T*>(p.dout) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* Q = p.q + static_cast<size_t>(b) * p.Tq * p.D + hoff;
+  const T* dO = p.dout + static_cast<size_t>(b) * p.Tq * p.D + hoff;
+  const T* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const int* kv_ids = p.kv_ids ? p.kv_ids + static_cast<size_t>(b) * p.Tk : nullptr;
 
   load_rows(Q, Qs, q0, p.Tq, p.D, false, 1.f);
@@ -228,13 +229,11 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dq_kernel(Flash
   __syncthreads();
   acc.store(Ss);
   __syncthreads();
-  store_rows(Ss, static_cast<T*>(p.dq) + static_cast<size_t>(b) * p.Tq * p.D + hoff, q0, p.Tq,
+  store_rows(Ss, p.dq + static_cast<size_t>(b) * p.Tq * p.D + hoff, q0, p.Tq,
              p.D, [](float x) { return from_f<T>(x); });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dkv_kernel(FlashArgs p) {
-  constexpr int P = BwdCfg<T>::kPitch, NT = BwdCfg<T>::kThreads;
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(FlashArgs p) {
   constexpr int kLanes = NT / kTk, kCols = kTq / kLanes;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
@@ -252,10 +251,10 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dkv_kernel(Flas
 
   const int k0 = blockIdx.x * kTk, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const size_t hoff = static_cast<size_t>(h) * kDh;
-  const T* Q = static_cast<const T*>(p.q) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const T* dO = static_cast<const T*>(p.dout) + static_cast<size_t>(b) * p.Tq * p.D + hoff;
-  const T* K = static_cast<const T*>(p.k) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
-  const T* V = static_cast<const T*>(p.v) + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* Q = p.q + static_cast<size_t>(b) * p.Tq * p.D + hoff;
+  const T* dO = p.dout + static_cast<size_t>(b) * p.Tq * p.D + hoff;
+  const T* K = p.k + static_cast<size_t>(b) * p.Tk * p.D + hoff;
+  const T* V = p.v + static_cast<size_t>(b) * p.Tk * p.D + hoff;
   const int* q_ids = p.q_ids ? p.q_ids + static_cast<size_t>(b) * p.Tq : nullptr;
   const size_t srow = (static_cast<size_t>(b) * p.H + h) * p.Tq;
 
@@ -305,55 +304,82 @@ __global__ void __launch_bounds__(BwdCfg<T>::kThreads) flash_bwd_dkv_kernel(Flas
   dv.store(Ds);
   __syncthreads();
   auto same = [](float x) { return from_f<T>(x); };
-  store_rows(Ss, static_cast<T*>(p.dk) + static_cast<size_t>(b) * p.Tk * p.D + hoff, k0, p.Tk,
+  store_rows(Ss, p.dk + static_cast<size_t>(b) * p.Tk * p.D + hoff, k0, p.Tk,
              p.D, same);
-  store_rows(Ds, static_cast<T*>(p.dv) + static_cast<size_t>(b) * p.Tk * p.D + hoff, k0, p.Tk,
+  store_rows(Ds, p.dv + static_cast<size_t>(b) * p.Tk * p.D + hoff, k0, p.Tk,
              p.D, same);
 }
 
-// shared memory of each kernel: operand tiles, fp32 tiles, 64-vectors
-template <typename T>
-constexpr size_t kFwdSmem = flash_smem<T>(4, 1, 1);
-template <typename T>
-constexpr size_t kDqSmem = flash_smem<T>(5, 2, 1);
-template <typename T>
-constexpr size_t kDkvSmem = flash_smem<T>(6, 2, 4);
+// di[b, h, i] = sum_d o[b, i, h*64 + d] * do[b, i, h*64 + d] in fp32: L
+// lanes a (row, head), 16 bytes of each a lane, summed by shuffles (a group
+// never straddles a warp); bound by the bytes of o and do
+template <typename E>
+__global__ void __launch_bounds__(256) flash_di_kernel(const E* o, const E* dout, float* di, int H,
+                                                       int Tq, long long pairs) {
+  constexpr int V = 16 / sizeof(E), L = kDh / V;
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long pair = e / L;  // (b * Tq + i) * H + h
+  const int lane = static_cast<int>(e % L);
+  float sum = 0.f;
+  if (pair < pairs) {
+    const size_t off = static_cast<size_t>(pair) * kDh + lane * V;
+    alignas(16) E a[V], c[V];
+    *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(o + off);
+    *reinterpret_cast<uint4*>(c) = *reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+    for (int j = 0; j < V; ++j) sum += to_f(a[j]) * to_f(c[j]);
+  }
+#pragma unroll
+  for (int d = L / 2; d > 0; d >>= 1) sum += __shfl_xor_sync(kFullMask, sum, d);
+  if (pair < pairs && lane == 0) {
+    const long long row = pair / H, b = row / Tq, i = row % Tq;
+    di[(b * H + pair % H) * Tq + i] = sum;
+  }
+}
 
-// raise the dynamic shared-memory limits once per process and type (not a
-// stream operation, so a CUDA graph capture of a later call never sees it)
-template <typename T>
+template <typename E>
+int launch_di(const void* o, const void* dout, float* di, int B, int H, int Tq, cudaStream_t s) {
+  constexpr int L = kDh / (16 / static_cast<int>(sizeof(E)));
+  const long long pairs = static_cast<long long>(B) * Tq * H;
+  flash_di_kernel<E><<<static_cast<unsigned>((pairs * L + 255) / 256), 256, 0, s>>>(
+      static_cast<const E*>(o), static_cast<const E*>(dout), di, H, Tq, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// shared memory of each kernel: operand tiles, fp32 tiles, 64-vectors
+constexpr size_t kFwdSmem = flash_smem(4, 1, 1);
+constexpr size_t kDqSmem = flash_smem(5, 2, 1);
+constexpr size_t kDkvSmem = flash_smem(6, 2, 4);
+
+// raise the dynamic shared-memory limits once per process (not a stream
+// operation, so a CUDA graph capture of a later call never sees it)
 cudaError_t configure() {
   static const cudaError_t configured = [] {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kFwdSmem<T>));
+                                         static_cast<int>(kFwdSmem));
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDqSmem<T>));
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kDqSmem));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(kDkvSmem<T>));
+    return cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kDkvSmem));
   }();
   return configured;
 }
 
-template <typename T>
 int launch_fwd(const FlashArgs& p, cudaStream_t s) {
-  if (cudaError_t e = configure<T>(); e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_kernel<T><<<dim3((p.Tq + kTq - 1) / kTq, p.H, p.B), BwdCfg<T>::kThreads,
-                        kFwdSmem<T>, s>>>(p);
+  if (cudaError_t e = configure(); e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_kernel<<<dim3((p.Tq + kTq - 1) / kTq, p.H, p.B), NT, kFwdSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_bwd(const FlashArgs& p, cudaStream_t s) {
-  if (cudaError_t e = configure<T>(); e != cudaSuccess) return static_cast<int>(e);
-  constexpr int NT = BwdCfg<T>::kThreads;
-  flash_bwd_dkv_kernel<T><<<dim3((p.Tk + kTk - 1) / kTk, p.H, p.B), NT, kDkvSmem<T>, s>>>(p);
+  if (cudaError_t e = configure(); e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkv_kernel<<<dim3((p.Tk + kTk - 1) / kTk, p.H, p.B), NT, kDkvSmem, s>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<T><<<dim3((p.Tq + kTq - 1) / kTq, p.H, p.B), NT, kDqSmem<T>, s>>>(p);
+  flash_bwd_dq_kernel<<<dim3((p.Tq + kTq - 1) / kTq, p.H, p.B), NT, kDqSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -367,25 +393,48 @@ extern "C" int olm_flash_fwd(const void* q, const void* k, const void* v, const 
   using namespace olm;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D != H * kDh || (!q_ids) != (!kv_ids))
     return cudaErrorInvalidValue;
-  FlashArgs p{q, k, v, nullptr, q_ids, kv_ids, out, m, l, nullptr, nullptr, nullptr, nullptr,
-              B, H, Tq, Tk, D, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_fwd<__nv_bfloat16>(p, s);
-  if (dtype == kF32) return launch_fwd<float>(p, s);
-  return cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    using mma::bf;
+    mma::FwdParams p{static_cast<const bf*>(q), static_cast<const bf*>(k),
+                     static_cast<const bf*>(v), nullptr, out, B, H, Tq, Tk, D, 0, causal, scale,
+                     q_ids, kv_ids, m, l};
+    return mma::launch_fwd<kDh, 1, mma::kFwdRows, mma::kStages, mma::kExp2 | mma::kFlash>(p, s);
+  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  FlashArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), nullptr, q_ids, kv_ids, static_cast<float*>(out),
+              m, l, nullptr, nullptr, nullptr, nullptr, B, H, Tq, Tk, D, causal, scale};
+  return launch_fwd(p, s);
 }
 
-extern "C" int olm_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const int* q_ids, const int* kv_ids, const float* m, const float* l,
-                             const float* di, void* dq, void* dk, void* dv, int B, int H, int Tq,
-                             int Tk, int D, int causal, float scale, int dtype, void* stream) {
+// di: the (B, H, Tq) fp32 workspace of the di pass
+extern "C" int olm_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const int* q_ids, const int* kv_ids, const float* m,
+                             const float* l, float* di, void* dq, void* dk, void* dv, int B, int H,
+                             int Tq, int Tk, int D, int causal, float scale, int dtype,
+                             void* stream) {
   using namespace olm;
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D != H * kDh || (!q_ids) != (!kv_ids))
     return cudaErrorInvalidValue;
-  FlashArgs p{q, k, v, dout, q_ids, kv_ids, nullptr, const_cast<float*>(m), const_cast<float*>(l),
-              di, dq, dk, dv, B, H, Tq, Tk, D, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_bwd<__nv_bfloat16>(p, s);
-  if (dtype == kF32) return launch_bwd<float>(p, s);
-  return cudaErrorInvalidValue;
+  if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
+  const int e = dtype == kBF16 ? launch_di<__nv_bfloat16>(o, dout, di, B, H, Tq, s)
+                               : launch_di<float>(o, dout, di, B, H, Tq, s);
+  if (e != cudaSuccess) return e;
+  if (dtype == kBF16) {
+    using mma::bf;
+    const mma::FlashBwdParams p{
+        {static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+         static_cast<const bf*>(dout), nullptr, static_cast<bf*>(dq), static_cast<bf*>(dk),
+         static_cast<bf*>(dv), nullptr, B, H, Tq, Tk, D, 0, causal, scale},
+        q_ids, kv_ids, m, l, di};
+    return mma::launch_bwd<mma::kBwdRows, true>(p, s);
+  }
+  FlashArgs p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(dout), q_ids, kv_ids,
+              nullptr, const_cast<float*>(m), const_cast<float*>(l), di,
+              static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+              B, H, Tq, Tk, D, causal, scale};
+  return launch_bwd(p, s);
 }

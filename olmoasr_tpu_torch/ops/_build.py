@@ -87,9 +87,9 @@ _SIGNATURES = {
     "olm_attention_bwd": (*(_P,) * 5, _I, *(_P,) * 4, *(_I,) * 6, _F, _I, _P),
     # q, k, v, q_ids, kv_ids, out, m, l, B, H, Tq, Tk, D, causal, scale, dtype, stream
     "olm_flash_fwd": (*(_P,) * 8, *(_I,) * 6, _F, _I, _P),
-    # q, k, v, dout, q_ids, kv_ids, m, l, di, dq, dk, dv, B, H, Tq, Tk, D, causal, scale,
-    # dtype, stream
-    "olm_flash_bwd": (*(_P,) * 12, *(_I,) * 6, _F, _I, _P),
+    # q, k, v, o, dout, q_ids, kv_ids, m, l, di (workspace), dq, dk, dv, B, H, Tq, Tk, D,
+    # causal, scale, dtype, stream
+    "olm_flash_bwd": (*(_P,) * 13, *(_I,) * 6, _F, _I, _P),
     # the probes of rows 3 and 9 (csrc/attention_probes.cu; variant codes in perf/_probes.py)
     # q, k, v, bias, bias_bstride, out, B, H, Tq, Tk, D, causal, scale, variant, stream
     "olm_probe_fwd": (*(_P,) * 4, _I, _P, *(_I,) * 6, _F, _I, _P),

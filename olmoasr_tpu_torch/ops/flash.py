@@ -30,9 +30,10 @@ them. A row that every key masks (neither caller makes one) gets the stock
 kernel's artefact, an average of v over the masked keys of its tiles; that
 value is not pinned.
 
-Dispatch: a CUDA tensor launches ``csrc/flash_attention.cu`` or raises; a
-CPU tensor runs the plain versions, which step through the same tiles and
-roundings.
+Dispatch: a CUDA tensor launches ``csrc/flash_attention.cu`` or raises (bf16
+on the mma.sync core of ``csrc/attention_mma.cuh`` under its flash policy,
+fp32 on CUDA-core tiles); a CPU tensor runs the plain versions, which step
+through the same 64-key tiles and roundings.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch
 from olmoasr_tpu_torch.ops import _build
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the stock DEFAULT_MASK_VALUE
-TILE = 64  # keys per tile of the online softmax (and query rows per block)
+TILE = 64  # keys per tile of the online softmax (the kernels' key tile)
 HEAD_DIM = 64  # the kernels' head width (every OLMoASR/Whisper size)
 
 
@@ -169,8 +170,11 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int
     Replaces the forward ``pallas_call`` of the stock kernel that
     ``olmoasr_tpu/ops/flash.py::flash_mha`` calls. Bound on the card:
     tensor-core FLOPs (the encoder at small.en, B=64: 442 GFLOP of products
-    a layer). One block per 64 query rows of one (b, h) walks the key tiles
-    with the running max and sum in registers (``csrc/flash_attention.cu``).
+    a layer). bf16: one block per 128 query rows of one (b, h), 8 warps of
+    16 rows, walks the key tiles with the scores, running max and sum, p and
+    O in registers (mma.sync), K, V and the kv ids streamed through a
+    cp.async ring (``csrc/attention_mma.cuh`` under its flash policy). fp32:
+    CUDA-core tiles of 64 rows (``csrc/flash_attention.cu``).
     """
     if not q.is_cuda:
         return flash_mha_fwd_plain(q, k, v, n_head, causal, q_ids, kv_ids)
@@ -199,23 +203,28 @@ def flash_mha_bwd(q, k, v, o, m, l, do, n_head: int, causal: bool = False,
     Replaces the stock kernel's two backward ``pallas_call``s (dk and dv,
     then dq). Bound on the card: tensor-core FLOPs, five products of
     2 Tq Tk dh per (b, h) (the encoder at small.en, B=16: 276 GFLOP a
-    layer). ``di = sum(o * do)`` is a torch reduction before the kernels, as
-    the stock kernel takes it outside its own. Two launches: per 64-key tile
-    dk and dv over the query tiles, then per 64-query tile dq over the key
-    tiles; no atomics, so the result does not depend on scheduling. ``do``
-    must be contiguous in q's dtype on the card; the plain version casts it.
+    layer). ``di = sum(o * do)`` is a pass of its own before the two
+    kernels (one launch, bound by the bytes of o and do), as the stock
+    kernel takes it from XLA outside its own. The two launches are the
+    training backward's (``csrc/attention_mma.cuh``) under the flash policy
+    in bf16:
+    per 64-query tile dq over the key tiles (S, dP, dQ: seven products in
+    all, since dq computes S and dP again), then per 64-key tile dk and dv
+    over the query tiles; no atomics, so the result does not depend on
+    scheduling. ``do`` must be contiguous in q's dtype on the card; the
+    plain version casts it.
     """
     if not q.is_cuda:
         return flash_mha_bwd_plain(q, k, v, o, m, l, do, n_head, causal, q_ids, kv_ids)
     what = "flash_mha_bwd"
     _check(what, q, k, v, n_head, q_ids, kv_ids, ("o", o), ("do", do))
     B, Tq, D = q.shape
-    di = (o.float() * do.float()).view(B, Tq, n_head, HEAD_DIM).sum(-1).transpose(1, 2).contiguous()
+    di = torch.empty((B, n_head, Tq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.check(_build.lib().olm_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(q_ids), _ptr(kv_ids),
-        m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, n_head, Tq, k.shape[1], D, int(causal), HEAD_DIM ** -0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(q_ids),
+        _ptr(kv_ids), m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, n_head, Tq, k.shape[1], D, int(causal), HEAD_DIM ** -0.5,
         _build.dtype_code(q.dtype), _build.stream_ptr(q.device),
     ), what)
     flash_mha_bwd.launches += 1

@@ -13,8 +13,8 @@ there; the windows of a round decode as one batch, and only the windows that
 fail the fallback gates decode again, at the next temperature. Not ported
 here: the streamed-upload transport (``_StreamedMelGroup``,
 ``_gather_windows_norm``, ``log_mel_chunk_unnorm``; bit-equal to this path
-by design, ROADMAP Queue 1 item 6), word timestamps and the
-hallucination-silence heuristic (item 8) and language detection (item 2).
+by design), word timestamps and the hallucination-silence heuristic, and
+language detection: each is in ROADMAP's Queue 1.
 
 ``cli()`` is the command line, ``python -m olmoasr_tpu_torch.transcribe``:
 the JAX package's arguments and defaults (beam search with ``beam_size=5``
@@ -256,7 +256,7 @@ def _resolve_language(model, decode_options: dict) -> str:
     if decode_options.get("language", None) is None:
         if model.is_multilingual:
             raise NotImplementedError(
-                "language detection is not ported yet (ROADMAP Queue 1 item 2): "
+                "language detection is not ported yet (ROADMAP Queue 1): "
                 "pass language= for a multilingual model"
             )
         decode_options["language"] = "en"
@@ -366,10 +366,10 @@ def transcribe_many(
     are accepted and, as there without word timestamps, unused.
     """
     if word_timestamps:
-        raise NotImplementedError("word timestamps are not ported yet (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError("word timestamps are not ported yet (ROADMAP Queue 1)")
     if hallucination_silence_threshold is not None:
         raise NotImplementedError(
-            "hallucination_silence_threshold is not ported yet (ROADMAP Queue 1 item 8)"
+            "hallucination_silence_threshold is not ported yet (ROADMAP Queue 1)"
         )
     temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
 

@@ -2,7 +2,8 @@
 ``load_model`` by released name (the file a download leaves under
 ``download_root``; nothing touches the network), the command line's
 ``--model NAME --model_dir DIR``, ``OLMoASR.forward`` (``model(mel,
-tokens, padding_mask)``) and ``half()`` (bf16, as the JAX package casts).
+tokens, padding_mask)``), ``half()`` (bf16, as the JAX package casts),
+``astype``, ``num_params`` and ``device``.
 
 Tolerance of the forward: both sides compute in bf16 at their defaults, and
 the port's attention rounds p to bf16 before P.V where the JAX model on the
@@ -142,3 +143,20 @@ def test_half_is_bf16(params_np):
                                                   jmodel.params), DIMS)
     for k, v in got.items():
         assert sd[k].dtype == torch.bfloat16 and torch.equal(sd[k], v.to(torch.bfloat16)), k
+
+
+def test_num_params_astype_and_device_match_jax(params_np):
+    """``num_params`` counts the JAX param tree's leaves (the encoder's
+    sinusoids are a buffer here and a constant there), ``astype`` casts in
+    place and returns the model, ``device`` is the parameters' device."""
+    jmodel, model = _pair(params_np)
+    assert model.num_params() == jmodel.num_params()
+    assert model.num_params() < sum(t.numel() for t in model.state_dict().values())
+    assert model.device == torch.device("cpu") and jmodel.device.platform == "cpu"
+    assert model.astype(torch.bfloat16) is model and model.dtype == torch.bfloat16
+    jcast = jmodel.astype(jnp.bfloat16)
+    assert jcast is jmodel
+    assert {str(leaf.dtype) for leaf in jax.tree.leaves(jcast.params)} == {"bfloat16"}
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    assert model.astype(torch.float32).dtype == torch.float32
+    assert model.num_params() == jmodel.num_params()

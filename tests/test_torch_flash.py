@@ -48,6 +48,10 @@ CASES = {
     "causal suffix pads T=40": (40, 40, True, "pads"),
     "cross 24x40": (24, 40, False, None),
     "three segments T=40": (40, 40, False, "three"),
+    # four of the port's 64-key tiles, the last ragged: the online softmax
+    # rescales across tiles; the padded row's text runs past the first tile,
+    # and its pad queries' first tile is all text keys (all masked)
+    "causal suffix pads T=200": (200, 200, True, "pads"),
 }
 DTYPES = ("fp32", "bf16")
 OUT_TOL, GRAD_TOL = 2e-5, 1e-4  # fp32
@@ -328,6 +332,7 @@ SHAPES = {  # small.en's width (12 heads): (B, Tq, Tk, causal, ids)
     "encoder": (1, 1500, 1500, False, None),
     "decoder self": (3, 448, 448, True, "pads"),
     "cross": (2, 448, 1500, False, None),
+    "causal suffix pads T=200": (2, 200, 200, True, "pads"),
 }
 
 
