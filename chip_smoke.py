@@ -16,7 +16,11 @@ printed line each (or a few):
    modes (beside the time of the kernels it replaces), the int8 q.K
    ``cross_block_decode``, ``self_attend_decode`` over int8 rings and
    ``cross_attend_decode`` (the attention kernels beside
-   ``scaled_dot_product_attention``) included, the int8 q.K cases also on inputs where the int8 and the exact
+   ``scaled_dot_product_attention``, for ``cross_attend_decode`` under both
+   timers) included, ``self_attend_decode`` up to offset 447 of a
+   448-position ring and, as a yardstick the port never calls, beside
+   ``scaled_dot_product_attention`` over the ring's first offset + 1
+   positions, the int8 q.K cases also on inputs where the int8 and the exact
    q.K products land far apart, so that a kernel computing the wrong one
    fails; ``mlp_block`` and ``matmul_residual`` in bf16 at the decode
    paths' rows (64 greedy, 160 beam, 80 long-form, 5), each beside
@@ -155,6 +159,22 @@ def timed_ms(fn, spin: bool = False) -> float:
         times.append(start.elapsed_time(end))
     del graph
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 100, batches: int = 7) -> float:
+    """Median host time of one eager call of ``fn`` in us over ``batches``
+    batches of ``calls`` calls; the card is waited on between batches only
+    (the calls queue far less work than the card takes at once)."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(batches):
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - start) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -590,14 +610,18 @@ def check_cross_attend(gen) -> list:
                      lambda: cross_attend_decode(*args, **kw),
                      lambda: cross_attend_decode_plain(*args, **kw),
                      (nbytes(q, k, v, *scales, got), 4 * B * T * D, act))
-        if not cases:  # the main path's case: beside it, one library call
+        if not cases:  # the main path's case: beside it, one library call, both timers
             dh = D // H
             heads = lambda t: t.view(B, -1, H, dh).transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                          scale=_q_scale(dh))
             with torch.no_grad():
-                case["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
-                    heads(q), heads(k), heads(v), scale=_q_scale(dh)))
+                case["library_ms"] = timed_ms(sdpa)
+                case["library_ms_spin"] = timed_ms(sdpa, spin=True)
             print(f"    scaled_dot_product_attention at the same shape: "
-                  f"{case['library_ms']:.4f} ms")
+                  f"{case['library_ms']:.4f} ms ({case['library_ms_spin']:.4f} behind a spin); "
+                  f"the kernel behind a spin: {case['ms_spin'] / case['library_ms_spin']:.3f} "
+                  f"of it")
         cases.append(case)
         del k, v
     return cases
@@ -824,12 +848,25 @@ def check_self_sub_block(gen) -> dict:
         for offset in (224, 100, 1):
             sa = (q, *rings, kn, vn, offset, layer)
             attn = self_attend_decode(*sa, n_head=H)
-            cases["self_attend_decode"].append(_case(
+            case = _case(
                 "self_attend_decode", (dtype, f"ring L={L} B={B} C={C} layer {layer} offset {offset}"),
                 attn, self_attend_decode_plain(*sa, n_head=H),
                 lambda: self_attend_decode(*sa, n_head=H),
-                lambda: self_attend_decode_plain(*sa, n_head=H), _self_bound(sa, attn)))
+                lambda: self_attend_decode_plain(*sa, n_head=H), _self_bound(sa, attn))
+            if dtype == torch.bfloat16 and offset == 224:
+                case.update(_self_sdpa_ms(sa, H))
+            cases["self_attend_decode"].append(case)
         del rings
+        # the decoder's whole ring: the last step's offset
+        long = [torch.randn(8, B, 448, D, generator=gen).to("cuda", dtype) for _ in range(2)]
+        sa = (q, *long, kn, vn, 447, layer)
+        attn = self_attend_decode(*sa, n_head=H)
+        cases["self_attend_decode"].append(_case(
+            "self_attend_decode", (dtype, f"ring L=8 B={B} C=448 layer {layer} offset 447"),
+            attn, self_attend_decode_plain(*sa, n_head=H),
+            lambda: self_attend_decode(*sa, n_head=H),
+            lambda: self_attend_decode_plain(*sa, n_head=H), _self_bound(sa, attn)))
+        del long
         wo, bo = _weights(gen, D, D, fan_in=D, dtype=dtype), \
             (0.02 * torch.randn(D, generator=gen)).to("cuda", dtype)
         # the attention output of the ring above at the greedy rows, then
@@ -845,6 +882,30 @@ def check_self_sub_block(gen) -> dict:
                 lambda: matmul_residual_plain(*mr), (nbytes(*mr, out), 2 * rows * D * D, dtype),
                 yardstick=lambda: _cublas_ms((a[:, 0], wo, bo))))
     return cases
+
+
+def _self_sdpa_ms(sa, H) -> dict:
+    """A yardstick for self_attend_decode that the port never calls:
+    scaled_dot_product_attention over the ring's first offset + 1 positions
+    with this step's key and value written in at the offset (the writing
+    not timed), both timers."""
+    import torch.nn.functional as F
+
+    from olmoasr_tpu_torch.ops.attention import _q_scale
+
+    q, kr, vr, kn, vn, offset, layer = sa
+    B, D = q.shape[0], q.shape[-1]
+    dh = D // H
+    k, v = kr[layer, :, :offset + 1].clone(), vr[layer, :, :offset + 1].clone()
+    k[:, offset], v[:, offset] = kn[:, 0], vn[:, 0]
+    heads = lambda t: t.view(B, -1, H, dh).transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                  scale=_q_scale(dh))
+    with torch.no_grad():
+        out = {"sdpa_ms": timed_ms(sdpa), "sdpa_ms_spin": timed_ms(sdpa, spin=True)}
+    print(f"    [yardstick: scaled_dot_product_attention over the {offset + 1} positions, the new "
+          f"key written in: {out['sdpa_ms']:.4f} ms ({out['sdpa_ms_spin']:.4f} behind a spin)]")
+    return out
 
 
 def _self_bound(sa, out, anc=None):
@@ -2286,7 +2347,10 @@ def _ab_inputs(gen) -> dict:
     training shapes, then ``ln_matmul`` at 160 rows, the cross sub-block
     over a bf16 cross cache at 64 rows over 64 and 160 over 32, and the
     flash route's forward and backward (row 10) at ``check_flash``'s bf16
-    shapes. Rings are one layer deep: a call reads one layer."""
+    shapes, the self pass at the greedy 64 rows without a map at offsets 1
+    and 224, ``cross_attend_decode`` over an int8 cache at 64 rows, and rows
+    8 (over bf16 and int8) and 4 (offset 224) at 1 and 5 rows. Rings are one
+    layer deep: a call reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2390,6 +2454,35 @@ def _ab_inputs(gen) -> dict:
                     *map(gpu, (q, k, v)), H, causal, gpu(ids), gpu(ids)))
                 args = (q, k, v, o, m, l, bf(B, Tq, D), H, causal, ids, ids)
             out[f"{kind} {label}, B={B}"] = (kind, args, {})
+    # rows 4 and 8 on the single-pass core: the self pass at the greedy 64
+    # rows without a map, and the standalone cross attention over an int8
+    # cache (last, so that the cases above keep the inputs of earlier trees'
+    # runs)
+    qkv64 = torch.randn(64, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+    rings64 = [torch.randn(1, 64, C, D, generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(2)]
+    for offset in (1, 224):
+        out[f"self bf16, 64 rows, offset {offset}, no map"] = (
+            "self", (qkv64, *rings64, offset, 0), {"n_head": H})
+    (k8, ks8), (v8, vs8) = (_quantize_rows(torch.randn(64, T, D, generator=gen).cuda())
+                            for _ in range(2))
+    out[f"cross_attend_decode bf16 over int8, 64 rows, T={T}"] = (
+        "xattn", (rows_bf(64), k8, v8, ks8, vs8[:, None].contiguous()), {"n_head": H})
+    # rows 8 and 4 at one file's greedy step and a small server batch's,
+    # where the single-pass core splits a (row, head) pair's keys over a
+    # cluster (last, as above)
+    for n in (1, 5):
+        kv = [torch.randn(n, T, D, generator=gen) for _ in range(2)]
+        out[f"cross_attend_decode bf16, B={n}, T={T}"] = (
+            "xattn", (rows_bf(n), *[t.to("cuda", torch.bfloat16) for t in kv]), {"n_head": H})
+        (k8, ks8), (v8, vs8) = (_quantize_rows(t.cuda()) for t in kv)
+        out[f"cross_attend_decode bf16 over int8, B={n}, T={T}"] = (
+            "xattn", (rows_bf(n), k8, v8, ks8, vs8[:, None].contiguous()), {"n_head": H})
+        qkv_n = torch.randn(n, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        rings_n = [torch.randn(1, n, C, D, generator=gen).to("cuda", torch.bfloat16)
+                   for _ in range(2)]
+        out[f"self bf16, B={n}, offset 224, no map"] = (
+            "self", (qkv_n, *rings_n, 224, 0), {"n_head": H})
     return out
 
 
@@ -2470,6 +2563,8 @@ def kernel_cases(root: str, inputs: str, out: str) -> None:
         got = fn()
         got = tuple(x.cpu() for x in got) if isinstance(got, tuple) else got.cpu()
         results[name] = {"out": got, "ms": timed_ms(fn), "ms_spin": timed_ms(fn, spin=True)}
+        if kind in ("self", "xattn"):  # the wrappers' own host cost
+            results[name]["host_us"] = host_us(fn)
         del args, kw, fn
         torch.cuda.empty_cache()
     torch.save(results, out)
@@ -2528,7 +2623,8 @@ def kernel_ab(tree: str) -> None:
     Each case's time is taken twice, by ``timed_ms`` and with each replay
     queued behind a spin, and judged under each: "faster" where both runs
     of this checkout are below both of TREE, "slower" where both are above,
-    else "within". Then the two greedy steps of :func:`_greedy_steps`, in
+    else "within"; the decode attention wrappers' cases (rows 4 and 8) also
+    by their host time a call (:func:`host_us`). Then the two greedy steps of :func:`_greedy_steps`, in
     processes of their own in the order STEP_ORDER: each tree's host ms,
     kernel ms and device launches, their medians and spread.
     Fails if this checkout's kernels leave the tolerance."""
@@ -2599,6 +2695,9 @@ def kernel_ab(tree: str) -> None:
                    "tol": tol}
             line = (f"  {name} [{label}]: {r['ms']:.4f} ms ({r['ms_spin']:.4f} behind a spin), "
                     f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            if "host_us" in r:
+                row["host_us"] = r["host_us"]
+                line += f", host {r['host_us']:.1f} us a call"
             if exact is not None:
                 row["exact_q_err"] = max_err(r["out"], exact.cpu())
                 line += f", against the exact-q twin {row['exact_q_err']:.3e}"
@@ -2607,9 +2706,12 @@ def kernel_ab(tree: str) -> None:
             if label == "this" and not ok:
                 bad.append(f"{name}: {errs} against two bf16 steps of each output")
         if all(report[name]):
-            verdicts = {key: _verdict(report[name], key) for key in ("ms", "ms_spin")}
-            print("  " + name + ": this checkout " + "; behind a spin: ".join(
-                f"{word} (median {ratio:.3f} of the tree's)" for word, ratio in verdicts.values()))
+            verdicts = {key: _verdict(report[name], key) for key in ("ms", "ms_spin", "host_us")
+                        if all(key in r for r in report[name])}
+            labels = {"ms": "", "ms_spin": "behind a spin: ", "host_us": "host: "}
+            print("  " + name + ": this checkout " + "; ".join(
+                f"{labels[key]}{word} (median {ratio:.3f} of the tree's)"
+                for key, (word, ratio) in verdicts.items()))
             report[name].append({"verdict": verdicts})
     steps = {step: {"tree": [], "this": []} for step in GREEDY_STEPS}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2680,13 +2782,15 @@ def main() -> None:
                                 "olmoasr_tpu/ops/train_attention.py:222"),
         "ln_matmul": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:354"),
         "matmul_residual": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:412"),
-        "self_attend_decode": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:495"),
+        "self_attend_decode": ((C + "self_attention.cu", C + "decode_attention.cuh"),
+                               "olmoasr_tpu/ops/attention.py:495"),
         "self_attend_decode_beam": ((C + "self_attention.cu",),
                                     "olmoasr_tpu/ops/attention.py:254"),
         "train_attention_bwd": ((C + "train_attention.cu",),
                                 "olmoasr_tpu/ops/train_attention.py:412"),
         "self_attend_decode_q8": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:322"),
-        "cross_attend_decode": ((C + "cross_attention.cu",), "olmoasr_tpu/ops/attention.py:725"),
+        "cross_attend_decode": ((C + "cross_attention.cu", C + "decode_attention.cuh"),
+                                "olmoasr_tpu/ops/attention.py:725"),
         "layer_block_decode_mlp": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),
         "flash_mha_fwd": ((C + "flash_attention.cu", C + "attention_mma.cuh"),
                           "olmoasr_tpu/ops/flash.py:72"),

@@ -28,11 +28,13 @@
 // scaled, in the activation type: replaces cross_attend_decode
 // (olmoasr_tpu/ops/attention.py:725, _cross_decode_kernel at :39), which the
 // JAX step runs between an ln_matmul for the cross q and a matmul_residual.
-// The same pass and combine, with the TPU kernel's bf16 dot dtype under bf16
-// activations (decode_attention.cuh, kRound = 2): q rounded to bf16 for the
-// exact product (int8 keys take the int8 one from the unrounded q), each
-// softmax weight rounded after its value scale, and each weight-value
-// product rounded before the fp32 sum. One kv row per query row.
+// It runs on the single-pass core of decode_attention.cuh (one launch, the
+// key slices of a (row, head) pair in one cluster, no partials in device
+// memory), with the TPU kernel's bf16 dot dtype under bf16 activations
+// (kRound = 2): q rounded to bf16 for the exact product (int8 keys take the
+// int8 one from the unrounded q), each softmax weight rounded after its
+// value scale, and each weight-value product rounded before the fp32 sum.
+// One kv row per query row.
 #include <type_traits>
 
 #include "decode_attention.cuh"
@@ -82,40 +84,58 @@ extern "C" int olm_cross_attention(const float* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// q, out: (B, D) contiguous in `dtype`; k, v: (B, T, D) in kv_dtype (int8, or
-// `dtype`); ks, vs: (B, T) fp32 or null (ones). Scratch as above.
-extern "C" int olm_cross_attend(const void* q, const void* k, const void* v, const float* ks,
-                                const float* vs, float* m_part, float* l_part, float* acc_part,
-                                void* out, int B, int T, int D, int H, int kv_dtype, int dtype,
-                                float qscale, void* stream) {
-  using namespace olm;
+namespace olm {
+namespace {
+
+int cross_attend(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+                 void* out, int B, int T, int D, int H, int kv_dtype, int dtype, float qscale,
+                 int slices, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return cudaErrorInvalidValue;
   if (kv_dtype != kI8 && kv_dtype != dtype) return cudaErrorInvalidValue;
-  DecodeAttnArgs p;
+  onepass::Args p;
   p.q = q;
   p.q_stride = D;
   p.k = k;
   p.v = v;
   p.ks = ks;
   p.vs = vs;
-  p.m_part = m_part;
-  p.l_part = l_part;
-  p.acc_part = acc_part;
+  p.out = out;
   p.T = p.row_keys = T;
   p.D = D;
   p.H = H;
-  p.nchunks = olm_decode_attention_chunks(T);
-  p.quant_q = kv_dtype == kI8 && dtype == kBF16;
   p.qscale = qscale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto* o) -> int {
-    using Q = std::remove_pointer_t<decltype(o)>;
+  auto run = [&](auto* act) -> int {
+    using Q = std::remove_pointer_t<decltype(act)>;
     constexpr int kRound = std::is_same<Q, __nv_bfloat16>::value ? 2 : 0;
-    const Q* none = nullptr;  // no new key
-    if (kv_dtype == kI8) return launch_decode_attention<int8_t, kRound>(p, B, none, none, 0, o, s);
-    return launch_decode_attention<Q, kRound>(p, B, none, none, 0, o, s);
+    if (kv_dtype == kI8) return onepass::launch<int8_t, Q, kRound>(p, B, slices, s);
+    return onepass::launch<Q, Q, kRound>(p, B, slices, s);
   };
-  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(out));
-  if (dtype == kF32) return run(static_cast<float*>(out));
+  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(nullptr));
+  if (dtype == kF32) return run(static_cast<float*>(nullptr));
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace olm
+
+// q, out: (B, D) contiguous in `dtype`; k, v: (B, T, D) in kv_dtype (int8, or
+// `dtype`), rows 16-byte aligned; ks, vs: (B, T) fp32 or null (ones); a head
+// width of 8-128 dividing 128 (int8 caches: 16-128).
+extern "C" int olm_cross_attend(const void* q, const void* k, const void* v, const float* ks,
+                                const float* vs, void* out, int B, int T, int D, int H,
+                                int kv_dtype, int dtype, float qscale, void* stream) {
+  return olm::cross_attend(q, k, v, ks, vs, out, B, T, D, H, kv_dtype, dtype, qscale, 0, stream);
+}
+
+// The same with the blocks a (row, head) pair's keys are split over named,
+// 1..16 (at most one per 64 keys): the single-pass core's cluster sizes, for
+// perf/probe_decode_attention.py.
+extern "C" int olm_cross_attend_probe(const void* q, const void* k, const void* v,
+                                      const float* ks, const float* vs, void* out, int B, int T,
+                                      int D, int H, int kv_dtype, int dtype, float qscale,
+                                      int slices, void* stream) {
+  if (slices < 1) return cudaErrorInvalidValue;
+  return olm::cross_attend(q, k, v, ks, vs, out, B, T, D, H, kv_dtype, dtype, qscale, slices,
+                           stream);
 }

@@ -1,6 +1,6 @@
-// Single-query attention over cached keys/values, split over positions: the
-// shared core of the decode-step cross attention (cross_attention.cu) and
-// self attention (self_attention.cu).
+// Single-query attention over cached keys/values: the shared cores of the
+// decode-step cross attention (cross_attention.cu) and self attention
+// (self_attention.cu).
 //
 // For query row b and head h, over the first T keys of kv row b / kv_group:
 //   logit[t] = (q_h * qscale) . k[t, h] * ks[t]
@@ -8,46 +8,100 @@
 //   out_h    = sum_t w[t] * vs[t] * v[t, h]
 // with per-position fp32 scales ks/vs (null: ones), and optionally one more
 // key/value per row (this step's own k_new/v_new in self attention) folded
-// into the softmax by the combine launch.
+// into the softmax, its logit taken from the unrounded q.
 //
-// Two variants of the partial pass:
-//   * ancestry (beam search): with `anc` set, query row b's key and value at
-//     position t come from kv row g * G + anc[b, t], g = b / G the row's
-//     group of G = kv_group beams, instead of kv row b / G;
-//   * int8 q.K (`quant_q`, int8 keys): q is rounded per head to int8 with
-//     its own scale, amax(|q_h|) / 127, and the logit is the s32 dot product
-//     of the int8 vectors (__dp4a, four products an instruction) times that
-//     scale, then times ks[t], as the TPU kernel's _qk_logits takes it.
-// and the TPU kernels' bf16 dot dtype, as a template argument kRound of the
-// pass (bf16 activations; 0 keeps every product fp32, as the decode-step
-// kernels of the split chain do):
-//   * 1: each softmax weight, after the value scale, is rounded to bf16 before
-//     the value product (_self_decode_body over int8 rings);
-//   * 2: also q (for the exact q.K product) and each weight-value product are
-//     rounded to bf16 (_cross_decode_kernel: `qm.astype(dd)`, `w_full * v`
-//     in bf16).
-//   The pass rounds the chunk's unnormalised weights (flash-decoding defers
-//   the normalisation to the combine), the TPU kernel the normalised ones:
-//   the same relative rounding of each weight, not the same bits.
+// The arithmetic options, shared by both cores:
+//   * int8 q.K (int8 keys under bf16 activations): q is rounded per head to
+//     int8 with its own scale, amax(|q_h|) / 127, and the logit is the s32
+//     dot product of the int8 vectors (__dp4a, four products an
+//     instruction) times that scale, then times ks[t], as the TPU kernel's
+//     _qk_logits takes it;
+//   * the TPU kernels' bf16 dot dtype, as a template argument kRound (bf16
+//     activations; 0 keeps every product fp32, as the decode-step kernels of
+//     the split chain do):
+//       1: each softmax weight, after the value scale, is rounded to bf16
+//          before the value product (_self_decode_body over int8 rings; the
+//          split-position pass);
+//       2: also q (for the exact q.K product) and each weight-value product
+//          are rounded to bf16 (_cross_decode_kernel: `qm.astype(dd)`,
+//          `w_full * v` in bf16; the single-pass core).
+//     Both cores round unnormalised weights (relative to a chunk's or a
+//     running max; the normalisation comes last), the TPU kernel the
+//     normalised ones: the same relative rounding of each weight, not the
+//     same bits.
 //
-// What bounds it: the K/V read, 2 * T * D elements per kv row. FLOPs are 2
-// per element read. The design spreads that read over the whole card and
-// keeps many loads in flight:
-//   * one block per (T-chunk of 128 keys, head, query row) writes a partial
-//     (max, sum, weighted values) triple; a second launch combines them
-//     (flash-decoding style);
-//   * every load is 16 bytes: a key's head slice is read by dh*sizeof/16
-//     neighbouring lanes (8 for bf16 at dh = 64), so a warp covers several
-//     keys per load, and each thread issues kCaUnroll loads before it uses
-//     any;
-//   * the kv_group query rows that share a kv row are neighbours in the
-//     grid's fastest dimension, so their blocks run together and all but the
-//     first read the chunk from L2: device memory sees each kv row once.
+// What bounds both: the K/V read, 2 * T * D elements per kv row; FLOPs are
+// 2 per element read, far below the card's rate. Tensor cores are of no
+// use: there is one query row per kv row and head (kv_group 1 on the
+// single-pass core), so an mma tile would compute 15 of its 16 rows for
+// nothing. The work is to keep enough K/V bytes in flight over the whole
+// card, and to pay little beside them.
+//
+// 1. The split-position pass (rows 1, 4a and 4b: cross_block_decode's
+//    attention, self attention over int8 rings and with beam ancestry):
+//    * one block per (T-chunk of 128 keys, head, query row) writes a
+//      partial (max, sum, weighted values) triple to device memory; a second
+//      launch combines them (flash-decoding style);
+//    * every load is 16 bytes: a key's head slice is read by dh*sizeof/16
+//      neighbouring lanes (8 for bf16 at dh = 64), so a warp covers several
+//      keys per load, and each thread issues kCaUnroll loads before it uses
+//      any; K first, then two block-wide reductions, then V;
+//    * ancestry (beam search): with `anc` set, query row b's key and value at
+//      position t come from kv row g * G + anc[b, t], g = b / G the row's
+//      group of G = kv_group beams, instead of kv row b / G;
+//    * the kv_group query rows that share a kv row are neighbours in the
+//      grid's fastest dimension, so their blocks run together and all but
+//      the first read the chunk from L2: device memory sees each kv row once.
+//
+// 2. The single-pass core (namespace onepass; rows 8 and 4: replaces
+//    _cross_decode_kernel, olmoasr_tpu/ops/attention.py:39, behind
+//    cross_attend_decode, :725, and _self_decode_kernel / _self_decode_body,
+//    :312 / :123, behind self_attend_decode, :495, over bf16 and fp32 rings
+//    without ancestry). What held the split pass back there: two launches a
+//    call with fp32 partials through device memory between them (2.4 MB at
+//    B = 64, T = 1500), K and V never in flight together, and a block's fixed
+//    costs paid on 32 KB of data. The design:
+//    * one launch. A (query row, head) pair's keys are split into S slices;
+//      the S blocks of a pair form one thread-block cluster (a launch
+//      attribute, so S may change from call to call). S (1 <= S <= 16) gives
+//      the grid about four blocks an SM, slices of at least kMinSliceKeys
+//      keys. On an H100 80GB HBM3 at 700 W (perf/probe_decode_attention.py,
+//      row 8 bf16 at T = 1500, behind a spin): at 1 row S = 16 took 0.0098
+//      ms, S = 8 0.0107 and S = 1 0.0364; at 5 rows S = 8 0.0137, S = 16
+//      0.0158; at 64 rows S = 1 0.1000 and S = 2 0.1175 (a second wave of
+//      blocks pays their start and end latency again). So the decode step's
+//      64 rows take S = 1, and the cluster serves one file and small
+//      batches. Each block streams its slice; ranks other than 0 send their
+//      (acc[dh], m, l) into rank 0's shared memory (st.async, distributed
+//      shared memory, counted on rank 0's mbarrier), and rank 0 merges the S
+//      triples in rank order, so the result does not depend on timing. Rank
+//      0 then folds in the row's own key and value (self attention) and
+//      writes the output. No partial leaves the cluster; S = 1 has no
+//      cluster and no exchange;
+//    * K and V in flight together: a block streams its slice through a ring
+//      of two shared-memory stages of 8 KB of K and V (kKeys keys, 32 for
+//      bf16 at dh = 64) and their scales, a stage's K, V and scales issued
+//      together (cp.async.cg, 16 bytes a thread), the next stage in flight
+//      while one is used. More bytes in flight a block was slower, not
+//      faster: rings of 3 and 4 such stages, or two of 16 KB, took 2-4% more
+//      on the same card at B = 64 (row 8 bf16 T = 1500: 0.0999 ms behind a
+//      spin against 0.1017, 0.1035 and 0.1028; row 4 offset 224: 0.0199
+//      against 0.0202, 0.0214 and 0.0206), and two of 4 KB 8% more (0.1077);
+//    * an online softmax (running max, sum, accumulator) in each warp's
+//      registers: a warp takes kKeys / kWarps keys of each stage, its lanes
+//      in groups of dh*sizeof/16, each lane 16 bytes of a key; the rescale
+//      uses the accurate expf. The block's warps merge in shared memory once,
+//      at the end;
+//    * the head of a block is one head (grid (S, H, rows)): a key's head
+//      slice is 128 contiguous bytes (bf16, dh = 64), a whole line; the same
+//      bytes with each head's keys contiguous took the same time
+//      (perf/probe_decode_attention.py), so no block takes a whole key row.
 //
 // Everything here has internal linkage: each .cu that includes it gets its
 // own instantiations.
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -105,8 +159,8 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&out)[V]) {
 }
 
 // One block of the partial pass: chunk c, head h, query row b, and g = b /
-// kv_group, its kv row (without ancestry) or group (with it); kRound: see the
-// head of this file.
+// kv_group, its kv row (without ancestry) or group (with it); kRound (0 or
+// 1): see the head of this file.
 template <typename KV, typename Q, int kRound = 0>
 __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c, int h, int b,
                                                    int g) {
@@ -149,10 +203,6 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
   // int8 q.K: the head's amax over its lpk lanes, then q rounded to int8
   // (round half to even, clipped to +-127) and packed four to a word
   const bool q8 = kInt8 && p.quant_q;
-  if (kRound == 2 && !q8) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) qv[i] = bf16_round(qv[i]);
-  }
   float q8_scale = 0.f;
   int qp[(V + 3) / 4] = {};
   if (q8) {
@@ -233,7 +283,7 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
       float e[V];
       widen<KV, V>(raw[u], e);
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] += kRound == 2 ? bf16_round(w[u] * e[i]) : w[u] * e[i];
+      for (int i = 0; i < V; ++i) acc[i] += w[u] * e[i];
     }
   }
 #pragma unroll
@@ -342,6 +392,394 @@ int launch_decode_attention(const DecodeAttnArgs& p, int rows, const Q* k_new, c
   attn_combine_kernel<Q, O><<<dim3(p.H, rows), dh, 0, s>>>(p, k_new, v_new, new_stride, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// 2. the single-pass core
+// ---------------------------------------------------------------------------
+
+namespace onepass {
+
+constexpr int kThreads = 128, kWarps = kThreads / 32;
+constexpr int kStages = 2;       // the ring: one stage in flight while one is used
+constexpr int kMaxSlices = 16;   // blocks of a cluster (above 8: a non-portable size)
+constexpr int kMinSliceKeys = 64;  // keys a slice at least, where the launch picks S
+constexpr int kBlocksPerSm = 4;    // the grid the launch's S aims at
+
+struct Args {
+  const void* q = nullptr;      // (rows, q_stride) query rows
+  const void* k_new = nullptr;  // this step's own key and value (rows at q_stride), or null
+  const void* v_new = nullptr;
+  long long q_stride = 0;
+  const void* k = nullptr;      // kv row b, key t at (b * row_keys + t) * D
+  const void* v = nullptr;
+  const float* ks = nullptr;    // (rows, row_keys) per-position scales, or null (ones)
+  const float* vs = nullptr;
+  void* out = nullptr;          // (rows, D) contiguous, in q's type
+  int T = 0, row_keys = 0, D = 0, H = 0;
+  int slice = 0;                // keys a rank streams: rank r takes [r * slice, (r + 1) * slice)
+  float qscale = 1.f;
+};
+
+// 16 bytes of KV elements as fp32; int8 by byte permutation (int8_lane), not
+// the quarter-rate conversion.
+template <typename KV, int V>
+__device__ __forceinline__ void widen_kv(const uint4& raw, float (&out)[V]) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = int8_lane(w[i / 4], i % 4);
+  } else {
+    widen<KV, V>(raw, out);
+  }
+}
+
+// Whether the core takes head width dh: a key's head slice in whole 16-byte
+// lanes of one warp (int8 needs dh >= 16).
+template <typename KV>
+constexpr bool head_fits(int dh) {
+  constexpr int fpl = 16 / static_cast<int>(sizeof(KV));
+  return dh % fpl == 0 && 32 % (dh / fpl) == 0 && dh <= kThreads;
+}
+
+// The shared memory of a block: the ring (each stage kKeys keys of K, of V,
+// then their kKeys key and kKeys value scales), the warps' (acc, m, l)
+// triples, rank 0's mbarrier and the own key's logit, then where S > 1 the
+// cluster's triples at rank 0 (slot r: rank r's).
+template <typename KV, int DH>
+struct Cfg {
+  static constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  static constexpr int FPL = 16 / static_cast<int>(sizeof(KV));  // features a lane: 16 bytes
+  static constexpr int LPK = DH / FPL;                             // lanes a key
+  static constexpr int KPI = 32 / LPK;                             // keys a warp reads at once
+  static constexpr int KB = DH * static_cast<int>(sizeof(KV));     // bytes of a key's head slice
+  static constexpr int kKeys = 4096 / KB;  // keys a stage (8 KB of K and V), kKeys / kWarps a warp
+  static constexpr int R = kKeys / kWarps / KPI;                   // reads a warp makes a stage
+  static constexpr int kStage = 2 * kKeys * KB + 2 * kKeys * 4;
+  static constexpr int kSlot = DH + 4;  // floats of a triple: acc[DH], m, l, two unused
+  static constexpr size_t kWarp = size_t(kStages) * kStage;
+  static constexpr size_t kMbar = kWarp + size_t(kWarps) * kSlot * 4;
+  static constexpr size_t kRecv = kMbar + 16;
+  static constexpr size_t bytes(int S) { return kRecv + (S > 1 ? size_t(S) * kSlot * 4 : 0); }
+  static_assert(head_fits<KV>(DH) && R >= 1 && R * KPI * kWarps == kKeys,
+                "a key's head slice in whole 16-byte lanes of one warp, whole keys a read");
+  static_assert(kStage % 16 == 0 && kSlot % 4 == 0, "16-byte aligned stages and slots");
+};
+
+// grid (S, H, rows), clusters of S along x where S > 1. The int8 q.K
+// product is taken for int8 keys under bf16 activations (Q).
+template <typename KV, typename Q, int DH, int kRound>
+__global__ void __launch_bounds__(kThreads) attend_kernel(const Args p) {
+  using Cf = Cfg<KV, DH>;
+  constexpr int FPL = Cf::FPL, LPK = Cf::LPK, KPI = Cf::KPI, R = Cf::R, KB = Cf::KB;
+  constexpr int kSlot = Cf::kSlot, kKeys = Cf::kKeys;
+  constexpr bool kQ8 = Cf::kInt8 && std::is_same<Q, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) char smem[];
+  const int S = gridDim.x, rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, kq = lane / LPK, sub = lane % LPK;
+  float* wacc = reinterpret_cast<float*>(smem + Cf::kWarp);
+  float* recv = reinterpret_cast<float*>(smem + Cf::kRecv);
+  const uint32_t mbar = smem_u32(smem + Cf::kMbar);
+  float* s_own = reinterpret_cast<float*>(smem + Cf::kMbar + 8);
+  if (S > 1) {
+    if (rank == 0 && threadIdx.x == 0) {  // rank 0 expects S - 1 triples
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mbar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      expect_bytes(mbar, (S - 1) * kSlot * 4);
+    }
+    // every block of the cluster has started, rank 0's mbarrier ready,
+    // before any send: arrive now, wait before the sends
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  }
+
+  // the slice's keys, and its first stages: K, V and the scales together
+  const int t0 = rank * p.slice, n = max(0, min(p.slice, p.T - t0));
+  const int nst = (n + kKeys - 1) / kKeys;
+  const size_t row0 = static_cast<size_t>(b) * p.row_keys + t0;  // the slice's first key
+  const size_t key_bytes = static_cast<size_t>(p.D) * sizeof(KV);
+  const size_t head0 = row0 * key_bytes + static_cast<size_t>(h) * KB;
+  const char* kb = static_cast<const char*>(p.k) + head0;
+  const char* vb = static_cast<const char*>(p.v) + head0;
+  auto issue = [&](int s) {
+    if (s < nst) {
+      char* st = smem + (s % kStages) * Cf::kStage;
+      constexpr int CPK = KB / 16;
+      for (int i = threadIdx.x; i < kKeys * CPK; i += kThreads) {
+        const int key = i / CPK, ch = i % CPK, j = s * kKeys + key;
+        const bool ok = j < n;
+        const size_t off = static_cast<size_t>(ok ? j : 0) * key_bytes + ch * 16;
+        cp_async16(st + key * KB + ch * 16, kb + off, ok);
+        cp_async16(st + (kKeys + key) * KB + ch * 16, vb + off, ok);
+      }
+      for (int i = threadIdx.x; i < 2 * kKeys; i += kThreads) {
+        const float* sc = i < kKeys ? p.ks : p.vs;
+        const int j = s * kKeys + i % kKeys;
+        if (sc)
+          cp_async4(reinterpret_cast<float*>(st + 2 * kKeys * KB) + i, sc + row0 + (j < n ? j : 0),
+                    j < n);
+      }
+    }
+    cp_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // q: this lane's FPL features of head h, scaled; rounded to bf16 for the
+  // exact product under kRound 2, or to int8 per head for the int8 one
+  const Q* q = static_cast<const Q*>(p.q) + static_cast<size_t>(b) * p.q_stride + h * DH;
+  constexpr int QV = 16 / static_cast<int>(sizeof(Q));  // q's elements a 16-byte load
+  static_assert(FPL % QV == 0, "a lane's q features in whole 16-byte loads");
+  float qv[FPL];
+#pragma unroll
+  for (int u = 0; u < FPL / QV; ++u) {
+    float e[QV];
+    widen<Q, QV>(reinterpret_cast<const uint4*>(q + sub * FPL)[u], e);
+#pragma unroll
+    for (int i = 0; i < QV; ++i) qv[u * QV + i] = e[i] * p.qscale;
+  }
+  if constexpr (kRound == 2 && !kQ8) {
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) qv[i] = bf16_round(qv[i]);
+  }
+  float q8_scale = 0.f;
+  int qp[(FPL + 3) / 4] = {};
+  if constexpr (kQ8) {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) amax = fmaxf(amax, fabsf(qv[i]));
+#pragma unroll
+    for (int o = LPK / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(kFullMask, amax, o));
+    q8_scale = fmaxf(amax, 1e-20f) / 127.0f;
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) {
+      const int qi = static_cast<int>(fminf(fmaxf(rintf(qv[i] / q8_scale), -127.f), 127.f));
+      qp[i / 4] |= (qi & 0xff) << (8 * (i % 4));
+    }
+  }
+  // this step's own key and value (rank 0): the logit from the unrounded q
+  const bool own = p.k_new != nullptr && rank == 0;
+  float v_own = 0.f;
+  if (own) {
+    const size_t row = static_cast<size_t>(b) * p.q_stride + h * DH;
+    if (warp == 0) {
+      const Q* kn = static_cast<const Q*>(p.k_new) + row;
+      float s = 0.f;
+      for (int f = lane; f < DH; f += 32) s += to_f(q[f]) * p.qscale * to_f(kn[f]);
+      s = warp_sum(s);
+      if (lane == 0) *s_own = s;
+    }
+    if (threadIdx.x < DH) v_own = to_f(static_cast<const Q*>(p.v_new)[row + threadIdx.x]);
+  }
+
+  // the stream: each warp's online softmax over its keys of every stage
+  float m = -INFINITY, l = 0.f, acc[FPL] = {};
+  for (int s = 0; s < nst; ++s) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage s is in for every thread; stage s - 1 is free again
+    issue(s + kStages - 1);
+    const char* sk = smem + (s % kStages) * Cf::kStage;
+    const char* sv = sk + kKeys * KB;
+    const float* sks = reinterpret_cast<const float*>(sk + 2 * kKeys * KB);
+    float sc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = warp * (kKeys / kWarps) + r * KPI + kq;
+      const uint4 raw = *reinterpret_cast<const uint4*>(sk + key * KB + sub * 16);
+      float dot;
+      if constexpr (kQ8) {
+        const int* kw = reinterpret_cast<const int*>(&raw);
+        int d = 0;
+#pragma unroll
+        for (int w = 0; w < FPL / 4; ++w) d = __dp4a(kw[w], qp[w], d);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFullMask, d, o);
+        dot = static_cast<float>(d) * q8_scale;
+      } else {
+        float e[FPL];
+        widen_kv<KV, FPL>(raw, e);
+        dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < FPL; ++i) dot += qv[i] * e[i];
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(kFullMask, dot, o);
+      }
+      if (p.ks) dot *= sks[key];
+      sc[r] = s * kKeys + key < n ? dot : -INFINITY;
+    }
+    float mx = sc[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) mx = fmaxf(mx, sc[r]);
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
+    const float m_new = fmaxf(m, mx);
+    if (m_new == -INFINITY) continue;  // warp-uniform: no key of this warp yet
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = warp * (kKeys / kWarps) + r * KPI + kq;
+      const float e = expf(sc[r] - m_new);  // 0 past the slice
+      l += e;
+      float w = p.vs ? e * sks[kKeys + key] : e;  // the per-key value scale folds in
+      if constexpr (kRound != 0) w = bf16_round(w);
+      float ve[FPL];
+      widen_kv<KV, FPL>(*reinterpret_cast<const uint4*>(sv + key * KB + sub * 16), ve);
+      if constexpr (kRound == 2) {  // each product rounded to bf16, two to an instruction
+#pragma unroll
+        for (int i = 0; i < FPL; i += 2) {
+          const float2 r = __bfloat1622float2(__floats2bfloat162_rn(w * ve[i], w * ve[i + 1]));
+          acc[i] += r.x;
+          acc[i + 1] += r.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < FPL; ++i) acc[i] += w * ve[i];
+      }
+    }
+    m = m_new;
+  }
+
+  // the warp's key groups, then the block's warps: the output where S = 1,
+  // else the block's triple into slot `rank`
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(kFullMask, l, o);
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) acc[i] += __shfl_xor_sync(kFullMask, acc[i], o);
+  }
+  if (lane < LPK) {
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) wacc[warp * kSlot + sub * FPL + i] = acc[i];
+  }
+  if (lane == 0) wacc[warp * kSlot + DH] = m, wacc[warp * kSlot + DH + 1] = l;
+  __syncthreads();
+  float* mine = recv + rank * kSlot;
+  if (threadIdx.x < DH) {
+    const int d = threadIdx.x;
+    float M = own && S == 1 ? *s_own : -INFINITY;  // one slice: the own key joins here
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wacc[w * kSlot + DH]);
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = wacc[w * kSlot + DH];
+      const float e = mw == -INFINITY ? 0.f : expf(mw - M);
+      L += wacc[w * kSlot + DH + 1] * e;
+      a += wacc[w * kSlot + d] * e;
+    }
+    if (S == 1) {  // no cluster: the output at once
+      if (own) {
+        const float e = expf(*s_own - M);
+        L += e;
+        a += e * v_own;
+      }
+      static_cast<Q*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<Q>(a / L);
+      return;
+    }
+    mine[d] = a;
+    if (d == 0) mine[DH] = M, mine[DH + 1] = L;
+  }
+  if (S == 1) return;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // the start barrier
+  if (rank > 0) {  // the triple into slot `rank` of rank 0
+    if (threadIdx.x < kSlot / 4) {
+      const uint32_t at = smem_u32(mine + 4 * threadIdx.x);
+      st_async(mapa(at, 0), reinterpret_cast<const float4*>(mine)[threadIdx.x], mapa(mbar, 0));
+    }
+    return;
+  }
+  wait_phase(mbar, 0);
+
+  // rank 0 of a cluster: the S triples in rank order, then the own key and
+  // value
+  if (threadIdx.x < DH) {
+    const int d = threadIdx.x;
+    float M = own ? *s_own : -INFINITY;
+    for (int r = 0; r < S; ++r) M = fmaxf(M, recv[r * kSlot + DH]);
+    float a = 0.f, L = 0.f;
+    for (int r = 0; r < S; ++r) {
+      const float mr = recv[r * kSlot + DH];
+      const float e = mr == -INFINITY ? 0.f : expf(mr - M);
+      L += recv[r * kSlot + DH + 1] * e;
+      a += recv[r * kSlot + d] * e;
+    }
+    if (own) {
+      const float e = expf(*s_own - M);
+      L += e;
+      a += e * v_own;
+    }
+    static_cast<Q*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<Q>(a / L);
+  }
+}
+
+template <typename KV, typename Q, int DH, int kRound>
+int launch_dh(Args a, int rows, int slices, cudaStream_t stream) {
+  if constexpr (!head_fits<KV>(DH)) {
+    return cudaErrorInvalidValue;
+  } else {
+    using Cf = Cfg<KV, DH>;
+    const auto kernel = attend_kernel<KV, Q, DH, kRound>;
+    // raised once per process (not stream operations, so a CUDA graph
+    // capture of a later call never sees them): the dynamic shared-memory
+    // limit and clusters above the portable 8 blocks
+    static const cudaError_t configured = [] {
+      const auto k = attend_kernel<KV, Q, DH, kRound>;
+      cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(Cf::bytes(kMaxSlices)));
+      if (e == cudaSuccess && kMaxSlices > 8)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      return e;
+    }();
+    if (configured != cudaSuccess) return static_cast<int>(configured);
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    // S: as many slices as give the grid about kBlocksPerSm blocks an SM,
+    // slices of at least kMinSliceKeys keys, no rank without a key
+    int S = slices > 0 ? slices : kBlocksPerSm * sms / (rows * a.H);
+    S = std::min(S, (a.T + kMinSliceKeys - 1) / kMinSliceKeys);
+    S = S < 1 ? 1 : S > kMaxSlices ? kMaxSlices : S;
+    a.slice = (a.T + S - 1) / S;
+    if (a.slice > 0) S = (a.T + a.slice - 1) / a.slice;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S, a.H, rows);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Cf::bytes(S);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = S > 1 ? 1 : 0;
+    return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+  }
+}
+
+// Launch the single-pass core: one kv row per query row (rows of them), a
+// head width of 8-128 dividing 128 (int8 keys: 16-128); `slices` the ranks
+// of a cluster (1..kMaxSlices), or 0 for the launch's choice. K/V rows must
+// be 16-byte aligned. Q is the type of q, k_new, v_new and out.
+template <typename KV, typename Q, int kRound>
+int launch(const Args& a, int rows, int slices, cudaStream_t stream) {
+  if (rows <= 0 || a.H <= 0 || a.D % a.H != 0 || a.T < 0 || a.row_keys < a.T ||
+      slices < 0 || slices > kMaxSlices)
+    return cudaErrorInvalidValue;
+  switch (a.D / a.H) {
+    case 8: return launch_dh<KV, Q, 8, kRound>(a, rows, slices, stream);
+    case 16: return launch_dh<KV, Q, 16, kRound>(a, rows, slices, stream);
+    case 32: return launch_dh<KV, Q, 32, kRound>(a, rows, slices, stream);
+    case 64: return launch_dh<KV, Q, 64, kRound>(a, rows, slices, stream);
+    case 128: return launch_dh<KV, Q, 128, kRound>(a, rows, slices, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace onepass
 
 }  // namespace
 }  // namespace olm

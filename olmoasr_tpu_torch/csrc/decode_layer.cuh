@@ -54,13 +54,8 @@ namespace dl {
 namespace {
 
 using bf = __nv_bfloat16;
-using mma::cp_async16;
-using mma::cp_async4;
-using mma::cp_commit;
-using mma::cp_wait;
 using mma::ldsm_x4;
 using mma::mma16816;
-using mma::smem_u32;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kCS = 4;         // blocks in a cluster: the K splits of a projection
@@ -460,13 +455,6 @@ struct AttnCfg {
   static constexpr size_t bytes = kComb + (2 * kWarps + 4 + kWarps * DH) * 4;
   static_assert(KB % 16 == 0 && NW >= 1, "16-byte chunks of a key, whole words a lane");
 };
-
-// Signed byte j of w as an exact float, in two full-rate instructions (the
-// integer-to-float conversion runs at a quarter of their rate): 2^23 + (b +
-// 128) is a float whose low mantissa byte is b ^ 0x80.
-__device__ __forceinline__ float int8_lane(uint32_t w, int j) {
-  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + j)) - 8388736.0f;
-}
 
 template <int NW>
 __device__ __forceinline__ void lds_words(uint32_t (&w)[NW], const char* p) {

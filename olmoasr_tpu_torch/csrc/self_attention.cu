@@ -15,11 +15,17 @@
 //
 // What bounds it: the ring read, 2 * B * offset * D elements per layer and
 // step (small.en, B = 64, offset 224, bf16: 44 MB per layer, a tenth of the
-// cross read). It is the cross kernel's split-position pass
-// (decode_attention.cuh) with the ring's row stride C, one kv row per query
-// row, and the new key and value folded in by the combine launch. q, k_new and
-// v_new are row views of the fused QKV projection: rows `row_stride` elements
-// apart.
+// cross read). q, k_new and v_new are row views of the fused QKV projection:
+// rows `row_stride` elements apart.
+//
+// bf16 and fp32 rings without ancestry run on the single-pass core of
+// decode_attention.cuh (one launch: the ring's positions of a (row, head)
+// pair split over the blocks of one cluster, merged in distributed shared
+// memory in rank order; rank 0 folds in the new key and value, the key's
+// logit from the unrounded q; no partials in device memory), with the ring's
+// row stride C and every product fp32 (kRound = 0). int8 rings and beam
+// ancestry keep the split-position pass and its combine launch, which folds
+// in the new key and value.
 //
 // int8 rings (the JAX package's init_cache(quantize_self=True)): ks/vs are
 // the rings' (L, B, 1, C) fp32 per-position scales, read at this layer's
@@ -50,7 +56,8 @@
 namespace olm {
 namespace {
 
-// Ring elements KV, activations (q, k_new, v_new, out) T.
+// The split-position pass over int8 rings or with ancestry: ring elements
+// KV, activations (q, k_new, v_new, out) T.
 template <typename KV, typename T>
 int self_attention(DecodeAttnArgs p, const void* k_ring, const void* v_ring, size_t layer_elems,
                    const void* k_new, const void* v_new, long long row_stride, void* out, int B,
@@ -67,11 +74,43 @@ int self_attention(DecodeAttnArgs p, const void* k_ring, const void* v_ring, siz
   return launch_decode_attention<KV>(p, B, kn, vn, row_stride, o, s);
 }
 
+// The single-pass core over bf16 or fp32 rings without ancestry; slices as
+// onepass::launch's.
+int self_attend(const void* q, const void* k_new, const void* v_new, long long row_stride,
+                const void* k_ring, const void* v_ring, size_t layer_elems, void* out, int B,
+                int C, int offset, int D, int H, int dtype, float qscale, int slices,
+                cudaStream_t s) {
+  onepass::Args p;
+  p.q = q;
+  p.k_new = k_new;
+  p.v_new = v_new;
+  p.q_stride = row_stride;
+  p.out = out;
+  p.T = offset;
+  p.row_keys = C;
+  p.D = D;
+  p.H = H;
+  p.qscale = qscale;
+  if (dtype == kBF16) {
+    using bf = __nv_bfloat16;
+    p.k = static_cast<const bf*>(k_ring) + layer_elems;
+    p.v = static_cast<const bf*>(v_ring) + layer_elems;
+    return onepass::launch<bf, bf, 0>(p, B, slices, s);
+  }
+  if (dtype == kF32) {
+    p.k = static_cast<const float*>(k_ring) + layer_elems;
+    p.v = static_cast<const float*>(v_ring) + layer_elems;
+    return onepass::launch<float, float, 0>(p, B, slices, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace olm
 
-// Scratch as olm_cross_attention: m_part and l_part B*H*nchunks floats,
-// acc_part B*H*nchunks*dh, nchunks = olm_decode_attention_chunks(offset).
+// Scratch (int8 rings and ancestry only; null otherwise) as
+// olm_cross_attention: m_part and l_part B*H*nchunks floats, acc_part
+// B*H*nchunks*dh, nchunks = olm_decode_attention_chunks(offset).
 // anc: null (beam_k must be 1) or (B, C) int32 with B a multiple of beam_k.
 // kv_dtype: the rings' type, `dtype` or int8; int8 rings need ks and vs,
 // (L, B, 1, C) fp32, and no ancestry map.
@@ -89,6 +128,10 @@ extern "C" int olm_self_attention(const void* q, const void* k_new, const void* 
   if (q8 ? (!ks || !vs || anc) : (kv_dtype != dtype || ks || vs)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t rows = static_cast<size_t>(layer) * B * C;  // this layer's first (row, position)
+  const size_t elems = rows * D;
+  if (!q8 && !anc)  // the single-pass core
+    return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, elems, out, B, C, offset, D,
+                       H, dtype, qscale, 0, s);
   DecodeAttnArgs p;
   p.q = q;
   p.q_stride = row_stride;
@@ -105,7 +148,6 @@ extern "C" int olm_self_attention(const void* q, const void* k_new, const void* 
   p.nchunks = (offset + kCaChunk - 1) / kCaChunk;
   p.kv_group = beam_k;
   p.qscale = qscale;
-  const size_t elems = rows * D;
   auto run = [&](auto* act) -> int {
     using T = std::remove_pointer_t<decltype(act)>;
     return q8 ? self_attention<int8_t, T>(p, k_ring, v_ring, elems, k_new, v_new, row_stride, out,
@@ -116,4 +158,21 @@ extern "C" int olm_self_attention(const void* q, const void* k_new, const void* 
   if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(nullptr));
   if (dtype == kF32) return run(static_cast<float*>(nullptr));
   return cudaErrorInvalidValue;
+}
+
+// The single-pass core's route of olm_self_attention (bf16 or fp32 rings, no
+// ancestry) with the blocks a (row, head) pair's positions are split over
+// named, 1..16 (at most one per 64 positions), for
+// perf/probe_decode_attention.py.
+extern "C" int olm_self_attend_probe(const void* q, const void* k_new, const void* v_new,
+                                     long long row_stride, const void* k_ring, const void* v_ring,
+                                     void* out, int L, int layer, int B, int C, int offset, int D,
+                                     int H, int dtype, float qscale, int slices, void* stream) {
+  using namespace olm;
+  if (B <= 0 || H <= 0 || D % H != 0 || layer < 0 || layer >= L || offset < 0 || offset > C ||
+      slices < 1)
+    return cudaErrorInvalidValue;
+  const size_t elems = static_cast<size_t>(layer) * B * C * D;
+  return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, elems, out, B, C, offset, D, H,
+                     dtype, qscale, slices, static_cast<cudaStream_t>(stream));
 }

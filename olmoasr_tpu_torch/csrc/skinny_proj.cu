@@ -92,11 +92,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 using bf = __nv_bfloat16;
-using mma::cp_async16;
-using mma::cp_commit;
 using mma::ldsm_x4;
 using mma::mma16816;
-using mma::smem_u32;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kBN = 64;        // output columns of a block: 8 column blocks of 8
@@ -151,25 +148,15 @@ __device__ __forceinline__ void mark(const Args& p, int i) {
 // wait until at most n (0 or 1) cp.async groups of this thread are pending
 __device__ __forceinline__ void cp_wait_n(int n) {
   if (n == 0)
-    mma::cp_wait<0>();
+    cp_wait<0>();
   else
-    mma::cp_wait<1>();
+    cp_wait<1>();
 }
 
 // The partials' exchange: each sender stores its fp32 pairs straight into
-// the owner's shared memory with st.async, which counts their bytes on the
-// owner's mbarrier; the owner waits for the phase, no cluster barrier.
-__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t mbar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
-      : "memory");
-}
+// the owner's shared memory with st_async (common.cuh), which counts their
+// bytes on the owner's mbarrier; the owner waits for the phase, no cluster
+// barrier.
 
 // Where output column n (of a tile's row) sits in a row of received
 // partials: the pairs (2t, 2t + 1) of column blocks 2j and 2j + 1 side by
@@ -179,21 +166,6 @@ __device__ __forceinline__ int recv_col(int n) {
   const int nb = n / 8;
   return nb / 2 * 16 + n % 8 / 2 * 4 + nb % 2 * 2 + n % 2;
 }
-__device__ __forceinline__ void expect_bytes(uint32_t mbar, int bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-      ::"r"(mbar), "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void wait_phase(uint32_t mbar, int parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT_%=:\n"
-      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT_%=;\n}\n"
-      ::"r"(mbar), "r"(parity)
-      : "memory");
-}
-
 // The programmatic dependence on the launch before (no-ops without one):
 // wait until it has finished and its stores are visible; let the launch
 // after start.

@@ -57,13 +57,17 @@ _SIGNATURES = {
     "olm_cross_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_dtype,
-    # dtype, qscale, stream
-    "olm_cross_attend": (*(_P,) * 9, *(_I,) * 6, _F, _P),
+    # q, k, v, ks, vs, out, B, T, D, H, kv_dtype, dtype, qscale, stream
+    "olm_cross_attend": (*(_P,) * 6, *(_I,) * 6, _F, _P),
+    # the same for perf/probe_decode_attention.py: ..., qscale, slices, stream
+    "olm_cross_attend_probe": (*(_P,) * 6, *(_I,) * 6, _F, _I, _P),
     # q, k_new, v_new, row_stride, k_ring, v_ring, ks, vs, anc, m_part, l_part,
     # acc_part, out, L, layer, B, C, offset, D, H, beam_k, kv_dtype, dtype,
     # qscale, stream
     "olm_self_attention": (_P, _P, _P, _L, *(_P,) * 9, *(_I,) * 10, _F, _P),
+    # for perf/probe_decode_attention.py: q, k_new, v_new, row_stride, k_ring,
+    # v_ring, out, L, layer, B, C, offset, D, H, dtype, qscale, slices, stream
+    "olm_self_attend_probe": (_P, _P, _P, _L, *(_P,) * 3, *(_I,) * 8, _F, _I, _P),
     "olm_decode_attention_chunks": (_I,),
     # x, ln1_g, ln1_b, wqkv, bqkv, wo1, bo1, ln2_g, ln2_b, wq, bq, wo2, bo2,
     # ln3_g, ln3_b, w1, b1, w2, b2, k_ring, v_ring, ck, cv, cks, cvs, out,

@@ -544,10 +544,11 @@ def cross_attend_decode(
     and a ``matmul_residual``; one kv row per query row, as there. Bound on
     the card: the cache read, 2*B*T*D elements (small.en, B=64, bf16: 295 MB
     a layer). The kernel (``olm_cross_attend`` in ``csrc/cross_attention.cu``)
-    is ``cross_block_decode``'s split-T pass and combine without the
-    projection launches, with the TPU kernel's bf16 rounding of q, of the
-    weights and of their products with the values under bf16 activations
-    (the plain twin says where).
+    is one launch of the single-pass core of ``csrc/decode_attention.cuh``:
+    a (row, head) pair's keys split over the blocks of one cluster, merged
+    in distributed shared memory, no partials in device memory; with the
+    TPU kernel's bf16 rounding of q, of the weights and of their products
+    with the values under bf16 activations (the plain twin says where).
     """
     what = "cross_attend_decode"
     if not q.is_cuda:
@@ -565,16 +566,13 @@ def cross_attend_decode(
     _check_operands(what, q.dtype, q.device, q=q)
     scales = {n: t for n, t in (("k_scale", k_scale), ("v_scale", v_scale)) if t is not None}
     _check_scales(what, q.device, (B, T), **scales)
-    lib, stream = _build.lib(), _build.stream_ptr(q.device)
-    m_part, l_part, acc_part = _partials(B, n_head, lib.olm_decode_attention_chunks(T), dh,
-                                         q.device)
     out = torch.empty_like(q)
-    _build.check(lib.olm_cross_attend(
+    _build.check(_build.lib().olm_cross_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
-        None if v_scale is None else v_scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), out.data_ptr(), B, T, D, n_head, _build.dtype_code(k.dtype),
-        _build.dtype_code(q.dtype), _q_scale(dh), stream,
+        None if v_scale is None else v_scale.data_ptr(), out.data_ptr(), B, T, D, n_head,
+        _build.dtype_code(k.dtype), _build.dtype_code(q.dtype), _q_scale(dh),
+        _build.stream_ptr(q.device),
     ), what)
     cross_attend_decode.launches += 1
     return out
@@ -669,13 +667,17 @@ def self_attend_decode(
 
     Bound on the card: the ring read, 2*B*offset*D elements per layer and
     step (small.en, B=64, offset 224, bf16: 44 MB; int8: 22 MB and the
-    scales). The kernel
-    (``csrc/self_attention.cu``) is the cross kernel's split-position pass
-    over the ring (row stride C, the layer chosen by pointer), and a combine
-    launch that folds in the new key and value. With ancestry each block
-    loads its chunk's map once and reads every key from its ancestor row; a
-    group's blocks are grid neighbours, so the ancestors' repeats come from
-    L2. The caller writes k_new and v_new into the rings afterwards.
+    scales). The kernel (``csrc/self_attention.cu``, the layer chosen by
+    pointer, the ring's row stride C): over bf16 and fp32 rings without
+    ancestry one launch of the single-pass core of
+    ``csrc/decode_attention.cuh`` (a (row, head) pair's positions split over
+    the blocks of one cluster, merged in distributed shared memory, the new
+    key and value folded in by rank 0); over int8
+    rings or with ancestry the split-position pass and a combine launch that
+    folds in the new key and value. With ancestry each block loads its
+    chunk's map once and reads every key from its ancestor row; a group's
+    blocks are grid neighbours, so the ancestors' repeats come from L2. The
+    caller writes k_new and v_new into the rings afterwards.
     """
     what = "self_attend_decode"
     quantized = k_ring.dtype == torch.int8
@@ -718,17 +720,19 @@ def self_attend_decode(
                  and beam_anc.is_contiguous() and beam_anc.device == q.device, what,
                  f"beam_anc must be contiguous int32 ({B}, {C}) on {q.device}, got "
                  f"{beam_anc.dtype} {tuple(beam_anc.shape)} on {beam_anc.device}")
-    lib, stream = _build.lib(), _build.stream_ptr(q.device)
-    m_part, l_part, acc_part = _partials(
-        B, n_head, lib.olm_decode_attention_chunks(offset), dh, q.device)
+    lib = _build.lib()
+    # the split pass's scratch (int8 rings, ancestry), held until the launch
+    # is queued, so that the allocator does not hand its memory to `out`
+    parts = _partials(B, n_head, lib.olm_decode_attention_chunks(offset), dh, q.device) \
+        if quantized or beam_anc is not None else (None,) * 3
     out = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
     _build.check(lib.olm_self_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), stride, k_ring.data_ptr(),
         v_ring.data_ptr(), *scales, None if beam_anc is None else beam_anc.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), L, layer_idx,
+        *(None if t is None else t.data_ptr() for t in parts), out.data_ptr(), L, layer_idx,
         B, C, offset, D, n_head, beam_k, _build.dtype_code(k_ring.dtype),
-        _build.dtype_code(q.dtype), _q_scale(dh), stream,
+        _build.dtype_code(q.dtype), _q_scale(dh), _build.stream_ptr(q.device),
     ), what)
     self_attend_decode.launches += 1
     self_attend_decode.beam_launches += beam_anc is not None

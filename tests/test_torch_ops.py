@@ -20,7 +20,11 @@ CUDA device. The bf16 skinny projection (``csrc/skinny_proj.cu``, rows 1,
 and 200 for a second pass over W), K of 768 and 3072, with and without GELU
 and residual, the QKV width and the fp32 store of the cross q, two calls
 bit-equal, its programmatically dependent launches bit-equal to serial
-ones; ``csrc/linear.cu`` refuses bf16.
+ones; ``csrc/linear.cu`` refuses bf16. The single-pass decode attention
+(rows 8 and 4 on ``csrc/decode_attention.cuh``) is held at its stage
+edges, at every head width, at row counts whose launches pick clusters of
+1 to 16 blocks, two launches bit-equal and one device kernel a call
+(``-k single_pass``).
 JAX is imported inside the fixture that needs it, so that the ``gpu`` tests
 also run where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_ops.py``.
@@ -29,9 +33,10 @@ in another order); 5e-4 for the attention forward, which rounds p to bf16 on bot
 where the two fp32 scores differ in the last bit that rounding can flip by one
 bf16 step and move an output by p/l * 2^-8 * |v| (about 2.6e-4 seen at 80
 keys, where p/l is large). The int8 q.K logits are integer dot products
-times the same fp32 scales on both sides: 1e-6 relative. bf16 sub-blocks:
-two bf16 steps at the output's largest magnitude (the JAX kernel rounds the
-softmax weights to bf16 for the value product, the port keeps them fp32).
+times the same fp32 scales on both sides: 1e-6 relative. bf16 sub-blocks
+and ``self_attend_decode`` over bf16 rings: two bf16 steps at the output's
+largest magnitude (the JAX kernel rounds the softmax weights to bf16 for the
+value product, the port keeps them fp32).
 """
 
 from __future__ import annotations
@@ -334,24 +339,34 @@ def test_matmul_residual_matches_jax_kernel(jx):
     assert attention.matmul_residual.launches == before
 
 
-@pytest.mark.parametrize("offset", [0, 1, 9, C])
-def test_self_attend_decode_matches_jax_kernel(jx, offset):
+@pytest.mark.parametrize("act,offset", [
+    *(pytest.param("fp32", o, id=str(o)) for o in (0, 1, 9, C)),
+    *(pytest.param("bf16", o, id=f"bf16-{o}") for o in (0, 1, 9, C)),
+])
+def test_self_attend_decode_matches_jax_kernel(jx, act, offset):
     """Ring positions < offset plus the step's own key; the rest of the ring
-    holds values that must not leak in."""
+    holds values that must not leak in. ``bf16``: bf16 rings, q, k_new and
+    v_new. Tolerance: fp32 2e-4; bf16 two bf16 steps at the output's largest
+    magnitude, because the JAX kernel rounds the normalised ring weights to
+    bf16 for the value product and the twin keeps them fp32 (q's own
+    rounding is exact: a bf16 q times dh^-0.5, a power of two)."""
     jnp = jx.jnp
     rng = _rng(8)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if act == "bf16" else (jnp.float32, torch.float32)
     q, k_new, v_new = (rng.standard_normal((B, 1, D)).astype(np.float32) for _ in range(3))
     k_ring, v_ring = (rng.standard_normal((L, B, C, D)).astype(np.float32) for _ in range(2))
+    args = [jnp.asarray(a, jdt) for a in (q, k_ring, v_ring, k_new, v_new)]
     want = jx.attn.self_attend_decode(
-        jnp.asarray(q), jnp.asarray(k_ring), jnp.asarray(v_ring), jnp.asarray(k_new),
-        jnp.asarray(v_new), jnp.int32(offset), jnp.int32(LAYER), n_head=H, interpret=True,
+        *args, jnp.int32(offset), jnp.int32(LAYER), n_head=H, interpret=True,
     )
+    want = np.asarray(jnp.asarray(want, jnp.float32))
     before = attention.self_attend_decode.launches
     got = attention.self_attend_decode(
-        _t(q), _t(k_ring), _t(v_ring), _t(k_new), _t(v_new), offset, LAYER, n_head=H,
+        *(_t(np.asarray(jnp.asarray(a, jnp.float32))).to(tdt) for a in args), offset, LAYER,
+        n_head=H,
     )
-    _close(got, want)
-    assert attention.self_attend_decode.launches == before
+    assert got.dtype == tdt and attention.self_attend_decode.launches == before
+    _close(got, want, _bf16_tol(_t(want)) if act == "bf16" else ATOL)
 
 
 @pytest.mark.parametrize("beam_k", [2, 3])
@@ -1248,3 +1263,123 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             row, vec, vec, torch.zeros(192, 64, device=cuda), torch.zeros(192, device=cuda),
             mat, vec, vec, vec, mat, vec, mat, vec, ring, ring, cache, cache, scale, scale, 3, 0,
             n_head=4)
+
+
+def _device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches
+    (``torch.profiler``, after a warm-up call). A profile that recorded no
+    device event at all is taken again, up to three profiles: the tracer
+    now and then returns an empty trace on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+# the single-pass core's edges: its 32-key stages (at small.en's head width),
+# and its slices of at least 64 keys, where a launch over few rows splits a
+# (row, head) pair's keys over a cluster of up to 16 blocks (on a 132-SM
+# H100 at small.en's widths: 6 rows take 1, 2, 4 and 7 blocks at offsets 64,
+# 65, 224 and 447, and 7 at T = 1500; 1 row 16 at T = 1500); 64 rows take
+# one block a pair. Head widths: small.en's 64, and 8, 16 and 32.
+SELF_OFFSETS = (0, 1, 31, 32, 33, 63, 64, 65, 224, 447)
+SINGLE_PASS_SHAPES = ((1, 768, 12), (6, 768, 12), (64, 768, 12), (6, 64, 8), (6, 64, 4),
+                      (6, 256, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["bf16", "fp32"])
+def test_self_attend_decode_single_pass_kernel(cuda, act):
+    """Row 4 over bf16 and fp32 rings without ancestry on the single-pass
+    core (``csrc/decode_attention.cuh``, ``onepass``): a C=448 ring, q,
+    k_new and v_new row views of a fused QKV row; offsets 0 (the new key
+    alone), 1, the stage and slice edges, 224 and 447, at each of
+    ``SINGLE_PASS_SHAPES`` (rows, width, heads); two launches bit-equal (the
+    rank-order merge); one device kernel a call."""
+    g = torch.Generator().manual_seed(11)
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    Ls, Cs = 2, 448
+    tol = (lambda want: 1e-4 * max(1.0, float(want.abs().max()))) if dt == torch.float32 \
+        else _bf16_tol
+    err = lambda got, want: float((got.float() - want.float()).abs().max())
+    for Bs, Ds, Hs in SINGLE_PASS_SHAPES:
+        qkv = torch.randn(Bs, 1, 3 * Ds, generator=g).to(cuda, dt)
+        q, kn, vn = qkv[..., :Ds], qkv[..., Ds:2 * Ds], qkv[..., 2 * Ds:]
+        k_ring, v_ring = (torch.randn(Ls, Bs, Cs, Ds, generator=g).to(cuda, dt) for _ in range(2))
+        for offset in SELF_OFFSETS:
+            args = (q, k_ring, v_ring, kn, vn, offset, 1)
+            before = attention.self_attend_decode.launches
+            got = attention.self_attend_decode(*args, n_head=Hs)
+            again = attention.self_attend_decode(*args, n_head=Hs)
+            want = attention.self_attend_decode_plain(*args, n_head=Hs)
+            torch.cuda.synchronize()
+            assert attention.self_attend_decode.launches == before + 2
+            assert err(got, want) <= tol(want), (Bs, Ds, Hs, offset)
+            assert torch.equal(got, again), (Bs, Ds, Hs, offset)
+        names = _device_kernels(lambda: attention.self_attend_decode(
+            q, k_ring, v_ring, kn, vn, 224, 1, n_head=Hs))
+        assert len(names) == 1 and "attend_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,kv", [("bf16", "bf16"), ("bf16", "int8"), ("fp32", "fp32")])
+def test_cross_attend_decode_single_pass_kernel(cuda, act, kv):
+    """Row 8 on the single-pass core in each of its modes: T = 1, 130 and
+    1500 at each of ``SINGLE_PASS_SHAPES`` (an int8 cache needs a head width
+    of 16 or more, and the launch refuses 8), two launches bit-equal; one
+    device kernel a call; over the int8 cache the outlier-q case, where the
+    kernel must take the int8 q.K product (within tolerance of its twin, far
+    outside it against the exact product)."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    g = torch.Generator().manual_seed(12)
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    tol = (lambda want: 1e-4 * max(1.0, float(want.abs().max()))) if dt == torch.float32 \
+        else _bf16_tol
+    err = lambda got, want: float((got.float() - want.float()).abs().max())
+    for Bc, Dc, Hc in SINGLE_PASS_SHAPES:
+        for Tc in (1, 130, 1500):
+            q = torch.randn(Bc, 1, Dc, generator=g).to(cuda, dt)
+            k, v = (torch.randn(Bc, Tc, Dc, generator=g).to(cuda) for _ in range(2))
+            scales = (None, None)
+            if kv == "int8":
+                (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+                scales = (ks, vs[:, None].contiguous())
+            else:
+                k, v = k.to(dt), v.to(dt)
+            args = (q, k, v, *scales)
+            if kv == "int8" and Dc // Hc < 16:
+                with pytest.raises(RuntimeError):
+                    attention.cross_attend_decode(*args, n_head=Hc)
+                break
+            before = attention.cross_attend_decode.launches
+            got = attention.cross_attend_decode(*args, n_head=Hc)
+            again = attention.cross_attend_decode(*args, n_head=Hc)
+            want = attention.cross_attend_decode_plain(*args, n_head=Hc)
+            torch.cuda.synchronize()
+            assert attention.cross_attend_decode.launches == before + 2
+            assert got.dtype == dt and err(got, want) <= tol(want), (Bc, Dc, Hc, Tc)
+            assert torch.equal(got, again), (Bc, Dc, Hc, Tc)
+        else:
+            names = _device_kernels(lambda: attention.cross_attend_decode(*args, n_head=Hc))
+            assert len(names) == 1 and "attend_kernel" in names[0], names
+    Bc, Dc, Hc = 4, 768, 12
+    if kv == "int8":
+        case = _outlier_q_case(g, Bc, 1500, Dc, Hc, dt, cuda)
+        q = case[4].expand(Bc, 1, Dc).contiguous()  # q = bq, the outlier lanes
+        args = (q, *case[7:])
+        got = attention.cross_attend_decode(*args, n_head=Hc)
+        want = attention.cross_attend_decode_plain(*args, n_head=Hc)
+        exact = attention.cross_attend_decode_plain(q.float(), *case[7:], n_head=Hc)
+        torch.cuda.synchronize()
+        assert err(got, want) <= _bf16_tol(want)
+        assert err(got, exact) > 8 * _bf16_tol(want)
