@@ -14,7 +14,10 @@ printed line each (or a few):
    beam-ancestry
    ``self_attend_decode``, the fused ``layer_block_decode`` in both its
    modes (beside the time of the kernels it replaces), the int8 q.K
-   ``cross_block_decode``, ``self_attend_decode`` over int8 rings and
+   ``cross_block_decode`` (at 64 rows, and at 5 rows a window over 16 and
+   over 32 windows; its bf16 call held to four device kernels, the kernel
+   nodes of a CUDA graph capture of the call), ``self_attend_decode`` over
+   int8 rings (one device kernel a call) and
    ``cross_attend_decode`` (the attention kernels beside
    ``scaled_dot_product_attention``, for ``cross_attend_decode`` under both
    timers) included, ``self_attend_decode`` up to offset 447 of a
@@ -318,23 +321,31 @@ def check_cross(gen) -> list:
                            lambda: cross_block_decode_plain(*args), _cross_bound(args, got),
                            yardstick=(lambda: _cublas_ms((h, w[2], w[3]), (h, w[4], w[5])))
                            if act == torch.bfloat16 else None))
-    # best_of samples and beams: 5 token rows over each of 16 cache rows, in
-    # bf16 and over the int8 cache of a served request (int8 q.K)
-    G, Bc = 5, 16
-    x = torch.randn(Bc * G, 1, D, generator=gen).to("cuda", torch.bfloat16)
-    ck, cv = (torch.randn(Bc, T, D, generator=gen).to("cuda") for _ in range(2))
-    ones = torch.ones(Bc, 1, T, device="cuda")
-    (ck8, ks), (cv8, vs) = _quantize_rows(ck), _quantize_rows(cv)
-    for kv, cache in ((torch.bfloat16, (ck.to(torch.bfloat16), cv.to(torch.bfloat16), ones, ones)),
-                      (torch.int8, (ck8, cv8, ks[:, None].contiguous(), vs[:, None].contiguous()))):
-        args = (x, *[t.to(torch.bfloat16) for t in w], *cache, H)
-        kw = dict(kv_group=G)
-        got, want = cross_block_decode(*args, **kw), cross_block_decode_plain(*args, **kw)
-        what = (torch.bfloat16, kv, f"kv_group={G}, {Bc * G} rows")
-        cases.append(_case("cross_block_decode", what, got, want,
-                           lambda: cross_block_decode(*args, **kw),
-                           lambda: cross_block_decode_plain(*args, **kw),
-                           _cross_bound(args, got, G)))
+        if kv == torch.bfloat16:  # LayerNorm, Wq, the attention, Wo: no split pass
+            cases[-1]["device_kernels"] = _check_device_kernels(
+                "cross_block_decode bf16", lambda: cross_block_decode(*args), 4)
+    # best_of samples and beams: 5 token rows over each of 16 cache rows (the
+    # long-form slice's files) and of 32 (beam search's windows), in bf16 and
+    # over the int8 cache of a served request (int8 q.K)
+    G = 5
+    for Bc in (16, 32):
+        x = torch.randn(Bc * G, 1, D, generator=gen).to("cuda", torch.bfloat16)
+        ck, cv = (torch.randn(Bc, T, D, generator=gen).to("cuda") for _ in range(2))
+        ones = torch.ones(Bc, 1, T, device="cuda")
+        (ck8, ks), (cv8, vs) = _quantize_rows(ck), _quantize_rows(cv)
+        for kv, cache in ((torch.bfloat16, (ck.to(torch.bfloat16), cv.to(torch.bfloat16), ones,
+                                            ones)),
+                          (torch.int8, (ck8, cv8, ks[:, None].contiguous(),
+                                        vs[:, None].contiguous()))):
+            args = (x, *[t.to(torch.bfloat16) for t in w], *cache, H)
+            kw = dict(kv_group=G)
+            got, want = cross_block_decode(*args, **kw), cross_block_decode_plain(*args, **kw)
+            what = (torch.bfloat16, kv, f"kv_group={G}, {Bc * G} rows over {Bc}")
+            cases.append(_case("cross_block_decode", what, got, want,
+                               lambda: cross_block_decode(*args, **kw),
+                               lambda: cross_block_decode_plain(*args, **kw),
+                               _cross_bound(args, got, G)))
+        del ck, cv, ck8, cv8
     return cases
 
 
@@ -561,6 +572,9 @@ def check_self_q8(gen) -> list:
                 (dtype, f"int8 rings L={L} B={B} C={C} layer {layer} offset {offset}"),
                 got, self_attend_decode_plain(*sa, **kw), lambda: self_attend_decode(*sa, **kw),
                 lambda: self_attend_decode_plain(*sa, **kw), _self_bound(sa, got)))
+            if len(cases) == 1:  # one launch of the single-pass core, no combine
+                cases[0]["device_kernels"] = _check_device_kernels(
+                    "self_attend_decode over int8 rings", lambda: self_attend_decode(*sa, **kw), 1)
         del kq, vq
     (q, kq, vq, kn, vn), scales = outlier_self_case(gen, B, C, D, H)
     sa, kw = (q, kq, vq, kn, vn, C - 1, layer), dict(n_head=H, **scales)
@@ -1045,6 +1059,32 @@ def events_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_kernels(fn) -> int:
+    """The device kernels one call of ``fn`` launches: the kernel nodes of a
+    CUDA graph capture of the call (csrc/skinny_proj.cu:
+    olm_graph_kernel_nodes), after a warm-up call."""
+    from olmoasr_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = _build.lib().olm_graph_kernel_nodes(graph.raw_cuda_graph())
+    del graph
+    return n
+
+
+def _check_device_kernels(what: str, fn, n: int) -> int:
+    """Fails unless one call of ``fn`` is ``n`` device kernels (the split
+    pass would add its combine launch)."""
+    got = device_kernels(fn)
+    print(f"    one call: {got} device kernels")
+    if got != n:
+        fail(f"{what}: one call launched {got} device kernels, not {n}")
+    return got
 
 
 def phase_kernels() -> dict:
@@ -2348,9 +2388,11 @@ def _ab_inputs(gen) -> dict:
     over a bf16 cross cache at 64 rows over 64 and 160 over 32, and the
     flash route's forward and backward (row 10) at ``check_flash``'s bf16
     shapes, the self pass at the greedy 64 rows without a map at offsets 1
-    and 224, ``cross_attend_decode`` over an int8 cache at 64 rows, and rows
-    8 (over bf16 and int8) and 4 (offset 224) at 1 and 5 rows. Rings are one
-    layer deep: a call reads one layer."""
+    and 224, ``cross_attend_decode`` over an int8 cache at 64 rows, rows 8
+    (over bf16 and int8) and 4 (offset 224) at 1 and 5 rows, then row 4a
+    (int8 rings, offset 224) at 1, 5 and 64 rows and the cross sub-block
+    over an int8 cache at 32 windows x 5. Rings are one layer deep: a call
+    reads one layer."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     D, H, T, K, C = 768, 12, 1500, 5, 225
@@ -2483,6 +2525,30 @@ def _ab_inputs(gen) -> dict:
                    for _ in range(2)]
         out[f"self bf16, B={n}, offset 224, no map"] = (
             "self", (qkv_n, *rings_n, 224, 0), {"n_head": H})
+    # row 4a (int8 rings) at one file's greedy step, a small server batch's
+    # and the greedy 64 rows, and row 1 over an int8 cross cache at 32
+    # windows x 5 (last, as above)
+    for n in (1, 5, 64):
+        qkv_n = torch.randn(n, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        (k8, ks8), (v8, vs8) = (_quantize_rows(torch.randn(1, n, C, D, generator=gen).cuda())
+                                for _ in range(2))
+        out[f"self bf16 over int8 rings, B={n}, offset 224"] = (
+            "self", (qkv_n, k8, v8, 224, 0),
+            {"n_head": H, "k_scale": ks8[:, :, None].contiguous(),
+             "v_scale": vs8[:, :, None].contiguous()})
+    B, G = 32, K
+    x = rows_bf(B * G)
+    w = [(1 + 0.1 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+         (0.1 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+         _weights(gen, D, D, fan_in=D, dtype=torch.bfloat16),
+         (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16),
+         _weights(gen, D, D, fan_in=D, dtype=torch.bfloat16),
+         (0.02 * torch.randn(D, generator=gen)).to("cuda", torch.bfloat16)]
+    (ck, ks), (cv, vs) = (_quantize_rows(torch.randn(B, T, D, generator=gen).cuda())
+                          for _ in range(2))
+    out[f"cross int8, {B * G} rows over {B}"] = (
+        "cross", (x, *w, ck, cv, ks[:, None].contiguous(), vs[:, None].contiguous(), H),
+        {"kv_group": G})
     return out
 
 
@@ -2774,8 +2840,8 @@ def main() -> None:
     # kernel it replaces
     C = "olmoasr_tpu_torch/csrc/"
     sources = {
-        "cross_block_decode": ((C + "cross_attention.cu", C + "skinny_proj.cu"),
-                               "olmoasr_tpu/ops/attention.py:986"),
+        "cross_block_decode": ((C + "cross_attention.cu", C + "decode_attention.cuh",
+                                C + "skinny_proj.cu"), "olmoasr_tpu/ops/attention.py:986"),
         "layer_block_decode": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),
         "mlp_block": ((C + "skinny_proj.cu",), "olmoasr_tpu/ops/attention.py:669"),
         "train_attention_fwd": ((C + "train_attention.cu",),
@@ -2788,7 +2854,8 @@ def main() -> None:
                                     "olmoasr_tpu/ops/attention.py:254"),
         "train_attention_bwd": ((C + "train_attention.cu",),
                                 "olmoasr_tpu/ops/train_attention.py:412"),
-        "self_attend_decode_q8": ((C + "self_attention.cu",), "olmoasr_tpu/ops/attention.py:322"),
+        "self_attend_decode_q8": ((C + "self_attention.cu", C + "decode_attention.cuh"),
+                                  "olmoasr_tpu/ops/attention.py:322"),
         "cross_attend_decode": ((C + "cross_attention.cu", C + "decode_attention.cuh"),
                                 "olmoasr_tpu/ops/attention.py:725"),
         "layer_block_decode_mlp": ((C + "decode_layer.cu",), "olmoasr_tpu/ops/attention.py:1228"),

@@ -16,29 +16,29 @@
 //     dot product of the int8 vectors (__dp4a, four products an
 //     instruction) times that scale, then times ks[t], as the TPU kernel's
 //     _qk_logits takes it;
-//   * the TPU kernels' bf16 dot dtype, as a template argument kRound (bf16
-//     activations; 0 keeps every product fp32, as the decode-step kernels of
-//     the split chain do):
+//   * the TPU kernels' bf16 dot dtype, as the single-pass core's template
+//     argument kRound (bf16 activations; 0 keeps every product fp32, as
+//     cross_block_decode's attention and the self attention over bf16 and
+//     fp32 rings do, and the split-position pass always):
 //       1: each softmax weight, after the value scale, is rounded to bf16
-//          before the value product (_self_decode_body over int8 rings; the
-//          split-position pass);
+//          before the value product (_self_decode_body over int8 rings);
 //       2: also q (for the exact q.K product) and each weight-value product
 //          are rounded to bf16 (_cross_decode_kernel: `qm.astype(dd)`,
-//          `w_full * v` in bf16; the single-pass core).
-//     Both cores round unnormalised weights (relative to a chunk's or a
-//     running max; the normalisation comes last), the TPU kernel the
-//     normalised ones: the same relative rounding of each weight, not the
-//     same bits.
+//          `w_full * v` in bf16).
+//     The core rounds unnormalised weights (relative to a running max; the
+//     normalisation comes last), the TPU kernel the normalised ones: the
+//     same relative rounding of each weight, not the same bits.
 //
 // What bounds both: the K/V read, 2 * T * D elements per kv row; FLOPs are
-// 2 per element read, far below the card's rate. Tensor cores are of no
-// use: there is one query row per kv row and head (kv_group 1 on the
-// single-pass core), so an mma tile would compute 15 of its 16 rows for
-// nothing. The work is to keep enough K/V bytes in flight over the whole
-// card, and to pay little beside them.
+// 2 per element read and query row, below the card's rate. Tensor cores are
+// of no use: a kv row has 1 query row, or kv_group (5 for beams and best_of
+// samples) in cross_block_decode, so an mma tile would compute most of its
+// 16 rows for nothing. The work is to keep enough K/V bytes in flight over
+// the whole card, to read each of them from device memory once, and to pay
+// little beside them.
 //
-// 1. The split-position pass (rows 1, 4a and 4b: cross_block_decode's
-//    attention, self attention over int8 rings and with beam ancestry):
+// 1. The split-position pass (row 4b, self attention with beam ancestry, and
+//    the fp32 fused layer of layer_block.cu, whose phases run its blocks):
 //    * one block per (T-chunk of 128 keys, head, query row) writes a
 //      partial (max, sum, weighted values) triple to device memory; a second
 //      launch combines them (flash-decoding style);
@@ -53,14 +53,19 @@
 //      grid's fastest dimension, so their blocks run together and all but
 //      the first read the chunk from L2: device memory sees each kv row once.
 //
-// 2. The single-pass core (namespace onepass; rows 8 and 4: replaces
-//    _cross_decode_kernel, olmoasr_tpu/ops/attention.py:39, behind
-//    cross_attend_decode, :725, and _self_decode_kernel / _self_decode_body,
-//    :312 / :123, behind self_attend_decode, :495, over bf16 and fp32 rings
-//    without ancestry). What held the split pass back there: two launches a
-//    call with fp32 partials through device memory between them (2.4 MB at
-//    B = 64, T = 1500), K and V never in flight together, and a block's fixed
-//    costs paid on 32 KB of data. The design:
+// 2. The single-pass core (namespace onepass; rows 8, 4, 4a and row 1's
+//    attention: replaces _cross_decode_kernel, olmoasr_tpu/ops/attention.py:39,
+//    behind cross_attend_decode, :725; _self_decode_kernel /
+//    _self_decode_body, :312 / :123, and _self_decode_kernel_q8, :322, behind
+//    self_attend_decode, :495, over bf16, fp32 and int8 rings without
+//    ancestry; the attention of _cross_block_kernel behind
+//    cross_block_decode, :986). What held the split pass back there: two
+//    launches a call with fp32 partials through device memory between them
+//    (2.4 MB at B = 64, T = 1500), K and V never in flight together, a
+//    block's fixed costs paid on 32 KB of data, and with kv_group G the G
+//    query rows of a kv row each reading its keys, G times from L2 (160 rows
+//    over 32 windows: about a quarter of the bound; PERF.md, section 6). The
+//    design:
 //    * one launch. A (query row, head) pair's keys are split into S slices;
 //      the S blocks of a pair form one thread-block cluster (a launch
 //      attribute, so S may change from call to call). S (1 <= S <= 16) gives
@@ -92,10 +97,29 @@
 //      in groups of dh*sizeof/16, each lane 16 bytes of a key; the rescale
 //      uses the accurate expf. The block's warps merge in shared memory once,
 //      at the end;
-//    * the head of a block is one head (grid (S, H, rows)): a key's head
-//      slice is 128 contiguous bytes (bf16, dh = 64), a whole line; the same
-//      bytes with each head's keys contiguous took the same time
-//      (perf/probe_decode_attention.py), so no block takes a whole key row.
+//    * the head of a block is one head (grid (S, H, kv rows * row groups)):
+//      a key's head slice is 128 contiguous bytes (bf16, dh = 64), a whole
+//      line; the same bytes with each head's keys contiguous took the same
+//      time (perf/probe_decode_attention.py), so no block takes a whole key
+//      row;
+//    * G query rows a kv row (cross_block_decode's kv_group; group_kernel,
+//      where attend_kernel takes one): a block takes up to kMaxGroup of them (a larger G splits as evenly as it goes over
+//      several blocks of the same kv row). Each stage of K, V and scales is
+//      staged once and used by all the block's rows: a key's bytes are read
+//      from shared memory and widened once, then each row's q.K, online
+//      softmax (m, l, acc in registers, G states a warp) and value product
+//      run on them. The warp and cluster merges carry G triples in a fixed
+//      order. S counts blocks over (kv rows x row groups x heads). What
+//      bounds it is no longer the bytes but the instructions a key costs
+//      five times over, so the grouped blocks do without what the one-row
+//      kernel pays per row: no branch per row (a group of fewer rows
+//      repeats its last and writes only its own), the rescale only where a
+//      row's max moved, stages of 16 KB (twice the keys per stage's fixed
+//      work), each thread's copy offsets formed once; int8 keys are read 8
+//      bytes a lane, so that each row keeps 8 q features and 8 accumulators
+//      a lane; and one exp a lane, for one row of its key, the weights
+//      passed to the other rows' lanes by shuffle. G = 1 runs attend_kernel,
+//      as rows 8, 4 and 4a do.
 //
 // Everything here has internal linkage: each .cu that includes it gets its
 // own instantiations.
@@ -159,9 +183,8 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&out)[V]) {
 }
 
 // One block of the partial pass: chunk c, head h, query row b, and g = b /
-// kv_group, its kv row (without ancestry) or group (with it); kRound (0 or
-// 1): see the head of this file.
-template <typename KV, typename Q, int kRound = 0>
+// kv_group, its kv row (without ancestry) or group (with it).
+template <typename KV, typename Q>
 __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c, int h, int b,
                                                    int g) {
   constexpr int V = 16 / sizeof(KV);  // elements per 16-byte load
@@ -259,7 +282,7 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
     const float e = expf(sp[j] - mx);
     lsum += e;
     const float w = p.vs ? e * p.vs[key_row(j)] : e;  // the per-key value scale folds in
-    sp[j] = kRound ? bf16_round(w) : w;
+    sp[j] = w;
   }
   lsum = block_reduce(lsum, scratch, false);  // its barriers also publish sp
 
@@ -304,11 +327,11 @@ __device__ __forceinline__ void attn_partial_block(const DecodeAttnArgs p, int c
 // grid (nchunks * kv_group, H, rows / kv_group). The coordinates are formed
 // here in blockIdx's unsigned arithmetic: the same sums on int coordinates
 // inside the body cost 16 registers more and 12% more time (int8, B = 64).
-template <typename KV, typename Q, int kRound>
+template <typename KV, typename Q>
 __global__ void __launch_bounds__(kCaThreads) attn_partial_kernel(const DecodeAttnArgs p) {
   const int G = p.kv_group;
-  attn_partial_block<KV, Q, kRound>(p, blockIdx.x / G, blockIdx.y,
-                                    blockIdx.z * G + blockIdx.x % G, blockIdx.z);
+  attn_partial_block<KV, Q>(p, blockIdx.x / G, blockIdx.y, blockIdx.z * G + blockIdx.x % G,
+                            blockIdx.z);
 }
 
 // Merge the chunks' partials of head h of row b, plus the row's own new key
@@ -377,7 +400,7 @@ __host__ __device__ constexpr bool decode_attention_fits(int D, int H) {
 // Launch the partial pass (when T > 0) and the combine. K/V rows must be
 // 16-byte aligned; rows = kv rows * kv_group (with ancestry: rows = kv rows,
 // in groups of kv_group). Q is the type of q and of k_new/v_new.
-template <typename KV, int kRound = 0, typename Q, typename O>
+template <typename KV, typename Q, typename O>
 int launch_decode_attention(const DecodeAttnArgs& p, int rows, const Q* k_new, const Q* v_new,
                             long long new_stride, O* out, cudaStream_t s) {
   const int dh = p.D / p.H;
@@ -385,7 +408,7 @@ int launch_decode_attention(const DecodeAttnArgs& p, int rows, const Q* k_new, c
   if (p.kv_group <= 0 || rows % p.kv_group != 0) return cudaErrorInvalidValue;
   if (p.T > 0) {
     const dim3 grid(p.nchunks * p.kv_group, p.H, rows / p.kv_group);
-    attn_partial_kernel<KV, Q, kRound><<<grid, kCaThreads, 0, s>>>(p);
+    attn_partial_kernel<KV, Q><<<grid, kCaThreads, 0, s>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -404,33 +427,57 @@ constexpr int kStages = 2;       // the ring: one stage in flight while one is u
 constexpr int kMaxSlices = 16;   // blocks of a cluster (above 8: a non-portable size)
 constexpr int kMinSliceKeys = 64;  // keys a slice at least, where the launch picks S
 constexpr int kBlocksPerSm = 4;    // the grid the launch's S aims at
+// query rows a block at most, where several share a kv row: each keeps its q
+// and accumulator in registers, 166-168 a thread at 5 rows (three blocks an
+// SM); 8 rows took 214-238, two blocks an SM, and ran slower than the split
+// pass (PERF.md, section 6, PR 13)
+constexpr int kMaxGroup = 5;
 
 struct Args {
-  const void* q = nullptr;      // (rows, q_stride) query rows
-  const void* k_new = nullptr;  // this step's own key and value (rows at q_stride), or null
+  const void* q = nullptr;      // (rows, q_stride) query rows, in the q type
+  const void* k_new = nullptr;  // this step's own key and value (rows at q_stride, q type), or null
   const void* v_new = nullptr;
   long long q_stride = 0;
-  const void* k = nullptr;      // kv row b, key t at (b * row_keys + t) * D
+  const void* k = nullptr;      // kv row r, key t at (r * row_keys + t) * D
   const void* v = nullptr;
-  const float* ks = nullptr;    // (rows, row_keys) per-position scales, or null (ones)
+  const float* ks = nullptr;    // (kv rows, row_keys) per-position scales, or null (ones)
   const float* vs = nullptr;
-  void* out = nullptr;          // (rows, D) contiguous, in q's type
+  void* out = nullptr;          // (rows, D) contiguous, in the activation type
   int T = 0, row_keys = 0, D = 0, H = 0;
-  int slice = 0;                // keys a rank streams: rank r takes [r * slice, (r + 1) * slice)
+  int kv_group = 1;             // query rows a kv row: query row b reads kv row b / kv_group
   float qscale = 1.f;
+  // set by the launch: the keys a rank streams (rank r takes [r * slice,
+  // (r + 1) * slice)), and a kv row's query rows in row_groups blocks of at
+  // most group_rows
+  int slice = 0, row_groups = 1, group_rows = 1;
 };
 
-// 16 bytes of KV elements as fp32; int8 by byte permutation (int8_lane), not
+// The bytes of a key a lane reads from a stage at once: 16, or 8 of int8 keys
+// where a block takes several rows.
+template <int LB>
+struct alignas(LB) Lane {
+  uint32_t w[LB / 4];
+};
+
+// A lane's CF KV elements as fp32; int8 by byte permutation (int8_lane), not
 // the quarter-rate conversion.
+template <typename KV, int CF, int LB>
+__device__ __forceinline__ void widen_lane(const Lane<LB>& raw, float (&out)[CF]) {
+  static_assert(CF * sizeof(KV) == LB, "a lane's elements fill its bytes");
+  if constexpr (std::is_same<KV, int8_t>::value) {
+#pragma unroll
+    for (int i = 0; i < CF; ++i) out[i] = int8_lane(raw.w[i / 4], i % 4);
+  } else {
+    const KV* e = reinterpret_cast<const KV*>(raw.w);
+#pragma unroll
+    for (int i = 0; i < CF; ++i) out[i] = to_f(e[i]);
+  }
+}
+
+// 16 bytes of KV elements as fp32.
 template <typename KV, int V>
 __device__ __forceinline__ void widen_kv(const uint4& raw, float (&out)[V]) {
-  if constexpr (std::is_same<KV, int8_t>::value) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < V; ++i) out[i] = int8_lane(w[i / 4], i % 4);
-  } else {
-    widen<KV, V>(raw, out);
-  }
+  widen_lane<KV, V, 16>(reinterpret_cast<const Lane<16>&>(raw), out);
 }
 
 // Whether the core takes head width dh: a key's head slice in whole 16-byte
@@ -441,38 +488,50 @@ constexpr bool head_fits(int dh) {
   return dh % fpl == 0 && 32 % (dh / fpl) == 0 && dh <= kThreads;
 }
 
-// The shared memory of a block: the ring (each stage kKeys keys of K, of V,
-// then their kKeys key and kKeys value scales), the warps' (acc, m, l)
-// triples, rank 0's mbarrier and the own key's logit, then where S > 1 the
-// cluster's triples at rank 0 (slot r: rank r's).
-template <typename KV, int DH>
+// The shared memory of a block taking NQ query rows: the ring (each stage
+// kKeys keys of K, of V, then their kKeys key and kKeys value scales), the
+// warps' (acc, m, l) triples of each row, rank 0's mbarrier and the own
+// key's logit (one row), then where S > 1 the cluster's triples at rank 0
+// (slot r: rank r's NQ rows). A lane computes on CF features of a key: its
+// 16-byte chunk, but 8 bytes of int8 keys where a block takes several rows,
+// so that each row's q and accumulator stay 8 registers a lane.
+template <typename KV, int DH, int NQ>
 struct Cfg {
   static constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  static constexpr int FPL = 16 / static_cast<int>(sizeof(KV));  // features a lane: 16 bytes
-  static constexpr int LPK = DH / FPL;                             // lanes a key
+  static constexpr int FPL = 16 / static_cast<int>(sizeof(KV));  // features a 16-byte chunk
+  static constexpr int CF = NQ > 1 && kInt8 ? 8 : FPL;            // features a lane
+  static constexpr int LB = CF * static_cast<int>(sizeof(KV));     // bytes a lane reads of a key
+  static constexpr int LPK = DH / CF;                              // lanes a key
   static constexpr int KPI = 32 / LPK;                             // keys a warp reads at once
   static constexpr int KB = DH * static_cast<int>(sizeof(KV));     // bytes of a key's head slice
-  static constexpr int kKeys = 4096 / KB;  // keys a stage (8 KB of K and V), kKeys / kWarps a warp
+  // keys a stage, kKeys / kWarps a warp: 8 KB of K and V, 16 KB where a
+  // block takes several rows (its per-stage work spread over twice the keys)
+  static constexpr int kKeys = (NQ > 1 ? 8192 : 4096) / KB;
   static constexpr int R = kKeys / kWarps / KPI;                   // reads a warp makes a stage
   static constexpr int kStage = 2 * kKeys * KB + 2 * kKeys * 4;
   static constexpr int kSlot = DH + 4;  // floats of a triple: acc[DH], m, l, two unused
   static constexpr size_t kWarp = size_t(kStages) * kStage;
-  static constexpr size_t kMbar = kWarp + size_t(kWarps) * kSlot * 4;
+  static constexpr size_t kMbar = kWarp + size_t(kWarps) * NQ * kSlot * 4;
   static constexpr size_t kRecv = kMbar + 16;
-  static constexpr size_t bytes(int S) { return kRecv + (S > 1 ? size_t(S) * kSlot * 4 : 0); }
-  static_assert(head_fits<KV>(DH) && R >= 1 && R * KPI * kWarps == kKeys,
-                "a key's head slice in whole 16-byte lanes of one warp, whole keys a read");
+  static constexpr size_t bytes(int S) {
+    return kRecv + (S > 1 ? size_t(S) * NQ * kSlot * 4 : 0);
+  }
+  static_assert(head_fits<KV>(DH) && DH % CF == 0 && 32 % LPK == 0 && R >= 1 &&
+                    R * KPI * kWarps == kKeys,
+                "a key's head slice in whole lanes of one warp, whole keys a read");
   static_assert(kStage % 16 == 0 && kSlot % 4 == 0, "16-byte aligned stages and slots");
 };
 
-// grid (S, H, rows), clusters of S along x where S > 1. The int8 q.K
-// product is taken for int8 keys under bf16 activations (Q).
-template <typename KV, typename Q, int DH, int kRound>
+// One query row a kv row: grid (S, H, rows), clusters of S along x where
+// S > 1. Q is the type of q, k_new and v_new, A the activations' (the
+// output's): the int8 q.K product is taken for int8 keys under bf16
+// activations.
+template <typename KV, typename Q, typename A, int DH, int kRound>
 __global__ void __launch_bounds__(kThreads) attend_kernel(const Args p) {
-  using Cf = Cfg<KV, DH>;
+  using Cf = Cfg<KV, DH, 1>;
   constexpr int FPL = Cf::FPL, LPK = Cf::LPK, KPI = Cf::KPI, R = Cf::R, KB = Cf::KB;
   constexpr int kSlot = Cf::kSlot, kKeys = Cf::kKeys;
-  constexpr bool kQ8 = Cf::kInt8 && std::is_same<Q, __nv_bfloat16>::value;
+  constexpr bool kQ8 = Cf::kInt8 && std::is_same<A, __nv_bfloat16>::value;
   extern __shared__ __align__(16) char smem[];
   const int S = gridDim.x, rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, kq = lane / LPK, sub = lane % LPK;
@@ -673,7 +732,7 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(const Args p) {
         L += e;
         a += e * v_own;
       }
-      static_cast<Q*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<Q>(a / L);
+      static_cast<A*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<A>(a / L);
       return;
     }
     mine[d] = a;
@@ -709,22 +768,332 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(const Args p) {
       L += e;
       a += e * v_own;
     }
-    static_cast<Q*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<Q>(a / L);
+    static_cast<A*>(p.out)[static_cast<size_t>(b) * p.D + h * DH + d] = from_f<A>(a / L);
   }
 }
 
-template <typename KV, typename Q, int DH, int kRound>
+
+// G query rows a kv row (cross_block_decode's kv_group): grid (S, H, kv rows
+// * row groups), clusters of S along x where S > 1; a block takes kv row b
+// and nq <= NQ of its query rows (a group of fewer than NQ repeats its last
+// row: every row is computed without a branch, only nq written). Q is q's
+// type, A the activations' (the output's): the int8 q.K product is taken
+// for int8 keys under bf16 activations; every product is fp32 (kRound 0).
+template <typename KV, typename Q, typename A, int DH, int NQ>
+__global__ void __launch_bounds__(kThreads) group_kernel(const Args p) {
+  static_assert(NQ > 1, "one row a kv row: attend_kernel");
+  using Cf = Cfg<KV, DH, NQ>;
+  constexpr int CF = Cf::CF, LB = Cf::LB, LPK = Cf::LPK, KPI = Cf::KPI, R = Cf::R, KB = Cf::KB;
+  constexpr int kSlot = Cf::kSlot, kKeys = Cf::kKeys;
+  constexpr bool kQ8 = Cf::kInt8 && std::is_same<A, __nv_bfloat16>::value;
+  constexpr int kOut = (NQ * DH + kThreads - 1) / kThreads;  // (row, feature) outputs a thread
+  // a key's lanes at least as many as the rows: lane `sub` takes the weight
+  // of row min(sub, NQ - 1) for its key, one exp a lane instead of one a
+  // row, and every lane fetches each row's from its key's lanes
+  constexpr bool kSpread = LPK >= NQ;
+  extern __shared__ __align__(16) char smem[];
+  const int S = gridDim.x, rank = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / p.row_groups;  // the kv row; the query rows [b0, b0 + nq)
+  const int first = (blockIdx.z % p.row_groups) * p.group_rows;
+  const int b0 = b * p.kv_group + first, nq = min(p.group_rows, p.kv_group - first);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, kq = lane / LPK, sub = lane % LPK;
+  float* wacc = reinterpret_cast<float*>(smem + Cf::kWarp);
+  float* recv = reinterpret_cast<float*>(smem + Cf::kRecv);
+  const uint32_t mbar = smem_u32(smem + Cf::kMbar);
+  if (S > 1) {
+    if (rank == 0 && threadIdx.x == 0) {  // rank 0 expects S - 1 blocks of nq triples
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mbar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      expect_bytes(mbar, (S - 1) * nq * kSlot * 4);
+    }
+    // every block of the cluster has started, rank 0's mbarrier ready,
+    // before any send: arrive now, wait before the sends
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  }
+
+  // the slice's keys, and its first stages: K, V and the scales together. A
+  // thread's 16-byte chunks of a stage are the same chunk of keys
+  // kThreads / CPK apart in every stage: their offsets are formed once
+  const int t0 = rank * p.slice, n = max(0, min(p.slice, p.T - t0));
+  const int nst = (n + kKeys - 1) / kKeys;
+  const size_t row0 = static_cast<size_t>(b) * p.row_keys + t0;  // the slice's first key
+  const size_t key_bytes = static_cast<size_t>(p.D) * sizeof(KV);
+  const size_t head0 = row0 * key_bytes + static_cast<size_t>(h) * KB;
+  const char* kb = static_cast<const char*>(p.k) + head0;
+  const char* vb = static_cast<const char*>(p.v) + head0;
+  constexpr int CPK = KB / 16;
+  static_assert(kKeys * CPK % kThreads == 0, "whole chunks a thread");
+  const int key0 = threadIdx.x / CPK;
+  const size_t goff0 = static_cast<size_t>(key0) * key_bytes + threadIdx.x % CPK * 16;
+  const size_t gstep = static_cast<size_t>(kThreads / CPK) * key_bytes;
+  auto issue = [&](int s) {
+    if (s < nst) {
+      char* st = smem + (s % kStages) * Cf::kStage;
+      const size_t sbase = static_cast<size_t>(s) * kKeys * key_bytes + goff0;
+#pragma unroll
+      for (int c = 0; c < kKeys * CPK / kThreads; ++c) {
+        const bool ok = s * kKeys + key0 + c * (kThreads / CPK) < n;
+        const size_t off = ok ? sbase + c * gstep : 0;
+        char* dst = st + threadIdx.x * 16 + c * kThreads * 16;
+        cp_async16(dst, kb + off, ok);
+        cp_async16(dst + kKeys * KB, vb + off, ok);
+      }
+      for (int i = threadIdx.x; i < 2 * kKeys; i += kThreads) {
+        const float* sc = i < kKeys ? p.ks : p.vs;
+        const int j = s * kKeys + i % kKeys;
+        if (sc)
+          cp_async4(reinterpret_cast<float*>(st + 2 * kKeys * KB) + i, sc + row0 + (j < n ? j : 0),
+                    j < n);
+      }
+    }
+    cp_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // each row's q: this lane's CF features of head h, scaled; rounded to int8
+  // per head and row for the int8 product
+  const Q* q = static_cast<const Q*>(p.q) + static_cast<size_t>(b0) * p.q_stride + h * DH;
+  constexpr int QV = 16 / static_cast<int>(sizeof(Q));  // q's elements a 16-byte load
+  static_assert(CF % QV == 0, "a lane's q features in whole 16-byte loads");
+  float qv[NQ][CF];
+  float q8_scale[NQ];
+  int qp[NQ][(CF + 3) / 4];
+#pragma unroll
+  for (int r = 0; r < NQ; ++r) {
+    const Q* qr = q + min(r, nq - 1) * p.q_stride + sub * CF;
+#pragma unroll
+    for (int u = 0; u < CF / QV; ++u) {
+      float e[QV];
+      widen<Q, QV>(reinterpret_cast<const uint4*>(qr)[u], e);
+#pragma unroll
+      for (int i = 0; i < QV; ++i) qv[r][u * QV + i] = e[i] * p.qscale;
+    }
+    q8_scale[r] = 0.f;
+#pragma unroll
+    for (int w = 0; w < (CF + 3) / 4; ++w) qp[r][w] = 0;
+    if constexpr (kQ8) {
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < CF; ++i) amax = fmaxf(amax, fabsf(qv[r][i]));
+#pragma unroll
+      for (int o = LPK / 2; o > 0; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(kFullMask, amax, o));
+      q8_scale[r] = fmaxf(amax, 1e-20f) / 127.0f;
+#pragma unroll
+      for (int i = 0; i < CF; ++i) {
+        const int qi = static_cast<int>(fminf(fmaxf(rintf(qv[r][i] / q8_scale[r]), -127.f), 127.f));
+        qp[r][i / 4] |= (qi & 0xff) << (8 * (i % 4));
+      }
+    }
+  }
+
+  // the stream: each warp's online softmax of each row over its keys of
+  // every stage; a key's bytes read and widened once for all the rows
+  float m[NQ], l[NQ], acc[NQ][CF];
+#pragma unroll
+  for (int r = 0; r < NQ; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CF; ++i) acc[r][i] = 0.f;
+  }
+  const int my_row = min(sub, NQ - 1);
+  float l_own = 0.f;  // kSpread: the sum of row my_row's weights of this lane's keys
+  const int wkey = warp * (kKeys / kWarps) + kq;  // this lane's first key of a stage
+  for (int s = 0; s < nst; ++s) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage s is in for every thread; stage s - 1 is free again
+    issue(s + kStages - 1);
+    const char* sk = smem + (s % kStages) * Cf::kStage;
+    const char* sv = sk + kKeys * KB;
+    const float* sks = reinterpret_cast<const float*>(sk + 2 * kKeys * KB);
+    float sc[NQ][R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int key = wkey + k * KPI;
+      const Lane<LB> raw = *reinterpret_cast<const Lane<LB>*>(sk + key * KB + sub * LB);
+      float e[CF];
+      if constexpr (!kQ8) widen_lane<KV, CF, LB>(raw, e);
+      // the key's scale and the slice's end, in one instruction a row
+      const float ksc = p.ks ? sks[key] : 1.f;
+      const float kmask = s * kKeys + key < n ? 0.f : -INFINITY;
+#pragma unroll
+      for (int r = 0; r < NQ; ++r) {
+        float dot;
+        if constexpr (kQ8) {
+          int d = 0;
+#pragma unroll
+          for (int w = 0; w < CF / 4; ++w) d = __dp4a(static_cast<int>(raw.w[w]), qp[r][w], d);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFullMask, d, o);
+          dot = static_cast<float>(d) * q8_scale[r];
+        } else {
+          dot = 0.f;
+#pragma unroll
+          for (int i = 0; i < CF; ++i) dot += qv[r][i] * e[i];
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(kFullMask, dot, o);
+        }
+        sc[r][k] = fmaf(dot, ksc, kmask);
+      }
+    }
+    float mu[NQ];  // each row's running max, the weights' reference
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) {
+      float mx = sc[r][0];
+#pragma unroll
+      for (int k = 1; k < R; ++k) mx = fmaxf(mx, sc[r][k]);
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, o));
+      const float m_new = fmaxf(m[r], mx);
+      // no key of this warp yet: every weight below is 0, the state stays empty
+      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
+      if (m_new != m[r]) {  // the rescale only where the max moved (warp-uniform)
+        const float alpha = expf(m[r] - m_ref);
+        l[r] *= alpha;
+        if (kSpread && my_row == r) l_own *= alpha;
+#pragma unroll
+        for (int i = 0; i < CF; ++i) acc[r][i] *= alpha;
+      }
+      mu[r] = m_ref;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int key = wkey + k * KPI;
+      float ve[CF];
+      widen_lane<KV, CF, LB>(*reinterpret_cast<const Lane<LB>*>(sv + key * KB + sub * LB), ve);
+      const float vsc = p.vs ? sks[kKeys + key] : 1.f;  // the per-key value scale folds in
+      float w_mine = 0.f;
+      if constexpr (kSpread) {
+        float s_mine = sc[NQ - 1][k], m_mine = mu[NQ - 1];
+#pragma unroll
+        for (int r = 0; r < NQ - 1; ++r) {
+          if (my_row == r) s_mine = sc[r][k], m_mine = mu[r];
+        }
+        const float e = expf(s_mine - m_mine);  // 0 past the slice
+        l_own += e;
+        w_mine = e * vsc;
+      }
+#pragma unroll
+      for (int r = 0; r < NQ; ++r) {
+        float w;
+        if constexpr (kSpread) {
+          w = __shfl_sync(kFullMask, w_mine, kq * LPK + r);
+        } else {
+          const float e = expf(sc[r][k] - mu[r]);  // 0 past the slice
+          l[r] += e;
+          w = e * vsc;
+        }
+#pragma unroll
+        for (int i = 0; i < CF; ++i) acc[r][i] += w * ve[i];
+      }
+    }
+  }
+
+  // each row: the warp's key groups, then the block's warps; the output
+  // where S = 1, else the block's triples into its slots
+  if constexpr (kSpread) {  // row r's sum: lane r's, over the key groups
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) l_own += __shfl_xor_sync(kFullMask, l_own, o);
+#pragma unroll
+    for (int r = 0; r < NQ; ++r) l[r] = __shfl_sync(kFullMask, l_own, r);
+  }
+#pragma unroll
+  for (int r = 0; r < NQ; ++r) {
+    if (r >= nq) continue;
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) {
+      if constexpr (!kSpread) l[r] += __shfl_xor_sync(kFullMask, l[r], o);
+#pragma unroll
+      for (int i = 0; i < CF; ++i) acc[r][i] += __shfl_xor_sync(kFullMask, acc[r][i], o);
+    }
+    float* slot = wacc + (warp * NQ + r) * kSlot;
+    if (lane < LPK) {
+#pragma unroll
+      for (int i = 0; i < CF; ++i) slot[sub * CF + i] = acc[r][i];
+    }
+    if (lane == 0) slot[DH] = m[r], slot[DH + 1] = l[r];
+  }
+  __syncthreads();
+  A* out = static_cast<A*>(p.out) + static_cast<size_t>(b0) * p.D + h * DH;
+  float* mine = recv + rank * NQ * kSlot;
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = i / DH, d = i % DH;
+    if (i >= nq * DH) continue;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wacc[(w * NQ + r) * kSlot + DH]);
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* slot = wacc + (w * NQ + r) * kSlot;
+      const float e = slot[DH] == -INFINITY ? 0.f : expf(slot[DH] - M);
+      L += slot[DH + 1] * e;
+      a += slot[d] * e;
+    }
+    if (S == 1) {  // no cluster: the output at once
+      out[static_cast<size_t>(r) * p.D + d] = from_f<A>(a / L);
+    } else {
+      mine[r * kSlot + d] = a;
+      if (d == 0) mine[r * kSlot + DH] = M, mine[r * kSlot + DH + 1] = L;
+    }
+  }
+  if (S == 1) return;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // the start barrier
+  if (rank > 0) {  // the nq triples into rank 0's slot `rank`, 16 bytes a thread
+    for (int i = threadIdx.x; i < nq * kSlot / 4; i += kThreads) {
+      const uint32_t at = smem_u32(mine + 4 * i);
+      st_async(mapa(at, 0), reinterpret_cast<const float4*>(mine)[i], mapa(mbar, 0));
+    }
+    return;
+  }
+  wait_phase(mbar, 0);
+
+  // rank 0 of a cluster: each row's S triples in rank order
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int i = threadIdx.x + k * kThreads, r = i / DH, d = i % DH;
+    if (i >= nq * DH) continue;
+    float M = -INFINITY;
+    for (int rr = 0; rr < S; ++rr) M = fmaxf(M, recv[(rr * NQ + r) * kSlot + DH]);
+    float a = 0.f, L = 0.f;
+    for (int rr = 0; rr < S; ++rr) {
+      const float* slot = recv + (rr * NQ + r) * kSlot;
+      const float e = slot[DH] == -INFINITY ? 0.f : expf(slot[DH] - M);
+      L += slot[DH + 1] * e;
+      a += slot[d] * e;
+    }
+    out[static_cast<size_t>(r) * p.D + d] = from_f<A>(a / L);
+  }
+}
+
+// The kernel of NQ rows a block: one row, attend_kernel; several,
+// group_kernel (every product fp32).
+template <typename KV, typename Q, typename A, int DH, int kRound, int NQ>
+auto kernel_of() {
+  if constexpr (NQ == 1) {
+    return &attend_kernel<KV, Q, A, DH, kRound>;
+  } else {
+    static_assert(kRound == 0, "several rows a block: every product fp32");
+    return &group_kernel<KV, Q, A, DH, NQ>;
+  }
+}
+
+template <typename KV, typename Q, typename A, int DH, int kRound, int NQ>
 int launch_dh(Args a, int rows, int slices, cudaStream_t stream) {
   if constexpr (!head_fits<KV>(DH)) {
     return cudaErrorInvalidValue;
   } else {
-    using Cf = Cfg<KV, DH>;
-    const auto kernel = attend_kernel<KV, Q, DH, kRound>;
+    using Cf = Cfg<KV, DH, NQ>;
+    const auto kernel = kernel_of<KV, Q, A, DH, kRound, NQ>();
     // raised once per process (not stream operations, so a CUDA graph
     // capture of a later call never sees them): the dynamic shared-memory
     // limit and clusters above the portable 8 blocks
     static const cudaError_t configured = [] {
-      const auto k = attend_kernel<KV, Q, DH, kRound>;
+      const auto k = kernel_of<KV, Q, A, DH, kRound, NQ>();
       cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(Cf::bytes(kMaxSlices)));
       if (e == cudaSuccess && kMaxSlices > 8)
@@ -739,15 +1108,20 @@ int launch_dh(Args a, int rows, int slices, cudaStream_t stream) {
       if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
+    // a kv row's query rows in as few blocks of at most NQ as hold them, as
+    // even as can be
+    a.row_groups = (a.kv_group + NQ - 1) / NQ;
+    a.group_rows = (a.kv_group + a.row_groups - 1) / a.row_groups;
+    const int blocks = rows / a.kv_group * a.row_groups;  // (kv row, row group) pairs
     // S: as many slices as give the grid about kBlocksPerSm blocks an SM,
     // slices of at least kMinSliceKeys keys, no rank without a key
-    int S = slices > 0 ? slices : kBlocksPerSm * sms / (rows * a.H);
+    int S = slices > 0 ? slices : kBlocksPerSm * sms / (blocks * a.H);
     S = std::min(S, (a.T + kMinSliceKeys - 1) / kMinSliceKeys);
     S = S < 1 ? 1 : S > kMaxSlices ? kMaxSlices : S;
     a.slice = (a.T + S - 1) / S;
     if (a.slice > 0) S = (a.T + a.slice - 1) / a.slice;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(S, a.H, rows);
+    cfg.gridDim = dim3(S, a.H, blocks);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = Cf::bytes(S);
     cfg.stream = stream;
@@ -760,23 +1134,36 @@ int launch_dh(Args a, int rows, int slices, cudaStream_t stream) {
   }
 }
 
-// Launch the single-pass core: one kv row per query row (rows of them), a
-// head width of 8-128 dividing 128 (int8 keys: 16-128); `slices` the ranks
-// of a cluster (1..kMaxSlices), or 0 for the launch's choice. K/V rows must
-// be 16-byte aligned. Q is the type of q, k_new, v_new and out.
-template <typename KV, typename Q, int kRound>
-int launch(const Args& a, int rows, int slices, cudaStream_t stream) {
-  if (rows <= 0 || a.H <= 0 || a.D % a.H != 0 || a.T < 0 || a.row_keys < a.T ||
-      slices < 0 || slices > kMaxSlices)
-    return cudaErrorInvalidValue;
+template <typename KV, typename Q, typename A, int kRound, int NQ>
+int launch_rows(const Args& a, int rows, int slices, cudaStream_t stream) {
   switch (a.D / a.H) {
-    case 8: return launch_dh<KV, Q, 8, kRound>(a, rows, slices, stream);
-    case 16: return launch_dh<KV, Q, 16, kRound>(a, rows, slices, stream);
-    case 32: return launch_dh<KV, Q, 32, kRound>(a, rows, slices, stream);
-    case 64: return launch_dh<KV, Q, 64, kRound>(a, rows, slices, stream);
-    case 128: return launch_dh<KV, Q, 128, kRound>(a, rows, slices, stream);
+    case 8: return launch_dh<KV, Q, A, 8, kRound, NQ>(a, rows, slices, stream);
+    case 16: return launch_dh<KV, Q, A, 16, kRound, NQ>(a, rows, slices, stream);
+    case 32: return launch_dh<KV, Q, A, 32, kRound, NQ>(a, rows, slices, stream);
+    case 64: return launch_dh<KV, Q, A, 64, kRound, NQ>(a, rows, slices, stream);
+    case 128: return launch_dh<KV, Q, A, 128, kRound, NQ>(a, rows, slices, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Launch the single-pass core over `rows` query rows, a.kv_group of them a
+// kv row (above 1 only where kGrouped, and without k_new: the G rows of a kv
+// row in blocks of up to kMaxGroup, each stage of K and V read once for
+// them; kGrouped also instantiates those blocks); a head width of
+// 8-128 dividing 128 (int8 keys: 16-128); `slices` the ranks of a cluster
+// (1..kMaxSlices), or 0 for the launch's choice. K/V rows must be 16-byte
+// aligned. Q is the type of q, k_new and v_new, A that of the activations
+// and the output.
+template <typename KV, typename Q, typename A, int kRound, bool kGrouped = false>
+int launch(const Args& a, int rows, int slices, cudaStream_t stream) {
+  if (rows <= 0 || a.H <= 0 || a.D % a.H != 0 || a.T < 0 || a.row_keys < a.T ||
+      slices < 0 || slices > kMaxSlices || a.kv_group < 1 || rows % a.kv_group != 0 ||
+      (a.kv_group != 1 && (!kGrouped || a.k_new)))
+    return cudaErrorInvalidValue;
+  if constexpr (kGrouped) {
+    if (a.kv_group > 1) return launch_rows<KV, Q, A, kRound, kMaxGroup>(a, rows, slices, stream);
+  }
+  return launch_rows<KV, Q, A, kRound, 1>(a, rows, slices, stream);
 }
 
 }  // namespace onepass

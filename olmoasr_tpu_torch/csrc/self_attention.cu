@@ -18,26 +18,28 @@
 // cross read). q, k_new and v_new are row views of the fused QKV projection:
 // rows `row_stride` elements apart.
 //
-// bf16 and fp32 rings without ancestry run on the single-pass core of
+// Without ancestry the rings of every type run on the single-pass core of
 // decode_attention.cuh (one launch: the ring's positions of a (row, head)
 // pair split over the blocks of one cluster, merged in distributed shared
 // memory in rank order; rank 0 folds in the new key and value, the key's
-// logit from the unrounded q; no partials in device memory), with the ring's
-// row stride C and every product fp32 (kRound = 0). int8 rings and beam
-// ancestry keep the split-position pass and its combine launch, which folds
-// in the new key and value.
+// logit from the unrounded q; no partials in device memory), with the
+// ring's row stride C. Beam ancestry keeps the split-position pass and its
+// combine launch, which folds in the new key and value.
 //
-// int8 rings (the JAX package's init_cache(quantize_self=True)): ks/vs are
-// the rings' (L, B, 1, C) fp32 per-position scales, read at this layer's
-// (B, C) block, and the pass is the cross pass's int8 one: the ring logit is
+// bf16 and fp32 rings: every product fp32 (kRound = 0).
+//
+// int8 rings (the JAX package's init_cache(quantize_self=True); replaces
+// _self_decode_kernel_q8): ks/vs are the rings' (L, B, 1, C) fp32
+// per-position scales, read at this layer's (B, C) block. The ring logit is
 // the TPU kernel's _qk_logits times ks[t] (under bf16 activations q rounded
-// per head to int8 and an s32 __dp4a product; under fp32 the exact one), vs[t]
-// folds into the weight, and under bf16 the weight is rounded to bf16 before
-// the value product, as _self_decode_body rounds w_old to its dot dtype. This
-// step's own key and value are not quantized (the caller quantizes them into
-// the ring afterwards): the combine takes their logit from the unrounded fp32
-// q, as the TPU body does. The ring read halves against bf16 (B * offset * D
-// bytes for each ring, plus 4 bytes a position of scales).
+// per head to int8 and an s32 __dp4a product; under fp32 the exact one),
+// vs[t] folds into the weight, and under bf16 the weight is rounded to bf16
+// before the value product (kRound = 1), as _self_decode_body rounds w_old to
+// its dot dtype. This step's own key and value are not quantized (the
+// caller quantizes them into the ring afterwards): rank 0 takes their logit
+// from the unrounded fp32 q, as the TPU body does. The ring read halves
+// against bf16 (B * offset * D bytes for each ring, plus 4 bytes a position
+// of scales).
 //
 // Beam search (anc non-null): the rings are never reordered when beams are
 // re-ranked. anc (B, C) int32 names, for row b and position t, the ring row
@@ -56,61 +58,68 @@
 namespace olm {
 namespace {
 
-// The split-position pass over int8 rings or with ancestry: ring elements
-// KV, activations (q, k_new, v_new, out) T.
-template <typename KV, typename T>
-int self_attention(DecodeAttnArgs p, const void* k_ring, const void* v_ring, size_t layer_elems,
-                   const void* k_new, const void* v_new, long long row_stride, void* out, int B,
-                   cudaStream_t s) {
-  p.k = static_cast<const KV*>(k_ring) + layer_elems;
-  p.v = static_cast<const KV*>(v_ring) + layer_elems;
-  const T* kn = static_cast<const T*>(k_new);
-  const T* vn = static_cast<const T*>(v_new);
-  T* o = static_cast<T*>(out);
-  if constexpr (std::is_same<KV, int8_t>::value && std::is_same<T, __nv_bfloat16>::value) {
-    p.quant_q = 1;
-    return launch_decode_attention<KV, 1>(p, B, kn, vn, row_stride, o, s);
-  }
-  return launch_decode_attention<KV>(p, B, kn, vn, row_stride, o, s);
+// The split-position pass with ancestry: ring elements and activations (q,
+// k_new, v_new, out) T.
+template <typename T>
+int self_attention_beam(DecodeAttnArgs p, const void* k_ring, const void* v_ring,
+                        size_t layer_elems, const void* k_new, const void* v_new,
+                        long long row_stride, void* out, int B, cudaStream_t s) {
+  p.k = static_cast<const T*>(k_ring) + layer_elems;
+  p.v = static_cast<const T*>(v_ring) + layer_elems;
+  return launch_decode_attention<T>(p, B, static_cast<const T*>(k_new),
+                                    static_cast<const T*>(v_new), row_stride,
+                                    static_cast<T*>(out), s);
 }
 
-// The single-pass core over bf16 or fp32 rings without ancestry; slices as
+// The single-pass core over the rings without ancestry (kv_dtype: the
+// activation type, or int8 with this layer's scales); slices as
 // onepass::launch's.
 int self_attend(const void* q, const void* k_new, const void* v_new, long long row_stride,
-                const void* k_ring, const void* v_ring, size_t layer_elems, void* out, int B,
-                int C, int offset, int D, int H, int dtype, float qscale, int slices,
-                cudaStream_t s) {
+                const void* k_ring, const void* v_ring, const float* ks, const float* vs,
+                size_t layer_rows, void* out, int B, int C, int offset, int D, int H,
+                int kv_dtype, int dtype, float qscale, int slices, cudaStream_t s) {
   onepass::Args p;
   p.q = q;
   p.k_new = k_new;
   p.v_new = v_new;
   p.q_stride = row_stride;
+  p.ks = ks ? ks + layer_rows : nullptr;
+  p.vs = vs ? vs + layer_rows : nullptr;
   p.out = out;
   p.T = offset;
   p.row_keys = C;
   p.D = D;
   p.H = H;
   p.qscale = qscale;
-  if (dtype == kBF16) {
-    using bf = __nv_bfloat16;
-    p.k = static_cast<const bf*>(k_ring) + layer_elems;
-    p.v = static_cast<const bf*>(v_ring) + layer_elems;
-    return onepass::launch<bf, bf, 0>(p, B, slices, s);
-  }
-  if (dtype == kF32) {
-    p.k = static_cast<const float*>(k_ring) + layer_elems;
-    p.v = static_cast<const float*>(v_ring) + layer_elems;
-    return onepass::launch<float, float, 0>(p, B, slices, s);
-  }
+  const size_t elems = layer_rows * D;
+  auto run = [&](auto* act) -> int {
+    using T = std::remove_pointer_t<decltype(act)>;
+    if (kv_dtype == kI8) {
+      p.k = static_cast<const int8_t*>(k_ring) + elems;
+      p.v = static_cast<const int8_t*>(v_ring) + elems;
+      constexpr int kRound = std::is_same<T, __nv_bfloat16>::value ? 1 : 0;
+      return onepass::launch<int8_t, T, T, kRound>(p, B, slices, s);
+    }
+    if (kv_dtype != dtype) return cudaErrorInvalidValue;
+    p.k = static_cast<const T*>(k_ring) + elems;
+    p.v = static_cast<const T*>(v_ring) + elems;
+    return onepass::launch<T, T, T, 0>(p, B, slices, s);
+  };
+  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(nullptr));
+  if (dtype == kF32) return run(static_cast<float*>(nullptr));
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace olm
 
-// Scratch (int8 rings and ancestry only; null otherwise) as
-// olm_cross_attention: m_part and l_part B*H*nchunks floats, acc_part
-// B*H*nchunks*dh, nchunks = olm_decode_attention_chunks(offset).
+// The split pass's chunks of 128 positions over T positions.
+extern "C" int olm_decode_attention_chunks(int T) {
+  return (T + olm::kCaChunk - 1) / olm::kCaChunk;
+}
+
+// Scratch (ancestry only; null otherwise): m_part and l_part B*H*nchunks
+// floats, acc_part B*H*nchunks*dh, nchunks = olm_decode_attention_chunks(offset).
 // anc: null (beam_k must be 1) or (B, C) int32 with B a multiple of beam_k.
 // kv_dtype: the rings' type, `dtype` or int8; int8 rings need ks and vs,
 // (L, B, 1, C) fp32, and no ancestry map.
@@ -128,15 +137,12 @@ extern "C" int olm_self_attention(const void* q, const void* k_new, const void* 
   if (q8 ? (!ks || !vs || anc) : (kv_dtype != dtype || ks || vs)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t rows = static_cast<size_t>(layer) * B * C;  // this layer's first (row, position)
-  const size_t elems = rows * D;
-  if (!q8 && !anc)  // the single-pass core
-    return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, elems, out, B, C, offset, D,
-                       H, dtype, qscale, 0, s);
+  if (!anc)  // the single-pass core
+    return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, ks, vs, rows, out, B, C,
+                       offset, D, H, kv_dtype, dtype, qscale, 0, s);
   DecodeAttnArgs p;
   p.q = q;
   p.q_stride = row_stride;
-  p.ks = q8 ? ks + rows : nullptr;
-  p.vs = q8 ? vs + rows : nullptr;
   p.anc = anc;
   p.m_part = m_part;
   p.l_part = l_part;
@@ -148,15 +154,13 @@ extern "C" int olm_self_attention(const void* q, const void* k_new, const void* 
   p.nchunks = (offset + kCaChunk - 1) / kCaChunk;
   p.kv_group = beam_k;
   p.qscale = qscale;
-  auto run = [&](auto* act) -> int {
-    using T = std::remove_pointer_t<decltype(act)>;
-    return q8 ? self_attention<int8_t, T>(p, k_ring, v_ring, elems, k_new, v_new, row_stride, out,
-                                          B, s)
-              : self_attention<T, T>(p, k_ring, v_ring, elems, k_new, v_new, row_stride, out, B,
-                                     s);
-  };
-  if (dtype == kBF16) return run(static_cast<__nv_bfloat16*>(nullptr));
-  if (dtype == kF32) return run(static_cast<float*>(nullptr));
+  const size_t elems = rows * D;
+  if (dtype == kBF16)
+    return self_attention_beam<__nv_bfloat16>(p, k_ring, v_ring, elems, k_new, v_new,
+                                              row_stride, out, B, s);
+  if (dtype == kF32)
+    return self_attention_beam<float>(p, k_ring, v_ring, elems, k_new, v_new, row_stride, out,
+                                      B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -172,7 +176,8 @@ extern "C" int olm_self_attend_probe(const void* q, const void* k_new, const voi
   if (B <= 0 || H <= 0 || D % H != 0 || layer < 0 || layer >= L || offset < 0 || offset > C ||
       slices < 1)
     return cudaErrorInvalidValue;
-  const size_t elems = static_cast<size_t>(layer) * B * C * D;
-  return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, elems, out, B, C, offset, D, H,
-                     dtype, qscale, slices, static_cast<cudaStream_t>(stream));
+  const size_t rows = static_cast<size_t>(layer) * B * C;
+  return self_attend(q, k_new, v_new, row_stride, k_ring, v_ring, nullptr, nullptr, rows, out, B,
+                     C, offset, D, H, dtype, dtype, qscale, slices,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -655,3 +655,20 @@ extern "C" int olm_graph_programmatic_edges(void* graph) {
   for (size_t i = 0; i < n; ++i) k += data[i].type == cudaGraphDependencyTypeProgrammatic;
   return k;
 }
+
+// The kernel launches a captured CUDA graph holds (its kernel nodes): the
+// device kernels one captured call launches. -1 on an error.
+extern "C" int olm_graph_kernel_nodes(void* graph) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  if (cudaGraphGetNodes(g, nullptr, &n) != cudaSuccess) return -1;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (cudaGraphGetNodes(g, nodes.data(), &n) != cudaSuccess) return -1;
+  int k = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    if (cudaGraphNodeGetType(nodes[i], &type) != cudaSuccess) return -1;
+    k += type == cudaGraphNodeTypeKernel;
+  }
+  return k;
+}

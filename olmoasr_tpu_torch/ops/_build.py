@@ -50,13 +50,13 @@ _SIGNATURES = {
     # x, g, b, h, M, K, stream
     "olm_proj_layer_norm": (*(_P,) * 4, _I, _I, _P),
     "olm_proj_marks": (),
-    # a captured cudaGraph_t -> its programmatic-dependency edges
+    # a captured cudaGraph_t -> its programmatic-dependency edges, its kernel nodes
     "olm_graph_programmatic_edges": (_P,),
-    # q, k, v, ks, vs, m_part, l_part, acc_part, out, B, T, D, H, kv_group,
-    # kv_dtype, out_dtype, qscale, stream
-    "olm_cross_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
+    "olm_graph_kernel_nodes": (_P,),
+    # q, k, v, ks, vs, out, B, T, D, H, kv_group, kv_dtype, out_dtype, qscale, stream
+    "olm_cross_attention": (*(_P,) * 6, *(_I,) * 7, _F, _P),
+    # the same for perf/probe_decode_attention.py: ..., qscale, slices, stream
+    "olm_cross_attention_probe": (*(_P,) * 6, *(_I,) * 7, _F, _I, _P),
     # q, k, v, ks, vs, out, B, T, D, H, kv_dtype, dtype, qscale, stream
     "olm_cross_attend": (*(_P,) * 6, *(_I,) * 6, _F, _P),
     # the same for perf/probe_decode_attention.py: ..., qscale, slices, stream

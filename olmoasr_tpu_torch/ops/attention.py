@@ -434,16 +434,19 @@ def cross_block_decode(
     cache). Bound on the card: the cross cache read, 2*B*T*D elements per
     layer and step for B cache rows (small.en, B=64, bf16: 295 MB per layer).
     Launches: the LayerNorm and the q projection with its bias, stored fp32
-    unrounded; the split-T attention and its combine
-    (``csrc/cross_attention.cu``: one block per 128-key chunk, head and query
-    row, 16-byte loads, so the cache read spreads over every SM; a group's
-    rows are grid neighbours and share the read through L2); the output
-    projection with bias + residual. In bf16 the LayerNorm and the two
-    projections run on ``csrc/skinny_proj.cu`` (five launches in all; q's
-    product and Wo each programmatically dependent on the launch before it),
-    in fp32 (the checks) on ``csrc/linear.cu``. int8 keys under bf16
-    activations take the TPU kernel's int8 q.K product (q rounded per head,
-    ``__dp4a``; :func:`qk_logits`); fp32 activations keep the exact product.
+    unrounded; the attention (``olm_cross_attention`` in
+    ``csrc/cross_attention.cu``, one launch of the single-pass core of
+    ``csrc/decode_attention.cuh``: a cache row's ``kv_group`` query rows in
+    one block, each stage of K and V staged once for all of them, a (row,
+    head) pair's keys split over the blocks of one cluster, no partials in
+    device memory; every product fp32); the output projection with bias +
+    residual. In bf16 the LayerNorm and the two projections run on
+    ``csrc/skinny_proj.cu`` (four launches in all; q's product and Wo each
+    programmatically dependent on the launch before it), in fp32 (the
+    checks) on ``csrc/linear.cu``. The cache is int8 or in x's dtype. int8
+    keys under bf16 activations take the TPU kernel's int8 q.K product from
+    the unrounded fp32 q (q rounded per head, ``__dp4a``;
+    :func:`qk_logits`); fp32 activations keep the exact product.
     """
     if not x.is_cuda:
         return cross_block_decode_plain(
@@ -459,6 +462,8 @@ def cross_block_decode(
              f"cross keys {tuple(ck.shape)} x kv_group {kv_group} do not match x {tuple(x.shape)}")
     T = ck.shape[1]
     _require(cv.shape == ck.shape and cv.dtype == ck.dtype, what, "ck and cv differ")
+    _require(ck.dtype in (torch.int8, x.dtype), what,
+             f"the cache must be int8 or x's {x.dtype}, got {ck.dtype}")
     _require(ck.is_contiguous() and cv.is_contiguous(), what, "ck, cv must be contiguous")
     _require(ck.data_ptr() % 16 == 0 and cv.data_ptr() % 16 == 0, what,
              "ck, cv must be 16-byte aligned")
@@ -478,14 +483,11 @@ def cross_block_decode(
         _proj(lib, stream, _proj_layer_norm(lib, stream, x, ln_g, ln_b), wq, bq, q, out_f32=True)
     else:
         _linear(lib, stream, _layer_norm(lib, stream, x, ln_g, ln_b), wq, bq, q)
-    m_part, l_part, acc_part = _partials(
-        B, n_head, lib.olm_decode_attention_chunks(T), dh, x.device)
     attn = torch.empty((B, D), dtype=x.dtype, device=x.device)
     _build.check(lib.olm_cross_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ck_scale.data_ptr(),
-        cv_scale.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        attn.data_ptr(), B, T, D, n_head, kv_group, _build.dtype_code(ck.dtype),
-        _build.dtype_code(x.dtype), _q_scale(dh), stream,
+        cv_scale.data_ptr(), attn.data_ptr(), B, T, D, n_head, kv_group,
+        _build.dtype_code(ck.dtype), _build.dtype_code(x.dtype), _q_scale(dh), stream,
     ), "cross_block_decode (attention)")
     out = torch.empty_like(x)
     (_proj if bf16 else _linear)(lib, stream, attn, wo, bo, out.view(B, D), resid=x.view(B, D))
@@ -668,16 +670,16 @@ def self_attend_decode(
     Bound on the card: the ring read, 2*B*offset*D elements per layer and
     step (small.en, B=64, offset 224, bf16: 44 MB; int8: 22 MB and the
     scales). The kernel (``csrc/self_attention.cu``, the layer chosen by
-    pointer, the ring's row stride C): over bf16 and fp32 rings without
-    ancestry one launch of the single-pass core of
+    pointer, the ring's row stride C): without ancestry, over bf16, fp32 and
+    int8 rings, one launch of the single-pass core of
     ``csrc/decode_attention.cuh`` (a (row, head) pair's positions split over
     the blocks of one cluster, merged in distributed shared memory, the new
-    key and value folded in by rank 0); over int8
-    rings or with ancestry the split-position pass and a combine launch that
-    folds in the new key and value. With ancestry each block loads its
-    chunk's map once and reads every key from its ancestor row; a group's
-    blocks are grid neighbours, so the ancestors' repeats come from L2. The
-    caller writes k_new and v_new into the rings afterwards.
+    key and value folded in by rank 0); with ancestry the split-position
+    pass and a combine launch that folds in the new key and value: each
+    block loads its chunk's map once and reads every key from its ancestor
+    row; a group's blocks are grid neighbours, so the ancestors' repeats
+    come from L2. The caller writes k_new and v_new into the rings
+    afterwards.
     """
     what = "self_attend_decode"
     quantized = k_ring.dtype == torch.int8
@@ -721,10 +723,10 @@ def self_attend_decode(
                  f"beam_anc must be contiguous int32 ({B}, {C}) on {q.device}, got "
                  f"{beam_anc.dtype} {tuple(beam_anc.shape)} on {beam_anc.device}")
     lib = _build.lib()
-    # the split pass's scratch (int8 rings, ancestry), held until the launch
-    # is queued, so that the allocator does not hand its memory to `out`
+    # the split pass's scratch (ancestry), held until the launch is queued,
+    # so that the allocator does not hand its memory to `out`
     parts = _partials(B, n_head, lib.olm_decode_attention_chunks(offset), dh, q.device) \
-        if quantized or beam_anc is not None else (None,) * 3
+        if beam_anc is not None else (None,) * 3
     out = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else (None, None)
     _build.check(lib.olm_self_attention(

@@ -3,7 +3,10 @@
 and 4 (``self_attend_decode`` over bf16 rings) at small.en's widths (D=768,
 12 heads), at the greedy step's 64 rows and at 1 and 5 (one file, and a
 small server batch: where a launch splits a (row, head) pair's keys over a
-cluster).
+cluster); row 1's attention (``cross_block_decode``'s, q fp32, bf16 out)
+with 5 query rows a cache row at 1, 16 and 32 windows (one file's beams,
+the long-form slice's 16 files, beam search's 32 windows); row 4a
+(``self_attend_decode`` over int8 rings) at 1, 5 and 64 rows.
 
 Cases: first, the timer's floor (one elementwise launch on one element).
 At 1 and 5 rows: row 8 in bf16 over a bf16 and an int8 cross cache of
@@ -12,14 +15,16 @@ same row 8 cases, and the bf16 one's bytes laid out so that each (row,
 head)'s keys are contiguous (768 rows of one 64-wide head: what the
 128-byte head slices at a 1536-byte key stride cost); row 4 at offsets 0
 (the new key alone: the launch's fixed cost), 1, 41, 224 and 447, and at
-80 rows (the long-form slice's 16 files x 5) at 224. For each, the wrapper
-(the slices, blocks of a cluster, its launch picks: ``0``) and the probe
-entries ``olm_cross_attend_probe`` / ``olm_self_attend_probe`` at the
-counts of SLICES, each held against the plain version (two bf16 steps at
-the output's largest magnitude), each timed from replays of a CUDA graph
-of one call with each replay queued behind a spin on the card
-(``ms_spin``, as ``chip_smoke.py`` takes it), beside the bound (bytes over
-3.35 TB/s).
+80 rows (the long-form slice's 16 files x 5) at 224. Row 1's attention
+over a bf16 and an int8 cache of T=1500 at kv_group 5. Row 4a at offset
+224 of a C=225 ring. For each, the wrapper (the slices, blocks of a
+cluster, its launch picks: ``0``) and, but for row 4a, the probe entries
+``olm_cross_attend_probe`` / ``olm_cross_attention_probe`` /
+``olm_self_attend_probe`` at the counts of SLICES, each held against the
+plain version (two bf16 steps at the output's largest magnitude), each
+timed from replays of a CUDA graph of one call with each replay queued
+behind a spin on the card (``ms_spin``, as ``chip_smoke.py`` takes it),
+beside the bound (bytes over 3.35 TB/s).
 
 Run: ``python -m olmoasr_tpu_torch.perf.probe_decode_attention`` (the card's
 name and power limit, then one JSON line per case).
@@ -84,6 +89,28 @@ def _cross(q, k, v, ks, vs, heads: int, slices: int) -> torch.Tensor:
     return out
 
 
+def _cross_group(q, k, v, ks, vs, group: int, slices: int) -> torch.Tensor:
+    """Row 1's attention (q (B, D) fp32, projected, unscaled; ``group``
+    query rows a cache row) at the launch's slices (0) or at `slices`."""
+    B, Dq = q.shape
+    out = torch.empty((B, Dq), dtype=torch.bfloat16, device=q.device)
+    lib = _build.lib()
+    entry = lib.olm_cross_attention if slices == 0 else lib.olm_cross_attention_probe
+    _build.check(entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        B, k.shape[1], Dq, H, group, _build.dtype_code(k.dtype), _build.dtype_code(out.dtype),
+        A._q_scale(Dq // H), *(() if slices == 0 else (slices,)), _build.stream_ptr(q.device)),
+        "olm_cross_attention")
+    return out
+
+
+def _cross_group_plain(q, k, v, ks, vs, group: int) -> torch.Tensor:
+    Bc, T = k.shape[:2]
+    qs = q.view(Bc, group, D) * A._q_scale(D // H)
+    return A._cross_attend_plain(qs, k, v, ks, vs, H, A.quantizes_q(k.dtype, torch.bfloat16)) \
+        .view(Bc * group, D).to(torch.bfloat16)
+
+
 def _self(q, k_ring, v_ring, k_new, v_new, offset: int, layer: int, slices: int) -> torch.Tensor:
     """Row 4 through the wrapper (slices 0) or at `slices` blocks a cluster."""
     if slices == 0:
@@ -99,7 +126,7 @@ def _self(q, k_ring, v_ring, k_new, v_new, offset: int, layer: int, slices: int)
 
 
 def _cases(gen):
-    """name -> (launch(slices), plain(), bytes moved)."""
+    """name -> (launch(slices), plain(), bytes moved, the slices probed)."""
     from olmoasr_tpu_torch.models.whisper import _quantize_rows
 
     out = {}
@@ -120,7 +147,7 @@ def _cases(gen):
         for name, args, heads in cases:
             out[name] = (lambda s, a=args, h=heads: _cross(*a, h, s),
                          lambda a=args, h=heads: A.cross_attend_decode_plain(*a, n_head=h),
-                         _nbytes(*args) + _nbytes(q))  # the output: q's bytes
+                         _nbytes(*args) + _nbytes(q), SLICES)  # the output: q's bytes
 
     def self_(B, offsets, C=448):
         qkv = torch.randn(B, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
@@ -132,7 +159,33 @@ def _cases(gen):
             out[f"self bf16 ring, {B} rows, offset {offset}"] = (
                 lambda s, a=args: _self(*a, s),
                 lambda a=args: A.self_attend_decode_plain(*a, n_head=H),
-                2 * B * offset * D * 2 + 4 * B * D * 2)
+                2 * B * offset * D * 2 + 4 * B * D * 2, SLICES)
+
+    def cross_group(windows, group=5):
+        q = torch.randn(windows * group, D, generator=gen).cuda()
+        kv = [torch.randn(windows, 1500, D, generator=gen).cuda() for _ in range(2)]
+        ones = torch.ones(windows, 1, 1500, device="cuda")
+        (k8, ks), (v8, vs) = (_quantize_rows(t) for t in kv)
+        out_bytes = windows * group * D * 2
+        for kind, args in (("bf16", (q, *[t.to(torch.bfloat16) for t in kv], ones, ones)),
+                           ("int8", (q, k8, v8, ks[:, None].contiguous(),
+                                     vs[:, None].contiguous()))):
+            moved = _nbytes(*args[:3]) + out_bytes + (_nbytes(*args[3:]) if kind == "int8" else 0)
+            out[f"cross block attention over {kind}, {windows * group} rows over {windows}, "
+                f"T=1500"] = (lambda s, a=args: _cross_group(*a, group, s),
+                              lambda a=args: _cross_group_plain(*a, group), moved, SLICES)
+
+    def self_q8(B, offset=224, C=225):
+        qkv = torch.randn(B, 1, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        (k8, ks), (v8, vs) = (_quantize_rows(torch.randn(1, B, C, D, generator=gen).cuda())
+                              for _ in range(2))
+        args = (qkv[..., :D], k8, v8, qkv[..., D:2 * D], qkv[..., 2 * D:], offset, 0)
+        kw = dict(n_head=H, k_scale=ks[:, :, None].contiguous(),
+                  v_scale=vs[:, :, None].contiguous())
+        out[f"self bf16 over int8 rings, {B} rows, offset {offset}"] = (
+            lambda s, a=args: A.self_attend_decode(*a, **kw),
+            lambda a=args: A.self_attend_decode_plain(*a, **kw),
+            2 * B * offset * (D + 4) + 4 * B * D * 2, (0,))
 
     for B in (1, 5):
         cross(B)
@@ -142,6 +195,10 @@ def _cases(gen):
     # the long-form slice's 16 files x 5 rows: more (row, head) pairs than
     # the card holds blocks at once
     self_(80, (224,), C=225)
+    for windows in (1, 16, 32):
+        cross_group(windows)
+    for B in (1, 5, 64):
+        self_q8(B)
     return out
 
 
@@ -154,11 +211,11 @@ def main() -> None:
     print(json.dumps({"case": "the timer's floor: one elementwise launch on one element",
                       "ms_spin": spin_ms(lambda: one.add_(1.0))}))
     bad = []
-    for name, (launch, plain, moved) in _cases(torch.Generator().manual_seed(0)).items():
+    for name, (launch, plain, moved, slices) in _cases(torch.Generator().manual_seed(0)).items():
         want = plain()
         tol = 2.0 ** -6 * float(want.float().abs().max())
         row = {"case": name, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S, "slices": {}}
-        for s in SLICES:
+        for s in slices:
             err = float((launch(s).float() - want.float()).abs().max())
             row["slices"][s] = {"ms_spin": spin_ms(lambda: launch(s)), "max_abs_err": err}
             if not err <= tol:

@@ -21,10 +21,11 @@ and 200 for a second pass over W), K of 768 and 3072, with and without GELU
 and residual, the QKV width and the fp32 store of the cross q, two calls
 bit-equal, its programmatically dependent launches bit-equal to serial
 ones; ``csrc/linear.cu`` refuses bf16. The single-pass decode attention
-(rows 8 and 4 on ``csrc/decode_attention.cuh``) is held at its stage
-edges, at every head width, at row counts whose launches pick clusters of
-1 to 16 blocks, two launches bit-equal and one device kernel a call
-(``-k single_pass``).
+(rows 8, 4, 4a and row 1's attention on ``csrc/decode_attention.cuh``) is
+held at its stage edges, at every head width, at row counts whose launches
+pick clusters of 1 to 16 blocks, row 1 at 1 to 11 query rows a cache row,
+two launches bit-equal, one device kernel a call and four a bf16
+``cross_block_decode`` (``-k single_pass``).
 JAX is imported inside the fixture that needs it, so that the ``gpu`` tests
 also run where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_ops.py``.
@@ -280,31 +281,49 @@ def _layer_block_case(jx, act, offset, include_mlp):
         _close(got, want, _bf16_tol(_t(want)) if bf16 else ATOL)
 
 
-@pytest.mark.parametrize("kv", ["fp32", "bf16"])
-def test_cross_block_decode_kv_group_matches_jax_kernel(jx, kv):
-    """Two query rows per cache row: row b reads cache row b // 2."""
+@pytest.mark.parametrize("kv,G", [
+    pytest.param("fp32", 2, id="fp32"), pytest.param("bf16", 2, id="bf16"),
+    pytest.param("int8-bf16x", 2, id="int8-bf16x"), pytest.param("fp32", 5, id="fp32-G5"),
+    pytest.param("bf16", 5, id="bf16-G5"), pytest.param("int8-bf16x", 5, id="int8-bf16x-G5"),
+])
+def test_cross_block_decode_kv_group_matches_jax_kernel(jx, kv, G):
+    """G query rows per cache row: row b reads cache row b // G. ``bf16``: a
+    bf16 cache under fp32 activations; ``int8-bf16x``: bf16 activations and
+    parameters over an int8 cache, where each row's q is quantized on its
+    own for the int8 q.K product."""
     jnp = jx.jnp
-    G = 2
-    rng = _rng(5)
+    rng = _rng(5 if G == 2 else 6)
     p = _block_params(rng)
+    bf16x = kv == "int8-bf16x"
+    if bf16x:
+        p = {k: torch.from_numpy(v).to(torch.bfloat16).float().numpy() for k, v in p.items()}
     x = rng.standard_normal((B * G, 1, D)).astype(np.float32)
-    dt = jnp.bfloat16 if kv == "bf16" else jnp.float32
-    ck_j, cv_j = (jnp.asarray(rng.standard_normal((L, B, T, D)), dt) for _ in range(2))
-    ones = jnp.ones((L, B, T), jnp.float32)
+    if bf16x:
+        ck_j, ks_j = jx.quantize_rows(jnp.asarray(rng.standard_normal((L, B, T, D)), jnp.float32))
+        cv_j, vs_j = jx.quantize_rows(jnp.asarray(rng.standard_normal((L, B, T, D)), jnp.float32))
+    else:
+        dt = jnp.bfloat16 if kv == "bf16" else jnp.float32
+        ck_j, cv_j = (jnp.asarray(rng.standard_normal((L, B, T, D)), dt) for _ in range(2))
+        ks_j = vs_j = jnp.ones((L, B, T), jnp.float32)
     want = jx.attn.cross_block_decode(
-        jnp.asarray(x), jnp.asarray(p["ln_g"]), jnp.asarray(p["ln_b"]), jnp.asarray(p["wq"]),
-        jnp.asarray(p["bq"]), jnp.asarray(p["wo"]), jnp.asarray(p["bo"]), ck_j, cv_j,
-        ones, ones, jnp.int32(LAYER), n_head=H, interpret=True, wv_mode="dot", kv_group=G,
+        jnp.asarray(x, jnp.bfloat16 if bf16x else jnp.float32), jnp.asarray(p["ln_g"]),
+        jnp.asarray(p["ln_b"]), jnp.asarray(p["wq"]), jnp.asarray(p["bq"]), jnp.asarray(p["wo"]),
+        jnp.asarray(p["bo"]), ck_j, cv_j, ks_j, vs_j, jnp.int32(LAYER), n_head=H,
+        interpret=True, wv_mode="dot", kv_group=G,
     )
     as_t = lambda a: _t(np.asarray(jnp.asarray(a, jnp.float32)))
-    tdt = torch.bfloat16 if kv == "bf16" else torch.float32
-    scale = torch.ones(B, 1, T)
+    tdt = {"bf16": torch.bfloat16, "fp32": torch.float32, "int8-bf16x": torch.int8}[kv]
+    act = torch.bfloat16 if bf16x else torch.float32
+    w = [_layer(p, "ln_g"), _layer(p, "ln_b"), _layer(p, "wq", True), _layer(p, "bq"),
+         _layer(p, "wo", True), _layer(p, "bo")]
     got = attention.cross_block_decode(
-        _t(x), _layer(p, "ln_g"), _layer(p, "ln_b"), _layer(p, "wq", True), _layer(p, "bq"),
-        _layer(p, "wo", True), _layer(p, "bo"), as_t(ck_j[LAYER]).to(tdt),
-        as_t(cv_j[LAYER]).to(tdt), scale, scale, H, kv_group=G,
+        _t(x).to(act), *[t.to(act) for t in w], as_t(ck_j[LAYER]).to(tdt),
+        as_t(cv_j[LAYER]).to(tdt), as_t(ks_j[LAYER])[:, None], as_t(vs_j[LAYER])[:, None], H,
+        kv_group=G,
     )
-    _close(got, want)
+    assert got.dtype == act
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    _close(got, want, _bf16_tol(_t(want)) if bf16x else ATOL)
 
 
 def test_ln_matmul_matches_jax_kernel(jx):
@@ -890,20 +909,17 @@ def test_mlp_and_matmul_residual_bf16_kernels(cuda, M):
 
 def _cross_serial(x, ln_g, ln_b, wq, bq, wo, bo, ck, cv, ks, vs, n_head, kv_group):
     """cross_block_decode's bf16 launches, each waiting for the one before in
-    full: the LayerNorm, q's product stored fp32, the cross pass and its
-    combine, the output projection."""
+    full: the LayerNorm, q's product stored fp32, the attention, the output
+    projection."""
     lib, stream = _build.lib(), _build.stream_ptr(x.device)
     B, _, Dc = x.shape
     T_ = ck.shape[1]
     q = probe_proj.launch(_proj_layer_norm(x, ln_g, ln_b), wq, bq, out_f32=True, pdl=False)
-    parts = attention._partials(B, n_head, lib.olm_decode_attention_chunks(T_), Dc // n_head,
-                                x.device)
     attn = torch.empty((B, Dc), dtype=x.dtype, device=x.device)
     _build.check(lib.olm_cross_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        *[t.data_ptr() for t in parts], attn.data_ptr(), B, T_, Dc, n_head, kv_group,
-        _build.dtype_code(ck.dtype), _build.dtype_code(x.dtype), attention._q_scale(Dc // n_head),
-        stream), "cross attention")
+        attn.data_ptr(), B, T_, Dc, n_head, kv_group, _build.dtype_code(ck.dtype),
+        _build.dtype_code(x.dtype), attention._q_scale(Dc // n_head), stream), "cross attention")
     return probe_proj.launch(attn, wo, bo, resid=x.view(B, Dc), pdl=False)
 
 
@@ -1297,16 +1313,21 @@ SINGLE_PASS_SHAPES = ((1, 768, 12), (6, 768, 12), (64, 768, 12), (6, 64, 8), (6,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("act", ["bf16", "fp32"])
+@pytest.mark.parametrize("act", ["bf16", "fp32", "int8-bf16", "int8-fp32"])
 def test_self_attend_decode_single_pass_kernel(cuda, act):
-    """Row 4 over bf16 and fp32 rings without ancestry on the single-pass
-    core (``csrc/decode_attention.cuh``, ``onepass``): a C=448 ring, q,
-    k_new and v_new row views of a fused QKV row; offsets 0 (the new key
-    alone), 1, the stage and slice edges, 224 and 447, at each of
-    ``SINGLE_PASS_SHAPES`` (rows, width, heads); two launches bit-equal (the
-    rank-order merge); one device kernel a call."""
+    """Rows 4 and 4a on the single-pass core (``csrc/decode_attention.cuh``,
+    ``onepass``): bf16 and fp32 rings, and int8 rings with their (L, B, 1,
+    C) scales under bf16 (the int8 q.K product, weights rounded to bf16) and
+    fp32 activations; a C=448 ring, q, k_new and v_new row views of a fused
+    QKV row; offsets 0 (the new key alone), 1, the stage and slice edges,
+    224 and 447, at each of ``SINGLE_PASS_SHAPES`` (rows, width, heads; int8
+    rings need a head width of 16 or more, and the launch refuses 8); two
+    launches bit-equal (the rank-order merge); one device kernel a call."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
     g = torch.Generator().manual_seed(11)
-    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    q8 = act.startswith("int8")
+    dt = torch.bfloat16 if act.endswith("bf16") else torch.float32
     Ls, Cs = 2, 448
     tol = (lambda want: 1e-4 * max(1.0, float(want.abs().max()))) if dt == torch.float32 \
         else _bf16_tol
@@ -1314,20 +1335,106 @@ def test_self_attend_decode_single_pass_kernel(cuda, act):
     for Bs, Ds, Hs in SINGLE_PASS_SHAPES:
         qkv = torch.randn(Bs, 1, 3 * Ds, generator=g).to(cuda, dt)
         q, kn, vn = qkv[..., :Ds], qkv[..., Ds:2 * Ds], qkv[..., 2 * Ds:]
-        k_ring, v_ring = (torch.randn(Ls, Bs, Cs, Ds, generator=g).to(cuda, dt) for _ in range(2))
+        k_ring, v_ring = (torch.randn(Ls, Bs, Cs, Ds, generator=g).to(cuda) for _ in range(2))
+        kw = dict(n_head=Hs)
+        if q8:
+            (k_ring, ks), (v_ring, vs) = _quantize_rows(k_ring), _quantize_rows(v_ring)
+            kw.update(k_scale=ks[:, :, None].contiguous(), v_scale=vs[:, :, None].contiguous())
+        else:
+            k_ring, v_ring = k_ring.to(dt), v_ring.to(dt)
+        if q8 and Ds // Hs < 16:
+            with pytest.raises(RuntimeError):
+                attention.self_attend_decode(q, k_ring, v_ring, kn, vn, 1, 1, **kw)
+            continue
         for offset in SELF_OFFSETS:
             args = (q, k_ring, v_ring, kn, vn, offset, 1)
             before = attention.self_attend_decode.launches
-            got = attention.self_attend_decode(*args, n_head=Hs)
-            again = attention.self_attend_decode(*args, n_head=Hs)
-            want = attention.self_attend_decode_plain(*args, n_head=Hs)
+            before_q8 = attention.self_attend_decode.q8_launches
+            got = attention.self_attend_decode(*args, **kw)
+            again = attention.self_attend_decode(*args, **kw)
+            want = attention.self_attend_decode_plain(*args, **kw)
             torch.cuda.synchronize()
             assert attention.self_attend_decode.launches == before + 2
+            assert attention.self_attend_decode.q8_launches == before_q8 + 2 * q8
             assert err(got, want) <= tol(want), (Bs, Ds, Hs, offset)
             assert torch.equal(got, again), (Bs, Ds, Hs, offset)
         names = _device_kernels(lambda: attention.self_attend_decode(
-            q, k_ring, v_ring, kn, vn, 224, 1, n_head=Hs))
+            q, k_ring, v_ring, kn, vn, 224, 1, **kw))
         assert len(names) == 1 and "attend_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,kv", [("bf16", "bf16"), ("bf16", "int8"), ("fp32", "fp32"),
+                                    ("fp32", "int8")])
+def test_cross_block_decode_single_pass_kernel(cuda, act, kv):
+    """Row 1 with its attention on the single-pass core: G = 1, 2, 5, 8 and
+    11 query rows a cache row (8 and 11: a window's rows over two and three
+    blocks), 1, 16 and 32 windows, T = 1, 130 and 1500, at small.en's
+    widths, in each mode (over the int8 cache under bf16 the int8 q.K
+    product, under fp32 the exact one), and G = 2, 5 and 11 at head widths
+    32, 16 and 8; within the
+    tolerances of the split pass's tests of its twin, two calls bit-equal;
+    a bf16 call four device kernels (LayerNorm, Wq, the core's attention:
+    `attend_kernel` at G = 1, `group_kernel` above; Wo), none the split
+    pass's."""
+    from olmoasr_tpu_torch.models.whisper import _quantize_rows
+
+    g = torch.Generator().manual_seed(13)
+    dt = torch.bfloat16 if act == "bf16" else torch.float32
+    Dc, Hc = 768, 12
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda, dt)
+    w = [1 + r(Dc, scale=0.1), r(Dc, scale=0.1), r(Dc, Dc, scale=Dc ** -0.5),
+         r(Dc, scale=0.1), r(Dc, Dc, scale=Dc ** -0.5), r(Dc, scale=0.1)]
+    err = lambda got, want: float((got.float() - want.float()).abs().max())
+    fn = attention.cross_block_decode
+    for windows in (1, 16, 32):
+        for Tc in (1, 130, 1500):
+            ck, cv = (torch.randn(windows, Tc, Dc, generator=g).to(cuda) for _ in range(2))
+            if kv == "int8":
+                (ck, ks), (cv, vs) = _quantize_rows(ck), _quantize_rows(cv)
+                ks, vs = ks[:, None].contiguous(), vs[:, None].contiguous()
+            else:
+                ck, cv = ck.to(dt), cv.to(dt)
+                ks = vs = torch.ones(windows, 1, Tc, device=cuda)
+            for G in (1, 2, 5, 8, 11):
+                args = (r(windows * G, 1, Dc), *w, ck, cv, ks, vs, Hc)
+                before = fn.launches
+                got, again = fn(*args, kv_group=G), fn(*args, kv_group=G)
+                want = attention.cross_block_decode_plain(*args, kv_group=G)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 2
+                tol = 1e-4 if dt == torch.float32 else _bf16_tol(want)
+                assert got.dtype == dt and err(got, want) <= tol, (windows, Tc, G)
+                assert torch.equal(got, again), (windows, Tc, G)
+    if act == "bf16":  # over the last cache (32 windows, T = 1500)
+        for G in (1, 5):
+            args = (r(windows * G, 1, Dc), *w, ck, cv, ks, vs, Hc)
+            names = _device_kernels(lambda: fn(*args, kv_group=G))
+            core = [k for k in names if "attend_kernel" in k or "group_kernel" in k]
+            assert len(names) == 4 and len(core) == 1, names
+            assert not any("attn_partial" in k or "attn_combine" in k for k in names), names
+    # the other head widths (fewer lanes a key than rows a block: each row's
+    # own softmax weights), 16 windows, T = 130; int8 keys need 16 or more
+    for Dw, Hw in ((256, 8), (64, 4), (64, 8)):
+        if kv == "int8" and Dw // Hw < 16:
+            continue
+        w = [1 + r(Dw, scale=0.1), r(Dw, scale=0.1), r(Dw, Dw, scale=Dw ** -0.5),
+             r(Dw, scale=0.1), r(Dw, Dw, scale=Dw ** -0.5), r(Dw, scale=0.1)]
+        ck, cv = (torch.randn(16, 130, Dw, generator=g).to(cuda) for _ in range(2))
+        if kv == "int8":
+            (ck, ks), (cv, vs) = _quantize_rows(ck), _quantize_rows(cv)
+            ks, vs = ks[:, None].contiguous(), vs[:, None].contiguous()
+        else:
+            ck, cv = ck.to(dt), cv.to(dt)
+            ks = vs = torch.ones(16, 1, 130, device=cuda)
+        for G in (2, 5, 11):
+            args = (r(16 * G, 1, Dw), *w, ck, cv, ks, vs, Hw)
+            got, again = fn(*args, kv_group=G), fn(*args, kv_group=G)
+            want = attention.cross_block_decode_plain(*args, kv_group=G)
+            torch.cuda.synchronize()
+            tol = 1e-4 if dt == torch.float32 else _bf16_tol(want)
+            assert err(got, want) <= tol, (Dw, Hw, G)
+            assert torch.equal(got, again), (Dw, Hw, G)
 
 
 @pytest.mark.gpu
