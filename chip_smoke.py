@@ -46,7 +46,12 @@ printed line each (or a few):
    best_of=5 above it (random weights fail the gates, so every window climbs
    the whole ladder); wall time, audio-seconds per second, windows per
    temperature, single-token steps, every kernel's launches, the results'
-   schema; then the server's default traffic in this process: the port's
+   schema; then 4 of its files again with ``word_timestamps=True`` (beam 5
+   at t=0) and 2 of those also with ``hallucination_silence_threshold=2.0`` (the vocabulary's
+   text rows cut to the byte tokens, which alone the offline tokenizer
+   decodes, so that segments have words): words per file, the alignment's
+   wall against the decode's, its attention launches, every word inside its
+   window; then the server's default traffic in this process: the port's
    ``BatchingService`` with int8 cross K/V and no beam, 8 requests at once
    (greedy at t=0, one sample per window above, every step fused); then the
    decode step's other kernel routes, each as the JAX step's flag matrix
@@ -60,7 +65,11 @@ printed line each (or a few):
    token rows each (the shared cross cache), then 2 windows over an int8
    cross cache (the fused launch); then over int8 self rings (2 rows a
    window, the CPU given the card's rings before each step), and along the
-   routes layer and attend;
+   routes layer and attend; ``timing.find_alignment`` at fp32 on the card and
+   on the CPU for one window (equal words and times); language detection on
+   a seeded multilingual small.en (``detect_language`` at 1 and 8 windows,
+   the same language ids as the CPU's at fp32, then ``transcribe_many`` with
+   ``language=None``);
 6. the training slice: small.en at full width and depth through
    ``train_loop.main`` on 256 synthetic samples (micro batch 16, effective
    32, remat), 6 steps and a resumed seventh; the attention forward and
@@ -69,15 +78,21 @@ printed line each (or a few):
    waits, each step's wall and the loader's work inside it, one step with
    the loader held back, peak memory, the kernels' device time
    (``torch.profiler``, the resumed step) and the step's FLOPs against 989
-   TFLOP/s; then the same through ``train_loop.main(attention="flash")``
+   TFLOP/s; then the same with ``device_mel=True`` (the loader ships int16
+   PCM, the step computes the log-mel on the card; 3 steps and a resumed
+   fourth, beside the host-mel run, one micro-batch's log-mel against the
+   host's and step 1's loss against the host-mel run's); then the same
+   through ``train_loop.main(attention="flash")``
    (3 steps and a resumed fourth, the flash kernels' 144 forward and 72
    backward launches a step); then an fp32 ``loss_fn`` and backward of a
    narrow model on the card against the CPU twins, on both routes;
 7. the entry points: the seeded small.en written as a reference ``.pt``;
    the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
-   files, and the HTTP server (``python -m olmoasr_tpu_torch.serve``, int8
-   cross K/V and ``beam_size=5``) answering 4 concurrent requests, each in
-   its own process.
+   files with ``--word_timestamps True --highlight_words True
+   --max_line_width 40``, and the HTTP server (``python -m
+   olmoasr_tpu_torch.serve``, int8 cross K/V and ``beam_size=5``) answering
+   4 concurrent requests, one with ``word_timestamps``, each in its own
+   process.
 
 Each slice sets every launch count to 0 before it runs and reads them after;
 the ``launches`` of the kernels line are those of the path that runs the
@@ -1531,18 +1546,25 @@ def _profile_step(what: str, step, prompt_len: int, warm: int = 40, timed: int =
 # ---------------------------------------------------------------------------
 
 
+LONG_FORM_FILES = 16
+
+
+def _long_form_audios():
+    """The long-form slice's files: 40-75 s each of seeded noise."""
+    rng = np.random.default_rng(2)
+    seconds = rng.integers(40, 76, LONG_FORM_FILES)
+    return seconds, [torch.from_numpy((rng.standard_normal(s * 16000) * 0.1).astype(np.float32))
+                     for s in seconds]
+
+
 def phase_long_form() -> dict:
     from olmoasr_tpu_torch import build_model, transcribe_many
-    from olmoasr_tpu_torch.audio import SAMPLE_RATE
     from olmoasr_tpu_torch.transcribe import DEFAULT_TEMPERATURES
 
-    n_files, best_of, beam_size = 16, 5, 5  # the CLI's defaults
+    n_files, best_of, beam_size = LONG_FORM_FILES, 5, 5  # the CLI's defaults
     model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
     dims = model.dims
-    rng = np.random.default_rng(2)
-    seconds = rng.integers(40, 76, n_files)
-    audios = [torch.from_numpy((rng.standard_normal(s * SAMPLE_RATE) * 0.1).astype(np.float32))
-              for s in seconds]
+    seconds, audios = _long_form_audios()
     audio_s = float(seconds.sum())
     transcribe_many(model, audios[:1], batch_size=1, sample_len=4, temperature=(0.0, 1.0),
                     best_of=best_of, beam_size=beam_size)  # warm-up; not counted
@@ -1837,6 +1859,253 @@ def phase_teacher_forced() -> float:
     return worst
 
 
+def byte_vocabulary(model):
+    """``model`` with its token embedding's text rows past the 256 byte
+    tokens zeroed, in place. The offline tokenizer decodes only those bytes:
+    a random model's other ids decode to nothing, so its segments would have
+    no text and no words to time."""
+    with torch.no_grad():
+        model.decoder.token_embedding.weight[256:50256].zero_()
+    model.drop_derived()
+    return model
+
+
+WORD_FILES, WORD_SILENCE_FILES = 4, 2  # files rerun with word timestamps; of them, with the
+WORD_SILENCE_THRESHOLD = 2.0  # hallucination-silence heuristic at this threshold
+FIRST_WORD_SHIFT_S = 1.4  # the start fixups may move a first word back by 2 x its 0.7 s cap
+WORD_SAMPLE_LEN = 64  # the reruns' depth: tokens a window, cut from the CLI's 224
+
+
+def _check_words(label: str, results, may_be_empty: bool = False) -> int:
+    """Every segment has ``words``, each with start <= end inside the 30 s
+    window the segment came from (its first word may start up to
+    FIRST_WORD_SHIFT_S before it); returns the number of words. With
+    ``may_be_empty`` a file may have no segment (the hallucination-silence
+    heuristic may drop every one)."""
+    n = 0
+    for k, r in enumerate(results):
+        if not (may_be_empty and isinstance(r, dict) and r.get("segments") == []):
+            _check_transcript(f"{label} file {k}", r)
+        for seg in r["segments"]:
+            words = seg.get("words")
+            if not isinstance(words, list):
+                fail(f"{label} file {k}: a segment without words: {str(seg)[:300]}")
+            lo, hi = seg["seek"] / 100 - FIRST_WORD_SHIFT_S, seg["seek"] / 100 + 30
+            for w in words:
+                if not (lo <= w["start"] <= w["end"] <= hi and np.isfinite(w["probability"])
+                        and w["word"]):
+                    fail(f"{label} file {k}: word {w} outside its window [{lo}, {hi}]")
+            n += len(words)
+    return n
+
+
+def phase_word_timestamps() -> dict:
+    """Word timestamps on the long-form slice: its first 4 files again
+    through ``transcribe_many`` with ``word_timestamps=True``, then 2 of
+    them also with ``hallucination_silence_threshold=2.0``, on small.en bf16
+    with the text rows of its vocabulary cut to the byte tokens
+    (:func:`byte_vocabulary`); beam 5 at t=0 alone, the CLI's decode with
+    ``--temperature_increment_on_fallback None``, WORD_SAMPLE_LEN tokens a
+    window (random weights never end a row early): the random weights fail
+    the gates, and a sample at t > 0 lands on the zeroed rows' mass, whose
+    ids the tokenizer decodes to nothing.
+    The alignment re-encodes each consumed window (the encoder's attention
+    kernel) and teacher-forces its tokens (the decoder's self and cross
+    attention kernels) before ``cross_attention_weights`` and the host's
+    DTW: the encoder attention's launches are counted against that."""
+    from olmoasr_tpu_torch import build_model, timing, transcribe_many
+    from olmoasr_tpu_torch.models import whisper as model_mod
+
+    _, audios = _long_form_audios()
+    model = byte_vocabulary(build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16))
+    dims = model.dims
+    walls = {}
+    calls = {"decode": 0, "align": 0}
+    orig = {"add": timing.add_word_timestamps, "weights": model_mod.cross_attention_weights}
+    decode = model.decode
+
+    def timed_call(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def weights(*args, **kwargs):
+        calls["align"] += 1
+        return orig["weights"](*args, **kwargs)
+
+    def counting_decode(mel, options):
+        calls["decode"] += 1
+        return decode(mel, options)
+
+    timing.add_word_timestamps = timed_call("align", orig["add"])
+    model_mod.cross_attention_weights = weights
+    model.decode = timed_call("decode", counting_decode)
+    runs = {}
+    try:
+        for label, n, extra in (("words", WORD_FILES, {}),
+                                ("words + silence", WORD_SILENCE_FILES,
+                                 {"hallucination_silence_threshold": WORD_SILENCE_THRESHOLD})):
+            walls.clear()
+            calls.update(decode=0, align=0)
+            _reset_counts()
+            t0 = time.perf_counter()
+            results = transcribe_many(model, audios[:n], batch_size=n, beam_size=5,
+                                      temperature=0.0, sample_len=WORD_SAMPLE_LEN,
+                                      word_timestamps=True, **extra)
+            wall = time.perf_counter() - t0
+            counts, _ = _read_counts()
+            n_words = _check_words(label, results, may_be_empty=bool(extra))
+            per_file = [sum(len(seg["words"]) for seg in r["segments"]) for r in results]
+            want = dims.n_audio_layer * (calls["decode"] + calls["align"]) \
+                + 2 * dims.n_text_layer * calls["align"]
+            print(f"word timestamps ({label}{', threshold 2.0' if extra else ''}): small.en bf16, "
+                  f"{n} long-form files, beam 5 at t=0, {WORD_SAMPLE_LEN} tokens a window: wall "
+                  f"{wall:.3f} s, of it the "
+                  f"decode {walls.get('decode', 0.0):.3f} s in {calls['decode']} calls and "
+                  f"add_word_timestamps {walls.get('align', 0.0):.3f} s over {calls['align']} "
+                  f"windows; words per file {per_file}; encoder + alignment attention launches "
+                  f"{counts['train_attention_fwd']} (expected {want})")
+            if counts["train_attention_fwd"] != want or not calls["align"]:
+                fail(f"word timestamps ({label}): {counts['train_attention_fwd']} attention "
+                     f"launches, expected {want} for {calls['decode']} decodes and "
+                     f"{calls['align']} alignments")
+            if not n_words and not extra:
+                fail(f"word timestamps ({label}): no words in {n} files")
+            runs[label] = {"wall_s": wall, "decode_s": walls.get("decode", 0.0),
+                           "align_s": walls.get("align", 0.0), "alignments": calls["align"],
+                           "words_per_file": per_file, "launches": counts}
+    finally:
+        timing.add_word_timestamps = orig["add"]
+        model_mod.cross_attention_weights = orig["weights"]
+        del model.decode
+    return runs
+
+
+ALIGN_PROB_TOL = 1e-5  # a word's mean token probability, card against CPU at fp32
+
+
+def phase_alignment_fp32() -> dict:
+    """``timing.find_alignment`` at fp32 on the card (the kernels) and on
+    the CPU (their plain twins) for the same window and text: small.en's
+    seeded weights, 30 s of noise of which 24 s are audio, 25 words of
+    byte tokens. Words and times must be equal, probabilities within
+    ALIGN_PROB_TOL."""
+    from olmoasr_tpu_torch import build_model, timing
+    from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+    from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+    from olmoasr_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(False)
+    rng = np.random.default_rng(12)
+    mel = log_mel_spectrogram(torch.from_numpy(
+        (rng.standard_normal(N_SAMPLES) * 0.1).astype(np.float32)))
+    text = tok.encode(" " + " ".join(rng.choice(WORDS, 25)) + ".")
+    got, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_model("small.en", seed=0, device=device, dtype=torch.float32)
+        _reset_counts()
+        t0 = time.perf_counter()
+        got[device] = timing.find_alignment(model, tok, text, mel, 2400)
+        walls[device] = time.perf_counter() - t0
+        if device == "cuda":
+            launches = _read_counts()[0]["train_attention_fwd"]
+        del model
+    card, cpu = got["cuda"], got["cpu"]
+    prob_err = max((abs(a.probability - b.probability) for a, b in zip(card, cpu)), default=0.0)
+    same = [(w.word, w.tokens, w.start, w.end) for w in card] == \
+        [(w.word, w.tokens, w.start, w.end) for w in cpu]
+    print(f"find_alignment fp32, small.en, {len(text)} tokens over 24 s: {len(card)} words, "
+          f"the card's {'equal to' if same else 'DIFFERENT from'} the CPU's in words and times, "
+          f"probabilities max_abs_err {prob_err:.3e} (tol {ALIGN_PROB_TOL}); wall "
+          f"{walls['cuda']:.3f} s on the card ({launches} attention launches), "
+          f"{walls['cpu']:.3f} s on the CPU")
+    dims = VARIANT_TO_DIMS["small.en"]
+    if launches != dims.n_audio_layer + 2 * dims.n_text_layer:
+        fail(f"find_alignment: {launches} attention launches on the card")
+    if not same or len(card) < 20:
+        diff = [(a.word, a.start, b.start, a.end, b.end) for a, b in zip(card, cpu)
+                if (a.word, a.start, a.end) != (b.word, b.start, b.end)]
+        fail(f"find_alignment: the card's words differ from the CPU's: {diff[:10]}")
+    if not prob_err <= ALIGN_PROB_TOL:
+        fail(f"find_alignment: probabilities {prob_err} apart (tol {ALIGN_PROB_TOL})")
+    return {"words": len(card), "prob_err": prob_err, "wall_s": walls, "launches": launches}
+
+
+LANG_PROB_TOL = 1e-4  # a language's probability, card against CPU at fp32
+
+
+def phase_language() -> dict:
+    """Language detection on a seeded multilingual model: small.en's dims
+    with the multilingual vocabulary (51865), fp32 on the card and on the
+    CPU. ``detect_language`` on 1 and on 8 windows of noise, one
+    single-token step each (the split route's kernels, in fp32), language
+    ids equal to the CPU's; then ``transcribe_many``
+    with ``language=None`` on one 40 s file in bf16, which must transcribe
+    in the language detected in its first 30 s."""
+    import dataclasses
+
+    from olmoasr_tpu_torch import transcribe_many
+    from olmoasr_tpu_torch.api import _new_model
+    from olmoasr_tpu_torch.audio import N_FRAMES, N_SAMPLES, log_mel_spectrogram
+    from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+    from olmoasr_tpu_torch.models.whisper import init_params
+
+    dims = dataclasses.replace(VARIANT_TO_DIMS["small.en"], n_vocab=51865)
+    models = {}
+    for device in ("cuda", "cpu"):
+        model = _new_model(dims, False, device, torch.float32)
+        init_params(model, torch.Generator().manual_seed(0))
+        models[device] = model.eval()
+    if not models["cuda"].is_multilingual:
+        fail("language detection: the model is not multilingual")
+    rng = np.random.default_rng(13)
+    mel = log_mel_spectrogram(torch.from_numpy(
+        (rng.standard_normal((8, N_SAMPLES)) * 0.1).astype(np.float32)))
+    out = {}
+    for B in (1, 8):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, probs = models["cuda"].detect_language(mel[:B].cuda())
+        wall = time.perf_counter() - t0
+        counts, steps = _read_counts()
+        _check_decode_counts(f"detect_language B={B}", counts, 1, dims.n_text_layer)
+        want_ids, want_probs = models["cpu"].detect_language(mel[:B])
+        err = max(abs(p[c] - q[c]) for p, q in zip(probs, want_probs) for c in q)
+        top = [sorted(p.values())[-2:] for p in want_probs]
+        print(f"detect_language fp32, multilingual small.en, B={B}: wall {wall:.3f} s, "
+              f"{steps} single-token step; languages {ids.tolist()} on the card, "
+              f"{want_ids.tolist()} on the CPU; probabilities max_abs_err {err:.3e} (tol "
+              f"{LANG_PROB_TOL}); the CPU's top two apart by at least "
+              f"{min(b - a for a, b in top):.3e}")
+        if not torch.equal(ids, want_ids) or not err <= LANG_PROB_TOL:
+            fail(f"detect_language B={B}: ids {ids.tolist()} against {want_ids.tolist()}, "
+                 f"probabilities {err} apart")
+        out[f"B={B}"] = {"wall_s": wall, "prob_err": err, "launches": counts}
+    del models["cpu"]
+    model = models["cuda"].half()
+    audio = torch.from_numpy((rng.standard_normal(40 * 16000) * 0.1).astype(np.float32))
+    first = log_mel_spectrogram(audio, padding=N_SAMPLES, device="cuda")[:, :N_FRAMES]
+    _, probs = model.detect_language(first)
+    expect = max(probs, key=probs.get)
+    t0 = time.perf_counter()
+    (result,) = transcribe_many(model, [audio], temperature=0.0, sample_len=32)
+    wall = time.perf_counter() - t0
+    _check_transcript("transcribe_many language=None", result)
+    print(f"  transcribe_many(language=None) on 40 s, multilingual small.en bf16: language "
+          f"{result['language']!r} (detected alone: {expect!r}), {len(result['segments'])} "
+          f"segments, wall {wall:.3f} s")
+    if result["language"] != expect:
+        fail(f"transcribe_many detected {result['language']!r}, detect_language {expect!r}")
+    out["transcribe_s"] = wall
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the training slice
 # ---------------------------------------------------------------------------
@@ -1950,9 +2219,10 @@ class LoaderWatch:
         return total
 
 
-def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dict:
+def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
+                   device_mel: bool = False) -> dict:
     """small.en at full width and depth (768 wide, 12 + 12 layers, 1500 / 448
-    positions) through ``train_loop.main(attention=...)`` on the card: 256
+    positions) through ``train_loop.main(attention=..., device_mel=...)`` on the card: 256
     samples, micro batch 16, effective batch 32 (2 micro-batches a step),
     remat, ``n_steps`` steps, then a resumed run of 1 step. Each step is
     wrapped to read the attention kernels' launches (those of the route, and
@@ -1961,7 +2231,9 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
     warm-up; steps 2 to n_steps - 1 are the window, timed end to end with the
     loader's waits; step n_steps runs with the loader held back, so its wall
     against the window's says what the loader's threads cost the step; the
-    resumed step runs under the profiler, for the kernels' device time."""
+    resumed step runs under the profiler, for the kernels' device time.
+    With ``device_mel`` the loader ships int16 PCM and the step computes the
+    log-mel; step 1's first micro-batch of PCM is kept (``pcm``)."""
     import statistics as stats
 
     from torch.autograd import DeviceType
@@ -1989,6 +2261,8 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
             n = state.step + 1
             if n == 1:
                 initial.extend(p.detach().clone() for p in state.model.parameters())
+                if device_mel:
+                    profiled["pcm"] = batch["mel"][0].clone()
             quiet = n == n_steps
             if quiet:
                 watch.pause()
@@ -2037,7 +2311,7 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
         kwargs = dict(variant="small.en", train_shards=shards, exp_name=f"smoke_{attention}",
                       micro_batch_size=TRAIN_MICRO, eff_batch_size=TRAIN_BATCH, remat=True,
                       ckpt_dir=os.path.join(tmp, "ckpt"), ckpt_every=0, log_every=1,
-                      device="cuda", attention=attention)
+                      device="cuda", attention=attention, device_mel=device_mel)
         train_mod.make_train_step = watched
         os.chdir(tmp)  # the metrics logger writes logs/ under the working directory
         try:
@@ -2064,7 +2338,7 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
               + (" (held back)" if row["quiet"] else "")
               + f"; {attention} attention launches {row['fwd']} forward {row['bwd']} "
                 f"backward, {row['tokens']} target tokens")
-    label = f"training ({attention} attention)"
+    label = f"training ({attention} attention{', device_mel' if device_mel else ''})"
     if [r["step"] for r in steps] != list(range(1, n_steps + 2)):
         fail(f"{label}: steps {[r['step'] for r in steps]}, expected 1-{n_steps + 1}")
     if first["global_step"] != n_steps or resumed["global_step"] != n_steps + 1:
@@ -2113,7 +2387,8 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
            "attention_ms_per_step": attn_ms, "kernel_ms_per_step": kernel_ms or None,
            "device_idle": idle, "device_idle_quiet": idle_quiet,
            "profiled_step_wall_s": steps[-1]["wall_s"], "steps": steps,
-           "launches": {fwd_name: steps[1]["fwd"], bwd_name: steps[1]["bwd"]}}
+           "launches": {fwd_name: steps[1]["fwd"], bwd_name: steps[1]["bwd"]},
+           "pcm": profiled.get("pcm")}
     print(f"{label}: small.en bf16, micro batch {TRAIN_MICRO} x {micro}, remat: set-up "
           f"{out['setup_s']:.3f} s, warm-up step {out['warmup_step_s']:.3f} s; steps 2-"
           f"{n_steps - 1} with the loader's waits {window_s:.3f} s = {per_step:.3f} s a step, "
@@ -2131,6 +2406,57 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS) -> dic
             print(f"    {name}: {ms:.2f} ms")
     else:
         print("  the profiler recorded no device events: attention kernel time not measured")
+    return out
+
+
+TRAIN_STEPS_MEL = 3  # the device_mel run: the steps cut, not the width or depth
+MEL_TOL = 1e-4  # the card's log-mel against the host's NumPy one; log10 units / 4
+MEL_LOSS_TOL = 5e-3  # step 1's loss from PCM against the host mel's, relative; bf16 compute
+
+
+def phase_training_device_mel(host: dict) -> dict:
+    """The training slice of ``phase_training`` with ``device_mel``: the
+    loader ships each sample's 30 s of int16 PCM, the step computes the
+    log-mel on the card (``train.loss_fn``); 3 steps and a resumed fourth,
+    printed beside the host-mel run ``host`` of this process. One
+    micro-batch's log-mel from the card against the host's
+    ``log_mel_spectrogram_np`` on the same PCM, and step 1's loss against
+    the host-mel run's on the same batch (the same seeds)."""
+    from olmoasr_tpu_torch.audio import log_mel_spectrogram, log_mel_spectrogram_np
+
+    out = phase_training(n_steps=TRAIN_STEPS_MEL, device_mel=True)
+    pcm = out.pop("pcm")
+    if pcm is None or pcm.dtype != torch.int16 or tuple(pcm.shape) != (TRAIN_MICRO, 480000):
+        fail(f"device_mel: the batch's PCM is {None if pcm is None else (pcm.dtype, pcm.shape)}")
+    with torch.no_grad():
+        got = log_mel_spectrogram(pcm, 80).cpu().numpy()
+    want = log_mel_spectrogram_np(pcm.cpu().numpy().astype(np.float32) / 32768.0)
+    mel_err = float(np.abs(got - want).max())
+    loss, host_loss = out["steps"][0]["loss"], host["steps"][0]["loss"]
+    loss_err = abs(loss - host_loss) / abs(host_loss)
+    def idle(run):
+        return "not measured" if run["device_idle"] is None else f"{100 * run['device_idle']:.1f}%"
+
+    print(f"training device_mel beside host mel (the same process; small.en, micro batch "
+          f"{TRAIN_MICRO} x {TRAIN_BATCH // TRAIN_MICRO}): window step "
+          f"{out['window_step_s']:.3f} s against {host['window_step_s']:.3f} s; in-step wall "
+          f"{out['step_wall_s']:.3f} s against {host['step_wall_s']:.3f} s, the loader busy "
+          f"{out['steps'][1]['loader_busy_s']:.3f} s against "
+          f"{host['steps'][1]['loader_busy_s']:.3f} s of step 2; held back "
+          f"{out['quiet_step_wall_s']:.3f} s against {host['quiet_step_wall_s']:.3f} s; the loader "
+          f"{out['loader_sample_s'] * 1e3:.1f} ms a sample against "
+          f"{host['loader_sample_s'] * 1e3:.1f} ms; device idle {idle(out)} against "
+          f"{idle(host)} of the window's step; peak memory {out['peak_memory_gb']:.2f} GB against "
+          f"{host['peak_memory_gb']:.2f} GB")
+    print(f"  one micro-batch's log-mel ({TRAIN_MICRO} x 480000 int16) on the card against "
+          f"log_mel_spectrogram_np: max_abs_err {mel_err:.3e} (tol {MEL_TOL}); step 1 loss "
+          f"{loss:.6f} from PCM, {host_loss:.6f} from the host mel: relative {loss_err:.2e} "
+          f"(tol {MEL_LOSS_TOL})")
+    if not mel_err <= MEL_TOL:
+        fail(f"device_mel: the card's log-mel is {mel_err} from the host's (tol {MEL_TOL})")
+    if not loss_err <= MEL_LOSS_TOL:
+        fail(f"device_mel: step 1's loss {loss} from PCM, {host_loss} from the host mel")
+    out["mel_max_abs_err"], out["loss_rel_err"] = mel_err, loss_err
     return out
 
 
@@ -2262,8 +2588,11 @@ def _run(cmd, timeout: float, **kw) -> subprocess.CompletedProcess:
 
 
 def phase_entry_points() -> dict:
-    """The seeded small.en as a reference .pt; the CLI on two files in one
-    process; the HTTP server in another, with 4 concurrent requests."""
+    """The seeded small.en as a reference .pt, its vocabulary's text rows cut
+    to the byte tokens (:func:`byte_vocabulary`) so that its segments have
+    words; the CLI on two files in one process, with word timestamps
+    highlighted and ``--max_line_width 40``; the HTTP server in
+    another, with 4 concurrent requests, one of them with word timestamps."""
     import dataclasses
     import urllib.request
 
@@ -2272,7 +2601,8 @@ def phase_entry_points() -> dict:
     out = {}
     rng = np.random.default_rng(3)
     with tempfile.TemporaryDirectory() as tmp:
-        model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+        model = byte_vocabulary(build_model("small.en", seed=0, device="cuda",
+                                            dtype=torch.bfloat16))
         ckpt = os.path.join(tmp, "small.en.pt")
         torch.save({"dims": dataclasses.asdict(model.dims),
                     "model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
@@ -2287,18 +2617,29 @@ def phase_entry_points() -> dict:
         out_dir = os.path.join(tmp, "out")
         cmd = [sys.executable, "-m", "olmoasr_tpu_torch.transcribe", *wavs, "--model", ckpt,
                "-o", out_dir, "--temperature_increment_on_fallback", "None", "--batch_size", "2",
-               "--verbose", "False"]
+               "--verbose", "False", "--word_timestamps", "True", "--highlight_words", "True",
+               "--max_line_width", "40"]
         t0 = time.perf_counter()
         _run(cmd, 600)
         cli_s = time.perf_counter() - t0
         want = sorted(f"{n}.{e}" for n in ("a", "b") for e in ("txt", "vtt", "srt", "tsv", "json"))
         if sorted(os.listdir(out_dir)) != want:
             fail(f"CLI wrote {sorted(os.listdir(out_dir))}, expected {want}")
+        highlighted = {}
         for name in ("a", "b"):
             with open(os.path.join(out_dir, f"{name}.json"), encoding="utf-8") as f:
-                _check_transcript(f"CLI {name}.json", json.load(f))
-        print(f"entry points: CLI (beam_size=5, t=0, batch_size=2) on 35 s + 50 s in its own "
-              f"process: {cli_s:.1f} s, five outputs for each file")
+                n_words = _check_words(f"CLI {name}.json", [json.load(f)])
+            for ext in ("vtt", "srt"):
+                with open(os.path.join(out_dir, f"{name}.{ext}"), encoding="utf-8") as f:
+                    text = f.read()
+                highlighted[f"{name}.{ext}"] = text.count("<u>")
+                if not n_words or text.count("<u>") < n_words:
+                    fail(f"CLI {name}.{ext}: {n_words} words, {text.count('<u>')} highlighted:"
+                         f"\n{text[:600]}")
+        print(f"entry points: CLI (beam_size=5, t=0, batch_size=2, word timestamps "
+              f"highlighted, --max_line_width 40) on 35 s + 50 s in its own "
+              f"process: {cli_s:.1f} s, five outputs for each file; highlighted words "
+              f"{highlighted}")
         out["cli_s"] = cli_s
 
         reqs = []
@@ -2341,8 +2682,9 @@ def _drive_server(server, reqs, err, urllib_request) -> dict:
     answers = [None] * len(reqs)
 
     def post(k):
+        query = "temperature=0" + ("&word_timestamps=true" if k == 0 else "")
         with open(reqs[k], "rb") as f:
-            req = urllib_request.Request(f"{base}/v1/transcribe?temperature=0", data=f.read(),
+            req = urllib_request.Request(f"{base}/v1/transcribe?{query}", data=f.read(),
                                          method="POST", headers={"X-Filename": "req.wav"})
         try:
             with urllib_request.urlopen(req, timeout=600) as r:
@@ -2361,10 +2703,17 @@ def _drive_server(server, reqs, err, urllib_request) -> dict:
         if status != 200:
             fail(f"server request {k}: {status} {str(body)[:500]}")
         _check_transcript(f"server request {k}", body)
+    # request 0 asked for word timestamps: each of its segments has words (a
+    # random model's 12 s may give none); the others' segments have none
+    n_words = _check_words("server request 0 (word timestamps)", [answers[0][1]])
+    if any("words" in seg for _, body in answers[1:] for seg in body["segments"]
+           if seg["tokens"]):
+        fail("server: words in a request that did not ask for word timestamps")
     with urllib_request.urlopen(f"{base}/healthz", timeout=30) as r:
         stats = json.loads(r.read())["stats"]
     print(f"  server (int8 cross K/V, beam_size=5): {len(reqs)} of {len(reqs)} concurrent "
-          f"requests answered 200 in {wall:.1f} s; /healthz {stats}")
+          f"requests answered 200 in {wall:.1f} s, {n_words} words in the one with word "
+          f"timestamps; /healthz {stats}")
     if stats["requests"] != len(reqs) or not stats["batches"] < stats["requests"]:
         fail(f"server: {stats['batches']} batches for {stats['requests']} requests")
     return {"server_wall_s": wall, "server_stats": stats}
@@ -2813,9 +3162,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    def timed(phase):
+    def timed(phase, *args):
         t0 = time.perf_counter()
-        out = phase()
+        out = phase(*args)
         print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
         return out
 
@@ -2824,10 +3173,14 @@ def main() -> None:
     probes = timed(phase_probes)
     short = timed(phase_slice)
     long_form = timed(phase_long_form)
+    words = timed(phase_word_timestamps)
     server = timed(phase_server_traffic)
     routes = timed(phase_routes)
     timed(phase_teacher_forced)
+    timed(phase_alignment_fp32)
+    language = timed(phase_language)
     training = timed(phase_training)
+    training_mel = timed(phase_training_device_mel, training)
     training_flash = timed(phase_training_flash)
     timed(phase_train_fp32)
     timed(phase_entry_points)
@@ -2886,6 +3239,10 @@ def main() -> None:
             "launches_server_traffic": server["launches"][name],
             "launches_short_form": {k: v["launches"][name] for k, v in short.items()},
             "launches_training_step": training["launches"].get(name, 0),
+            "launches_training_device_mel_step": training_mel["launches"].get(name, 0),
+            "launches_word_timestamps": {k: v["launches"][name] for k, v in words.items()},
+            "launches_detect_language": {k: language[k]["launches"][name]
+                                         for k in ("B=1", "B=8")},
             "launches_training_flash_step": training_flash["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),

@@ -20,7 +20,8 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 
 class OLMoASR(model_mod.Whisper):
     """Whisper-architecture model with ``transcribe``, ``decode``,
-    ``embed_audio``, ``logits`` and ``forward`` (reference ``OLMoASR`` API);
+    ``detect_language``, ``embed_audio``, ``logits`` and ``forward``
+    (reference ``OLMoASR`` API);
     ``device`` and ``dtype`` are the ``Whisper`` module's."""
 
     @property
@@ -75,6 +76,13 @@ class OLMoASR(model_mod.Whisper):
         from olmoasr_tpu_torch import transcribe as transcribe_mod
 
         return transcribe_mod.transcribe(self, audio, **kwargs)
+
+    def detect_language(self, mel):
+        """``decoding.detect_language``: (language ids, {code: probability})
+        of a window or of a batch of windows."""
+        from olmoasr_tpu_torch import decoding
+
+        return decoding.detect_language(self, mel)
 
 
 def _new_model(dims, include_padding_token, device, dtype) -> OLMoASR:

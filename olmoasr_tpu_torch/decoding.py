@@ -612,3 +612,53 @@ def _finalize_results(
             )
         )
     return results[0] if single else results
+
+
+# ---------------------------------------------------------------------------
+# language detection
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def detect_language(
+    model: model_mod.Whisper,
+    mel: Union[np.ndarray, torch.Tensor],
+    tokenizer: Optional[Tokenizer] = None,
+) -> Tuple[torch.Tensor, Union[Dict[str, float], List[Dict[str, float]]]]:
+    """Single-forward language id ([pip:whisper] decoding.detect_language),
+    as the JAX package computes it: encode, one ``decode_step`` of SOT over
+    a 4-position cache, fp32 logits masked to the language tokens, softmax.
+    Runs in the weights' dtype on the model's device. Returns the language
+    token ids (a CPU tensor) and each window's {code: probability}; a single
+    (n_mels, frames) mel gives one id and one dict.
+
+    As in the JAX package, ``tokenizer`` defaults to the English one, also
+    for a multilingual model (whose language ids it reads one id early)."""
+    if tokenizer is None:
+        tokenizer = get_tokenizer(multilingual=False)
+    mel = torch.as_tensor(mel)
+    single = mel.ndim == 2
+    if single:
+        mel = mel[None]
+    if mel.shape[-1] != audio_mod.N_FRAMES:
+        mel = audio_mod.pad_or_trim(mel, audio_mod.N_FRAMES, axis=-1)
+
+    audio_features = model_mod.encode_audio(model, mel.to(model.device))
+    B = mel.shape[0]
+    sot = torch.full((B, 1), tokenizer.sot, dtype=torch.long, device=model.device)
+    cache = model_mod.init_cache(model, audio_features, max_len=4)
+    logits = model_mod.decode_step(model, sot, cache)[:, 0].float()  # (B, V)
+
+    mask = torch.full((logits.shape[-1],), float("-inf"), device=logits.device)
+    mask[list(tokenizer.all_language_tokens)] = 0.0
+    logits = logits + mask
+    language_tokens = logits.argmax(dim=-1).cpu()
+    probs = torch.softmax(logits, dim=-1).cpu().numpy()
+    language_probs = [
+        {c: float(probs[i, t])
+         for c, t in zip(tokenizer.all_language_codes, tokenizer.all_language_tokens)}
+        for i in range(B)
+    ]
+    if single:
+        return language_tokens[0], language_probs[0]
+    return language_tokens, language_probs

@@ -429,6 +429,39 @@ def forward_train(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
                         return_hidden=return_hidden, attention=attention)
 
 
+@torch.no_grad()
+def cross_attention_weights(model: Whisper, tokens: torch.Tensor,
+                            audio_features: torch.Tensor) -> torch.Tensor:
+    """The decoder's full-sequence forward over ``tokens`` (B, T) and
+    ``audio_features`` (B, Ta, D), in the features' dtype, returning every
+    layer's cross-attention softmax weights, (L, B, H, T, Ta) fp32: the
+    alignment that word timestamps read (JAX ``cross_attention_weights``).
+    Plain PyTorch: the weights are materialised, which no fused attention
+    kernel does; the causal self-attention is ``sdpa``."""
+    dec = model.decoder
+    B, T = tokens.shape
+    dtype = audio_features.dtype
+    n_head = model.dims.n_text_head
+    scale = (model.dims.n_text_state // n_head) ** -0.25
+    x = dec.token_embedding.weight[tokens.long()].to(dtype) + dec.positional_embedding[:T].to(dtype)
+    causal = torch.full((T, T), float("-inf"), device=x.device).triu(1)
+    out = torch.empty((len(dec.blocks), B, n_head, T, audio_features.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(dec.blocks):
+        h = layer_norm(x, blk.attn_ln)
+        attn = sdpa(_linear(h, blk.attn.query), _linear(h, blk.attn.key),
+                    _linear(h, blk.attn.value), n_head, causal)
+        x = x + _linear(attn, blk.attn.out)
+        q = _linear(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
+        ck = _linear(audio_features, blk.cross_attn.key)
+        cv = _linear(audio_features, blk.cross_attn.value)
+        qh, kh = _split_heads(q, n_head) * scale, _split_heads(ck, n_head) * scale
+        out[i] = torch.softmax((qh @ kh.transpose(-1, -2)).float(), dim=-1)
+        attn = (out[i].to(cv.dtype) @ _split_heads(cv, n_head)).transpose(1, 2).reshape(q.shape)
+        x = _mlp(x + _linear(attn, blk.cross_attn.out), blk)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # decoder: KV-cached incremental inference
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ Rebuild of ``AudioTextDataset``
 (``scripts/training/train_timestamps.py:64-548``):
 
   * audio: int16 ``.npy`` (or wav) -> float32/32768 -> pad_or_trim(30s) ->
-    log-mel (host NumPy; the device path can also fuse this)
+    log-mel (host NumPy); with ``device_mel`` the 30 s PCM itself (int16
+    when the source is int16), and the train step computes the log-mel
   * text: VTT/SRT transcript -> tokens with a 50% coin flip between
     timestamp mode (<sot><t0>text<t1><t2>text<t3>…<next><next><eot>) and
     no-timestamp mode (<sot><notimestamps>text…<eot>); empty-transcript and
@@ -19,8 +20,8 @@ Host-side throughput: a prefetch thread feeds batches shaped
 A copy of ``olmoasr_tpu/training/dataset.py`` on the port's own copies of the
 tokenizer, the transcript reader and the audio helpers (the port imports
 nothing of the JAX package); ``tests/test_torch_training.py`` holds its
-batches bit-equal to the original's. Not ported yet: ``YodasDataset`` and
-the ``device_mel`` transport (raw PCM batches, log-mel in the train step).
+batches bit-equal to the original's, with and without ``device_mel``. Not
+ported yet: ``YodasDataset``.
 """
 
 from __future__ import annotations
@@ -190,6 +191,7 @@ class AudioTextDataset:
         tokenizer: Optional[Tokenizer] = None,
         seed: int = 42,
         only_no_ts_mode: bool = False,
+        device_mel: bool = False,
     ):
         self.samples = [s if isinstance(s, Sample) else Sample(**s) for s in samples]
         self.n_text_ctx = n_text_ctx
@@ -197,6 +199,11 @@ class AudioTextDataset:
         self.seed = seed
         self.epoch = 0  # advanced by BatchLoader.set_epoch
         self.only_no_ts_mode = only_no_ts_mode
+        # device_mel: emit the raw 30 s PCM (int16 when the source is int16:
+        # half the copy's bytes of f32) under the "mel" key; the train step
+        # computes the log-mel on its device (train.loss_fn), so the loader
+        # runs no STFT
+        self.device_mel = device_mel
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -209,6 +216,16 @@ class AudioTextDataset:
             return arr
         if audio.endswith(".npy"):
             return np.load(audio).astype(np.float32) / 32768.0
+        return load_audio(audio)
+
+    def _load_audio_raw(self, audio) -> np.ndarray:
+        """Like _load_audio but keeps int16 PCM as int16 (the device_mel
+        transport: the /32768 rescale happens in the train step's log-mel)."""
+        if isinstance(audio, np.ndarray):
+            return audio if audio.dtype == np.int16 else audio.astype(np.float32)
+        if audio.endswith(".npy"):
+            arr = np.load(audio)
+            return arr if arr.dtype == np.int16 else arr.astype(np.float32)
         return load_audio(audio)
 
     def _load_transcript(self, s: Sample) -> Dict[Tuple[str, str], str]:
@@ -234,7 +251,10 @@ class AudioTextDataset:
         # per-visit distribution.
         rng = np.random.default_rng((self.seed, self.epoch, index))
 
-        audio_arr = self._load_audio(s.audio)
+        audio_arr = (
+            self._load_audio_raw(s.audio) if self.device_mel
+            else self._load_audio(s.audio)
+        )
         norm_end = s.norm_end
         if norm_end is None:
             norm_end = int(len(audio_arr) / 16)  # ms at 16 kHz
@@ -243,7 +263,10 @@ class AudioTextDataset:
         if norm_end:
             audio_arr = pad_or_trim(audio_arr, length=norm_end * 16)
         audio_arr = pad_or_trim(audio_arr)
-        mel = log_mel_spectrogram_np(audio_arr).astype(np.float32)
+        if self.device_mel:
+            mel = audio_arr  # (480000,) int16/f32 PCM; the log-mel is the step's
+        else:
+            mel = log_mel_spectrogram_np(audio_arr).astype(np.float32)
 
         transcript = self._load_transcript(s)
         tokens, timestamp_mode, _ = build_tokens(

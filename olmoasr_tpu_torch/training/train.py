@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from olmoasr_tpu_torch import audio as audio_mod
 from olmoasr_tpu_torch.models import whisper as model_mod
 from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
@@ -98,9 +99,16 @@ def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: tor
     """Teacher-forced cross entropy that ignores PADDING_TOKEN
     (train_timestamps.py:1444-1450), as logsumexp minus the target's logit;
     returns (loss, aux) with the teacher-forced ``accuracy`` and
-    ``n_tokens``."""
+    ``n_tokens``.
+
+    A (B, 480000) ``mel`` is the ``device_mel`` transport's raw 30 s PCM
+    (int16, or f32): its log-mel is computed here on the batch's device, in
+    fp32 with autocast off, without gradients and outside the remat
+    checkpoints, once per micro-batch (JAX ``loss_fn``; about 0.02% of the
+    step's FLOPs, which ``train_flops_per_sample`` leaves out)."""
     if mel.dim() == 2:
-        raise NotImplementedError("device_mel (raw PCM batches) is not ported")
+        with torch.no_grad(), torch.autocast(mel.device.type, enabled=False):
+            mel = audio_mod.log_mel_spectrogram(mel, model.dims.n_mels)
     logits = model_mod.forward_train(model, mel, text_input, padding_mask,
                                      compute_dtype=compute_dtype, remat=remat,
                                      attention=attention)

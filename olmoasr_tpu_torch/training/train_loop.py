@@ -11,9 +11,11 @@ train_timestamps.py main/train orchestration):
   * metrics: the same train/* and efficiency/* names as the JAX loop
 
 Runs on ``cuda`` unless the caller asks for another device (the tests run it
-on the CPU at micro dims). Not ported yet, and raising: FSDP
-(``fsdp_size != 1``), in-loop evaluation (``eval_every > 0``), the
-``device_mel`` transport and profiling (``profile_dir``).
+on the CPU at micro dims). ``device_mel`` ships each sample's 30 s PCM
+instead of its log-mel and computes the log-mel in the train step on the
+device (``train.loss_fn``). Not ported yet, and raising: FSDP
+(``fsdp_size != 1``), in-loop evaluation (``eval_every > 0``) and profiling
+(``profile_dir``).
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def main(
     attention kernels, ``"kernel"`` or ``"flash"``."""
     for unported, what in ((fsdp_size != 1, "fsdp_size != 1 (FSDP)"),
                            (eval_every > 0, "eval_every > 0 (in-loop evaluation)"),
-                           (device_mel, "device_mel"), (profile_dir, "profile_dir")):
+                           (profile_dir, "profile_dir")):
         if unported:
             raise NotImplementedError(f"{what} is not ported to the GPU trainer yet")
     exp_name = exp_name or f"{variant.replace('.', '_')}_bs{eff_batch_size}"
@@ -85,7 +87,7 @@ def main(
     samples = load_jsonl_samples(shard_paths) if shard_paths else []
     if not samples:
         raise FileNotFoundError(f"no training samples under {train_shards}")
-    dataset = AudioTextDataset(samples, dims.n_text_ctx, seed=seed)
+    dataset = AudioTextDataset(samples, dims.n_text_ctx, seed=seed, device_mel=device_mel)
     loader = BatchLoader(dataset, micro_batch_size=micro_batch_size, accum_steps=accum_steps,
                          seed=seed, num_workers=min(8, os.cpu_count() or 1))
 

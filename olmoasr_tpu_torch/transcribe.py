@@ -2,19 +2,22 @@
 timestamp-token segmentation, batched across files.
 
 Counterpart of ``olmoasr_tpu/transcribe.py``. That module imports jax at its
-top, so ``_FileState`` (the per-file seek state machine), ``_needs_fallback``
-and ``_decode_batch_with_fallback`` are copied here; the tests pin each to
-the original. The reference's inert prompt conditioning is kept:
-``condition_on_previous_text`` only moves ``prompt_reset_since``.
+top, so ``_FileState`` (the per-file seek state machine, its word-timestamp
+branch and the hallucination-silence heuristic included), ``_get_end``,
+``_needs_fallback`` and ``_decode_batch_with_fallback`` are copied here; the
+tests pin each to the original. The reference's inert prompt conditioning
+is kept: ``condition_on_previous_text`` only moves ``prompt_reset_since``.
 
 ``transcribe_many`` computes each file's log-mel on the model's device with
 30 s of padding, and every round slices and pads one window per active file
 there; the windows of a round decode as one batch, and only the windows that
-fail the fallback gates decode again, at the next temperature. Not ported
-here: the streamed-upload transport (``_StreamedMelGroup``,
+fail the fallback gates decode again, at the next temperature. With
+``word_timestamps`` each consumed window's mel goes to ``timing``'s
+alignment on the same device. A multilingual model without ``language=``
+detects each file's language from its first 30 s (``decoding.detect_language``).
+Not ported here: the streamed-upload transport (``_StreamedMelGroup``,
 ``_gather_windows_norm``, ``log_mel_chunk_unnorm``; bit-equal to this path
-by design), word timestamps and the hallucination-silence heuristic, and
-language detection: each is in ROADMAP's Queue 1.
+by design), in ROADMAP's Queue 1.
 
 ``cli()`` is the command line, ``python -m olmoasr_tpu_torch.transcribe``:
 the JAX package's arguments and defaults (beam search with ``beam_size=5``
@@ -23,6 +26,7 @@ at temperature 0, ``best_of=5`` samples above it), plus ``--device``.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -38,6 +42,7 @@ from olmoasr_tpu_torch.audio import (
     N_SAMPLES,
     SAMPLE_RATE,
     log_mel_spectrogram,
+    pad_or_trim,
 )
 from olmoasr_tpu_torch.decoding import DecodingOptions, DecodingResult
 
@@ -48,8 +53,10 @@ class _FileState:
     """Per-file long-form state machine: the reference's sliding-window seek
     loop split into ``current_window()`` (the next 30 s mel window, or None
     when done) and ``consume(result)`` (advance seek, cut timestamp segments,
-    apply the no-speech skip), so that a driver can decode one window of
-    every active file as one batch."""
+    apply the no-speech skip, add word timestamps), so that a caller can
+    decode one window of every active file as one batch. With
+    ``word_timestamps`` the caller sets ``_mel_segment`` to the window it
+    decoded before ``consume``."""
 
     def __init__(
         self,
@@ -64,19 +71,30 @@ class _FileState:
         initial_prompt: Optional[str],
         clip_timestamps: Union[str, List[float]],
         language: str,
+        word_timestamps: bool,
+        prepend_punctuations: str,
+        append_punctuations: str,
+        hallucination_silence_threshold: Optional[float],
     ):
+        self.model = model
         self.tokenizer = tokenizer
         self.verbose = verbose
         self.logprob_threshold = logprob_threshold
         self.no_speech_threshold = no_speech_threshold
         self.condition_on_previous_text = condition_on_previous_text
+        self.word_timestamps = word_timestamps
+        self.prepend_punctuations = prepend_punctuations
+        self.append_punctuations = append_punctuations
+        self.hallucination_silence_threshold = hallucination_silence_threshold
         self.language = language
+        self.punctuation = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
         # 30 s of silence padded to the input audio, for slicing; the mel
         # stays on the model's device
         self.mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES,
                                        device=model.device)
         self.content_frames = self.mel.shape[-1] - N_FRAMES
+        self.content_duration = float(self.content_frames * HOP_LENGTH / SAMPLE_RATE)
 
         if isinstance(clip_timestamps, str):
             clip_timestamps = [
@@ -96,6 +114,7 @@ class _FileState:
         self.all_tokens: List[int] = []
         self.all_segments: List[dict] = []
         self.prompt_reset_since = 0
+        self.last_speech_timestamp = 0.0
 
         if initial_prompt is not None:
             self.initial_prompt_tokens = tokenizer.encode(" " + initial_prompt.strip())
@@ -103,7 +122,10 @@ class _FileState:
         else:
             self.initial_prompt_tokens = []
 
-        self._segment_size = 0  # of the window last emitted
+        # window-scoped scratch: the size of the window last emitted, and
+        # with word timestamps its normalised mel row, on the model's device
+        self._segment_size = 0
+        self._mel_segment: Optional[torch.Tensor] = None
 
     # -- window emission -----------------------------------------------------
 
@@ -150,6 +172,7 @@ class _FileState:
         segment_size = self._segment_size
         seek = self.seek
         time_offset = float(seek * HOP_LENGTH / SAMPLE_RATE)
+        window_end_time = float((seek + N_FRAMES) * HOP_LENGTH / SAMPLE_RATE)
         segment_duration = segment_size * HOP_LENGTH / SAMPLE_RATE
         tokens = np.array(result.tokens)
 
@@ -177,7 +200,19 @@ class _FileState:
                 self.seek += segment_size  # fast-forward to the next boundary
                 return
 
+        previous_seek = seek
         current_segments: List[dict] = []
+
+        def is_segment_anomaly(segment: Optional[dict]) -> bool:
+            if segment is None or not segment["words"]:
+                return False
+            words = [w for w in segment["words"] if w["word"] not in self.punctuation]
+            words = words[:8]
+            score = sum(word_anomaly_score(w) for w in words)
+            return score >= 3 or score + 0.01 >= len(words)
+
+        def next_words_segment(segments: List[dict]) -> Optional[dict]:
+            return next((s for s in segments if s["words"]), None)
         timestamp_tokens = tokens >= tokenizer.timestamp_begin
         single_timestamp_ending = (
             len(timestamp_tokens) >= 2 and timestamp_tokens[-2:].tolist() == [False, True]
@@ -222,6 +257,77 @@ class _FileState:
             )
             self.seek += segment_size
 
+        if self.word_timestamps:
+            from olmoasr_tpu_torch.timing import add_word_timestamps
+
+            add_word_timestamps(
+                segments=current_segments,
+                model=self.model,
+                tokenizer=tokenizer,
+                mel=self._mel_segment,
+                num_frames=segment_size,
+                prepend_punctuations=self.prepend_punctuations,
+                append_punctuations=self.append_punctuations,
+                last_speech_timestamp=self.last_speech_timestamp,
+            )
+            if not single_timestamp_ending:
+                last_word_end = _get_end(current_segments)
+                if last_word_end is not None and last_word_end > time_offset:
+                    self.seek = round(last_word_end * FRAMES_PER_SECOND)
+
+            if self.hallucination_silence_threshold is not None:
+                threshold = self.hallucination_silence_threshold
+                if not single_timestamp_ending:
+                    last_word_end = _get_end(current_segments)
+                    if last_word_end is not None and last_word_end > time_offset:
+                        remaining_duration = window_end_time - last_word_end
+                        if remaining_duration > threshold:
+                            self.seek = round(last_word_end * FRAMES_PER_SECOND)
+                        else:
+                            self.seek = previous_seek + segment_size
+
+                first_segment = next_words_segment(current_segments)
+                if first_segment is not None and is_segment_anomaly(first_segment):
+                    gap = first_segment["start"] - time_offset
+                    if gap > threshold:
+                        self.seek = previous_seek + round(gap * FRAMES_PER_SECOND)
+                        return
+
+                hal_last_end = self.last_speech_timestamp
+                for si in range(len(current_segments)):
+                    segment = current_segments[si]
+                    if not segment["words"]:
+                        continue
+                    if is_segment_anomaly(segment):
+                        next_segment = next_words_segment(current_segments[si + 1:])
+                        if next_segment is not None:
+                            hal_next_start = next_segment["words"][0]["start"]
+                        else:
+                            hal_next_start = time_offset + segment_duration
+                        silence_before = (
+                            segment["start"] - hal_last_end > threshold
+                            or segment["start"] < threshold
+                            or segment["start"] - time_offset < 2.0
+                        )
+                        silence_after = (
+                            hal_next_start - segment["end"] > threshold
+                            or is_segment_anomaly(next_segment)
+                            or window_end_time - segment["end"] < 2.0
+                        )
+                        if silence_before and silence_after:
+                            self.seek = round(
+                                max(time_offset + 1, segment["start"]) * FRAMES_PER_SECOND
+                            )
+                            if self.content_duration - segment["end"] < threshold:
+                                self.seek = self.content_frames
+                            current_segments[si:] = []
+                            break
+                    hal_last_end = segment["end"]
+
+            last_word_end = _get_end(current_segments)
+            if last_word_end is not None:
+                self.last_speech_timestamp = last_word_end
+
         if self.verbose:
             for segment in current_segments:
                 start, end, text = segment["start"], segment["end"], segment["text"]
@@ -252,14 +358,43 @@ class _FileState:
         )
 
 
-def _resolve_language(model, decode_options: dict) -> str:
+def word_anomaly_score(word: dict) -> float:
+    """The hallucination heuristic's score of one word: low probability, or
+    a duration far from a spoken word's."""
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _get_end(segments: List[dict]) -> Optional[float]:
+    return next(
+        (w["end"] for s in reversed(segments) for w in reversed(s.get("words", []))),
+        segments[-1]["end"] if segments else None,
+    )
+
+
+def _resolve_language(model, audio, decode_options: dict, verbose: Optional[bool]) -> str:
+    """``decode_options["language"]``, set first when missing: "en" for an
+    English-only model; for a multilingual one, the language that
+    ``detect_language`` finds in the audio's first 30 s (its log-mel on the
+    model's device)."""
     if decode_options.get("language", None) is None:
-        if model.is_multilingual:
-            raise NotImplementedError(
-                "language detection is not ported yet (ROADMAP Queue 1): "
-                "pass language= for a multilingual model"
-            )
-        decode_options["language"] = "en"
+        if not model.is_multilingual:
+            decode_options["language"] = "en"
+        else:
+            mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES,
+                                      device=model.device)
+            _, probs = model.detect_language(pad_or_trim(mel, N_FRAMES))
+            decode_options["language"] = max(probs, key=probs.get)
+            if verbose is not None:
+                print(f"Detected language: {LANGUAGES[decode_options['language']].title()}")
     return decode_options["language"]
 
 
@@ -362,21 +497,21 @@ def transcribe_many(
     are independent), and only the windows that fail the fallback gates
     decode again at the next temperature. Per-file output is that of
     ``transcribe``: the seek state machines are independent. The signature
-    is the JAX package's; ``carry_initial_prompt`` and the punctuation sets
-    are accepted and, as there without word timestamps, unused.
+    is the JAX package's; ``carry_initial_prompt`` is accepted and, as
+    there, unused. ``word_timestamps`` adds each segment's ``words``
+    (``timing.add_word_timestamps`` on the window that was decoded) and
+    moves seek to the last word's end; ``hallucination_silence_threshold``
+    then skips silence around anomalous words. A multilingual model without
+    ``language`` detects each file's language first.
     """
-    if word_timestamps:
-        raise NotImplementedError("word timestamps are not ported yet (ROADMAP Queue 1)")
-    if hallucination_silence_threshold is not None:
-        raise NotImplementedError(
-            "hallucination_silence_threshold is not ported yet (ROADMAP Queue 1)"
-        )
+    if word_timestamps and decode_options.get("task") == "translate":
+        warnings.warn("Word-level timestamps on translations may not be reliable.")
     temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
 
     states: List[_FileState] = []
     for audio in audios:
         opts = dict(decode_options)
-        language = _resolve_language(model, opts)
+        language = _resolve_language(model, audio, opts, verbose)
         tokenizer = get_tokenizer(
             model.is_multilingual, num_languages=model.num_languages, language=language,
             task=opts.get("task", "transcribe"),
@@ -390,6 +525,10 @@ def transcribe_many(
             initial_prompt=initial_prompt,
             clip_timestamps=clip_timestamps,
             language=language,
+            word_timestamps=word_timestamps,
+            prepend_punctuations=prepend_punctuations,
+            append_punctuations=append_punctuations,
+            hallucination_silence_threshold=hallucination_silence_threshold,
         ))
 
     # each round batches the current window of up to batch_size active
@@ -410,8 +549,11 @@ def transcribe_many(
                 logprob_threshold=logprob_threshold,
                 no_speech_threshold=no_speech_threshold,
             )
-            for i, r in zip(ids, results):
+            for i, w, r in zip(ids, ws, results):
+                if word_timestamps:  # the alignment re-encodes the window decoded
+                    states[i]._mel_segment = w
                 states[i].consume(r)
+                states[i]._mel_segment = None
         active = [i for i in active if not states[i].done]
     return [s.finalize() for s in states]
 

@@ -13,6 +13,7 @@ runs exact fp32 attention.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -264,16 +265,20 @@ def test_decode_single_window_and_model_entry_point(slice_pair):
                                    "hallucination_silence_threshold": 2.0},
                                   {"beam_size": 5, "patience": 2.0, "word_timestamps": True}])
 def test_unported_options_raise(slice_pair, opts):
-    """Beam search is ported; what beam-search users may still ask for and
-    the port does not take (word timestamps, the hallucination-silence
-    heuristic) raises before anything decodes."""
+    """What beam-search users may ask for beside it (word timestamps, the
+    hallucination-silence heuristic) used to raise before anything decoded;
+    both are ported now, and these option sets transcribe: the beam loop
+    runs and every segment carries its ``words``."""
     from olmoasr_tpu_torch import transcribe_many
 
     _, model, _ = slice_pair
     steps = tm.decode_step.single_steps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transcribe_many(model, [np.zeros(16000, np.float32)], fp16=False, **opts)
-    assert tm.decode_step.single_steps == steps
+    wav = (np.random.default_rng(2).standard_normal(16000 * 3) * 0.1).astype(np.float32)
+    (result,) = transcribe_many(model, [wav], fp16=False, sample_len=8, temperature=(0.0, 0.2),
+                                **{"word_timestamps": True, **opts})
+    assert tm.decode_step.single_steps > steps
+    assert result["segments"] and all(isinstance(seg["words"], list)
+                                      for seg in result["segments"])
 
 
 def test_decode_refuses_a_dtype_mismatch(slice_pair):
@@ -456,3 +461,84 @@ def test_beam_step_keeps_the_pool_and_the_ancestry():
     assert st.fin_tokens[0, 0].tolist() == [0, 2, 3, 3]
     assert float(st.fin_lp[0, 0]) == pytest.approx(-1.0 + np.log(0.4))
     assert float(st.fin_lp[0, 1]) <= -1e29  # an empty slot
+
+
+# ---------------------------------------------------------------------------
+# language detection
+# ---------------------------------------------------------------------------
+
+MULTI = dataclasses.replace(DIMS, n_vocab=51865)
+LANG_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def multi_pair():
+    """A micro multilingual model in both packages, and the JAX package's
+    encoder at fp32 unless a caller says otherwise (its ``detect_language``
+    encodes at the bf16 default; the port runs in its weights' dtype)."""
+    from olmoasr_tpu.api import OLMoASR as JaxOLMoASR
+    from olmoasr_tpu_torch.api import OLMoASR
+
+    params = jm.init_params(jax.random.PRNGKey(3), MULTI, include_padding_token=False)
+    model = _new_model(MULTI, False, "cpu", torch.float32)
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params), MULTI))
+    assert isinstance(model, OLMoASR) and model.is_multilingual
+    orig = jm.encode_audio
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jm, "encode_audio", lambda p, d, mel, **kw: orig(
+        p, d, mel, **{"compute_dtype": jnp.float32, **kw}))
+    yield JaxOLMoASR(MULTI, params), model.eval()
+    mp.undo()
+
+
+def _assert_same_languages(got, want):
+    (gt, gp), (wt, wp) = got, want
+    assert np.array_equal(np.asarray(gt), np.asarray(wt))
+    for g, w in zip(gp if isinstance(gp, list) else [gp], wp if isinstance(wp, list) else [wp]):
+        assert list(g) == list(w) and len(g) == 99
+        assert max(abs(g[c] - w[c]) for c in w) <= LANG_TOL
+        assert abs(sum(g.values()) - 1.0) < 1e-4
+        top = sorted(g.values())
+        assert top[-1] - top[-2] > 2 * LANG_TOL  # the argmax had room to spare
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_detect_language_matches_jax(multi_pair, batch):
+    jmodel, model = multi_pair
+    rng = np.random.default_rng(7)
+    mel = (rng.standard_normal((batch or 1, 80, 3000)) * 0.5).astype(np.float32)
+    if batch is None:
+        mel = mel[0]
+    steps = tm.decode_step.single_steps
+    got = model.detect_language(torch.from_numpy(mel))
+    assert tm.decode_step.single_steps == steps + 1  # one single-token step of SOT
+    want = jmodel.detect_language(jnp.asarray(mel))
+    _assert_same_languages(got, want)
+    if batch is None:
+        assert got[0].ndim == 0 and isinstance(got[1], dict)
+    else:
+        assert got[0].shape == (batch,) and len(got[1]) == batch
+    # a shorter mel is padded to 30 s, a tokenizer may be given
+    tok = get_tokenizer(True)
+    short = mel[..., :2000]
+    _assert_same_languages(decoding.detect_language(model, short, tok),
+                           jdec.detect_language(jmodel.params, MULTI, short, tok))
+
+
+def test_resolve_language_matches_jax(multi_pair, capsys):
+    from olmoasr_tpu import transcribe as jtr
+    from olmoasr_tpu_torch import transcribe as tr
+
+    jmodel, model = multi_pair
+    wav = (np.random.default_rng(8).standard_normal(16000 * 40) * 0.1).astype(np.float32)
+    got, want = {}, {}
+    lang = tr._resolve_language(model, wav, got, True)
+    assert lang == jtr._resolve_language(jmodel, wav, want, True) == got["language"] \
+        == want["language"]
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1] and out[0].startswith("Detected language: ")
+    # given, or an English-only model: nothing is detected
+    assert tr._resolve_language(model, wav, {"language": "fr"}, True) == "fr"
+    assert tr._resolve_language(types.SimpleNamespace(is_multilingual=False), wav, {}, True) \
+        == "en"
+    assert capsys.readouterr().out == ""

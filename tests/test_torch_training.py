@@ -3,7 +3,11 @@ package's, at micro dims on the CPU: ``loss_fn`` and every parameter's
 gradient against ``jax.value_and_grad(loss_fn)``, three accumulated train
 steps against ``make_train_step`` + ``make_optimizer``, the loader's batches
 bit-equal to the JAX loader's, and ``train_loop.main`` with resume and the
-``.npz`` interchange.
+``.npz`` interchange. The ``device_mel`` transport: the loader's PCM batches
+bit-equal to the JAX loader's (int16 and f32 sources), ``loss_fn`` and every
+gradient from int16 PCM against JAX's ``loss_fn`` from the same PCM (its
+conv-DFT log-mel against the port's ``torch.stft``, the log-mels 2.5e-6
+apart at most), and ``train_loop.main(device_mel=True)``.
 
 The JAX side runs its Pallas attention kernels in interpret mode: the
 decoder through ``OLMOASR_DEC_ATTN=kernel_interpret``, the encoder by
@@ -143,6 +147,39 @@ def test_loss_and_every_gradient_match_jax(jax_kernels, params):
     assert float(grads["decoder.token_embedding.weight"][jm.PADDING_TOKEN].abs().max()) > 0
 
 
+def test_loss_and_every_gradient_from_pcm_match_jax(jax_kernels, params):
+    """``loss_fn`` on a (B, samples) int16 batch, the device_mel transport at
+    MICRO's 2 x 40 mel frames (JAX ``tests/test_training.py``'s shapes),
+    against JAX's, and against the port's own ``loss_fn`` from the host mel."""
+    from olmoasr_tpu_torch.audio import HOP_LENGTH, log_mel_spectrogram_np
+
+    dims = JaxDims(**MICRO)
+    b = _batch(2)
+    rng = np.random.default_rng(5)
+    pcm = (rng.standard_normal((MICRO_B, 2 * MICRO["n_audio_ctx"] * HOP_LENGTH)) * 3000
+           ).astype(np.int16)
+    args = [b[k] for k in ("text_input", "text_target", "padding_mask")]
+    (jloss, jaux), jgrads = jax.value_and_grad(jtrain.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), dims, jnp.asarray(pcm), *map(jnp.asarray, args),
+        compute_dtype=jnp.float32, remat=False)
+    model = _port_model(params)
+    loss, aux = ttrain.loss_fn(model, torch.from_numpy(pcm), *map(torch.from_numpy, args),
+                               compute_dtype=torch.float32, remat=True)
+    loss.backward()
+    _close(loss.item(), jloss, "loss")
+    _close(aux["accuracy"].item(), jaux["accuracy"], "accuracy")
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    got = jax.tree_util.tree_flatten_with_path(
+        convert.jax_params_from_state_dict(grads, ModelDimensions(**MICRO)))[0]
+    want = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jgrads))[0])
+    for path, g in got:
+        _close(g, want[path], jax.tree_util.keystr(path), GRAD_TOL)
+    host = torch.from_numpy(log_mel_spectrogram_np(pcm.astype(np.float32) / 32768.0))
+    host_loss, _ = ttrain.loss_fn(_port_model(params), host, *map(torch.from_numpy, args),
+                                  compute_dtype=torch.float32, remat=True)
+    _close(loss.item(), host_loss.item(), "loss from the host mel")
+
+
 def test_three_accumulated_steps_match_jax(jax_kernels, params):
     jcfg = jtrain.TrainConfig(train_steps=10, eff_batch_size=ACCUM * MICRO_B,
                               micro_batch_size=MICRO_B, peak_lr=1e-3, remat=False,
@@ -217,12 +254,26 @@ def shard_dir(tmp_path_factory):
     return d
 
 
-def test_loader_batches_are_bit_equal_to_jax(shard_dir):
+@pytest.mark.parametrize("transport", ["mel", "int16 pcm", "f32 pcm"])
+def test_loader_batches_are_bit_equal_to_jax(shard_dir, transport):
+    """The host-mel batches, and the device_mel transport's PCM batches from
+    the shards' int16 .npy files and from in-memory f32 waveforms."""
     from olmoasr_tpu.training import dataset as jds
     from olmoasr_tpu_torch.training import dataset as tds
 
     shards = [str(shard_dir / "shard0.jsonl.gz")]
-    loaders = [mod.BatchLoader(mod.AudioTextDataset(mod.load_jsonl_samples(shards), 448, seed=3),
+
+    def samples(mod):
+        rows = mod.load_jsonl_samples(shards)
+        if transport == "f32 pcm":
+            return [{"audio": np.load(r.audio).astype(np.float32) / 32768.0,
+                     "transcript": r.transcript, "transcript_ext": r.transcript_ext}
+                    for r in rows]
+        return rows
+
+    device_mel = transport != "mel"
+    loaders = [mod.BatchLoader(mod.AudioTextDataset(samples(mod), 448, seed=3,
+                                                    device_mel=device_mel),
                                micro_batch_size=2, accum_steps=2, seed=3)
                for mod in (jds, tds)]
     for epoch in (0, 1):
@@ -236,6 +287,12 @@ def test_loader_batches_are_bit_equal_to_jax(shard_dir):
                 assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), (epoch, k)
     lens = (want[0]["padding_mask"] == 0).sum(-1)
     assert len(set(lens.ravel().tolist())) > 1  # the pad bias differs between rows
+    mel = got[0]["mel"]
+    if device_mel:
+        assert mel.shape == (2, 2, 480000)
+        assert mel.dtype == (np.int16 if transport == "int16 pcm" else np.float32)
+    else:
+        assert mel.shape == (2, 2, 80, 3000) and mel.dtype == np.float32
 
 
 ENTRY = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=1, n_audio_layer=1,
@@ -286,11 +343,43 @@ def test_train_loop_resumes_and_writes_an_npz_both_packages_read(shard_dir, tmp_
                                   sd["decoder.blocks.0.mlp.0.weight"].numpy().T)
 
 
+def test_train_loop_with_device_mel(shard_dir, tmp_path, monkeypatch):
+    """Two steps from PCM batches: the loss the first step logs is the one
+    the host-mel run logs on the same batch, to the log-mels' difference."""
+    from olmoasr_tpu_torch.training import train_loop
+
+    monkeypatch.chdir(tmp_path)
+    losses = {}
+    make_step = ttrain.make_train_step
+
+    def recording(dims, config):
+        step = make_step(dims, config)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.setdefault(batch["mel"].dim(), []).append(float(metrics["loss"]))
+            return state, metrics
+
+        return run
+
+    monkeypatch.setattr(ttrain, "make_train_step", recording)
+    kwargs = dict(variant=ModelDimensions(**ENTRY), train_shards=str(shard_dir / "*.jsonl.gz"),
+                  train_steps=10, eff_batch_size=4, micro_batch_size=2, ckpt_dir="ckpt",
+                  ckpt_every=0, log_every=1, device="cpu")
+    metrics = train_loop.main(**kwargs, exp_name="pcm", device_mel=True, max_steps_this_run=2)
+    assert metrics["global_step"] == 2 and np.isfinite(metrics["train/loss"])
+    train_loop.main(**kwargs, exp_name="host", max_steps_this_run=1)
+    pcm_losses, host_losses = losses[3], losses[4]  # (accum, B, samples) / (accum, B, mels, T)
+    assert len(pcm_losses) == 2 and len(host_losses) == 1
+    _close(pcm_losses[0], host_losses[0], "step 1 loss, PCM against the host mel")
+    args = train_loop.build_cli_parser().parse_args(["--device_mel", "true"])
+    assert args.device_mel is True
+
+
 def test_unported_options_raise():
     from olmoasr_tpu_torch.training import train_loop
 
-    for kw in ({"fsdp_size": 2}, {"eval_every": 1}, {"device_mel": True},
-               {"profile_dir": "p"}):
+    for kw in ({"fsdp_size": 2}, {"eval_every": 1}, {"profile_dir": "p"}):
         with pytest.raises(NotImplementedError):
             train_loop.main(device="cpu", **kw)
     with pytest.raises(NotImplementedError):

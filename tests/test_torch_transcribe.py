@@ -14,6 +14,13 @@ tolerance, so that identity is what the tolerance predicts. Scores
 (avg_logprob, no_speech_prob, compression_ratio) are held to 1e-4. The same
 holds with beam search (``beam_size=3, best_of=3``), the CLI's decode.
 
+With ``word_timestamps`` (and the hallucination-silence heuristic) both
+packages transcribe the same two files with their encoders at fp32 (the JAX
+package's alignment encodes at its bf16 default otherwise): the same
+segments, seeks and words, word times equal and probabilities within 1e-5.
+Their model's token embedding keeps only the byte tokens' text rows (the
+offline tokenizer decodes nothing else), so that its segments have words.
+
 The command line (``python -m olmoasr_tpu_torch.transcribe``) takes the JAX
 CLI's arguments and defaults plus ``--device``, and writes what the port's
 ``transcribe_many`` returns through the shared writers.
@@ -135,11 +142,10 @@ def test_file_state_matches(clip, prompt, no_speech):
     stub = types.SimpleNamespace(dims=DIMS, device=torch.device("cpu"))
     common = dict(verbose=False, logprob_threshold=-1.0, no_speech_threshold=no_speech,
                   condition_on_previous_text=True, initial_prompt=prompt,
-                  clip_timestamps=clip, language="en")
-    jstate = jtr._FileState(stub, wav, TOK, compression_ratio_threshold=2.4,
-                            word_timestamps=False, prepend_punctuations="",
-                            append_punctuations="", hallucination_silence_threshold=None,
-                            **common)
+                  clip_timestamps=clip, language="en", word_timestamps=False,
+                  prepend_punctuations="", append_punctuations="",
+                  hallucination_silence_threshold=None)
+    jstate = jtr._FileState(stub, wav, TOK, compression_ratio_threshold=2.4, **common)
     tstate = tr._FileState(stub, wav, TOK, **common)
     scripted = _scripted_results()
     for k in range(20):
@@ -162,21 +168,23 @@ def test_file_state_matches(clip, prompt, no_speech):
     assert tstate.prompt_reset_since == jstate.prompt_reset_since
 
 
-def test_unported_options_raise():
-    model = _new_model(DIMS, False, "cpu", torch.float32)
-    wav = np.zeros(16000, np.float32)
-    # each message names the feature and the ROADMAP queue, and no item
-    # number (the items are renumbered)
-    for kw, feature in (({"word_timestamps": True}, "word timestamps"),
-                        ({"hallucination_silence_threshold": 2.0},
-                         "hallucination_silence_threshold")):
-        with pytest.raises(NotImplementedError, match=f"{feature} .*ROADMAP Queue 1\\)") as err:
-            transcribe_many(model, [wav], **kw)
-        assert "item" not in str(err.value)
-    multi = types.SimpleNamespace(is_multilingual=True)
-    with pytest.raises(NotImplementedError, match="language detection .*ROADMAP Queue 1\\)") as err:
-        tr._resolve_language(multi, {})
-    assert "item" not in str(err.value)
+def _jax_word_anomaly_score():
+    """The JAX package's ``word_anomaly_score``, a closure-free function
+    nested in ``_FileState.consume``, rebuilt from its code object."""
+    code = next(c for c in jtr._FileState.consume.__code__.co_consts
+                if getattr(c, "co_name", None) == "word_anomaly_score")
+    return types.FunctionType(code, {})
+
+
+def test_word_anomaly_score_matches():
+    want = _jax_word_anomaly_score()
+    for prob in (None, 0.0, 0.1499, 0.15, 0.9):
+        for start, end in ((0.0, 0.0), (1.0, 1.05), (1.0, 1.133), (1.0, 1.2), (0.5, 2.5),
+                           (0.5, 2.6), (0.0, 7.25)):
+            word = {"word": " x", "start": start, "end": end}
+            if prob is not None:
+                word["probability"] = prob
+            assert tr.word_anomaly_score(word) == want(word), word
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +290,50 @@ def test_long_form_beam_search_matches_jax(pair, audios):
     want = jtr.transcribe_many(jmodel, audios, batch_size=2, **opts)
     for g, w in zip(got, want):
         _assert_same_transcripts(g, w)
+
+
+@pytest.fixture
+def jax_fp32_encoder(monkeypatch):
+    """The JAX package's encoder at fp32 unless a caller says otherwise
+    (its ``embed_audio``, which the alignment calls, passes nothing)."""
+    orig = jm.encode_audio
+    monkeypatch.setattr(jm, "encode_audio", lambda params, dims, mel, **kw: orig(
+        params, dims, mel, **{"compute_dtype": jax.numpy.float32, **kw}))
+
+
+@pytest.fixture(scope="module")
+def byte_pair():
+    """``pair``'s weights with the token embedding's text rows past the 256
+    byte tokens zeroed: the offline tokenizer decodes only those bytes, so
+    this random model's segments have text, and so words."""
+    params = jm.init_params(jax.random.PRNGKey(0), DIMS, include_padding_token=False)
+    params = jax.tree.map(np.asarray, params)
+    params["decoder"]["token_embedding"] = params["decoder"]["token_embedding"].copy()
+    params["decoder"]["token_embedding"][256:TOK.eot] = 0.0
+    model = _new_model(DIMS, False, "cpu", torch.float32)
+    model.load_state_dict(state_dict_from_jax_params(params, DIMS))
+    return JaxOLMoASR(DIMS, jax.tree.map(jax.numpy.asarray, params)), model
+
+
+@pytest.mark.parametrize("threshold", [None, 2.0])
+def test_long_form_word_timestamps_match_jax(byte_pair, audios, jax_fp32_encoder, threshold):
+    jmodel, model = byte_pair
+    opts = dict(temperature=0.0, fp16=False, sample_len=SAMPLE_LEN, word_timestamps=True,
+                hallucination_silence_threshold=threshold)
+    files = [audios[1], audios[0][:16000 * 20]]
+    got = transcribe_many(model, files, batch_size=2, **opts)
+    want = jtr.transcribe_many(jmodel, files, batch_size=2, **opts)
+    n_words = 0
+    for g, w in zip(got, want):
+        _assert_same_transcripts(g, w)
+        for gs, ws in zip(g["segments"], w["segments"]):
+            assert [(x["word"], x["start"], x["end"]) for x in gs["words"]] == \
+                [(x["word"], x["start"], x["end"]) for x in ws["words"]]
+            for x, y in zip(gs["words"], ws["words"]):
+                assert abs(x["probability"] - y["probability"]) <= 1e-5
+                assert gs["seek"] / 100 <= x["start"] <= x["end"] <= gs["seek"] / 100 + 30
+            n_words += len(gs["words"])
+    assert n_words >= (3 if threshold is None else 1)
 
 
 # ---------------------------------------------------------------------------
