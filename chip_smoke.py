@@ -92,7 +92,20 @@ printed line each (or a few):
    --max_line_width 40``, and the HTTP server (``python -m
    olmoasr_tpu_torch.serve``, int8 cross K/V and ``beam_size=5``) answering
    4 concurrent requests, one with ``word_timestamps``, each in its own
-   process.
+   process;
+8. evaluation: 96 utterances of 3-20 s seeded noise in a LibriSpeech-format
+   tree through ``eval.harness.short_form_eval`` at B=64 on small.en (its
+   vocabulary cut to the byte tokens), bf16 and int8 cross K/V, each
+   hypothesis held to a direct ``decode`` of the same batch and the WER to
+   the written per-sample CSV, the wall split into decode, the card's
+   log-mel and the host's parts; ``long_form_eval`` (beam 5, best_of 5) of
+   35 s + 50 s; the harness's command line in its own process on 16 of
+   them, equal to the same run here; fp32 ``training.validate`` on the card
+   against the CPU, small.en's bf16 ``validate``; ``train_loop.main``'s
+   sync eval with the profiler's trace of a step (the row 3 and row 9
+   kernels named in it), async eval (the harness spawned on the card), and
+   the cast-moment Adam (bf16 moments), its step on the card against the
+   CPU twin's from the same gradients.
 
 Each slice sets every launch count to 0 before it runs and reads them after;
 the ``launches`` of the kernels line are those of the path that runs the
@@ -100,7 +113,8 @@ kernel: the long-form slice's, the server traffic's for the fused launch,
 the training step's for the attention backward, the flash training step's
 for the flash forward and backward, the int8-ring loop's for
 the int8 self pass and the routes' for the whole-layer launch and the
-standalone cross attention. Every kernel in that line
+standalone cross attention (``launches_eval``: the evaluation's short-form
+bf16, int8 and long-form runs). Every kernel in that line
 carries its bound (the least time the card could take for its main case:
 bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
 larger) and ``library_ms``, the time of one PyTorch call computing the same
@@ -1251,6 +1265,7 @@ def _counters():
 # kernels counted inside another wrapper's launches: (name, wrapper, counter)
 SUB_COUNTS = (("self_attend_decode_beam", "self_attend_decode", "beam_launches"),
               ("self_attend_decode_q8", "self_attend_decode", "q8_launches"),
+              ("cross_block_decode_group", "cross_block_decode", "group_launches"),
               ("layer_block_decode_mlp", "layer_block_decode", "mlp_launches"))
 
 
@@ -1267,7 +1282,10 @@ def _read_counts():
     """Launches by kernel (``self_attend_decode_beam`` and ``_q8``: those of
     the ancestry variant and over int8 rings, subsets of
     ``self_attend_decode``'s; ``layer_block_decode_mlp``: the whole-layer
-    launches, a subset of ``layer_block_decode``'s) and single-token steps."""
+    launches, a subset of ``layer_block_decode``'s;
+    ``cross_block_decode_group``: row 1's ``group_kernel`` launches, those
+    with ``kv_group`` > 1, a subset of ``cross_block_decode``'s) and
+    single-token steps."""
     kernels, step = _counters()
     counts = {name: fn.launches for name, fn in kernels.items()}
     for name, wrapper, counter in SUB_COUNTS:
@@ -2720,6 +2738,470 @@ def _drive_server(server, reqs, err, urllib_request) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: evaluation and the trainer's last options
+# ---------------------------------------------------------------------------
+
+EVAL_UTTERANCES, EVAL_BATCH, EVAL_CLI_SAMPLES = 96, 64, 16
+EVAL_ASYNC_UTTERANCES = 16  # the async eval's tree: the harness process evaluates it whole
+EVAL_LONG_SECONDS = (35, 50)  # the long-form manifest set's two files
+CAST_TOL = 1e-3  # the cast-moment step, card against CPU from the same grads, x its lr
+VAL_LOSS_TOL = 1e-4  # fp32 validate's loss, card against CPU, relative
+
+
+def _eval_tree(root: str, n: int = EVAL_UTTERANCES) -> float:
+    """A LibriSpeech-format tree of n utterances in 4 chapters (seeded
+    noise of 3-20 s, int16 wav, seeded word transcripts in ``.trans.txt``)
+    and a manifest set ``longset`` of two files of EVAL_LONG_SECONDS;
+    returns the utterances' seconds."""
+    import scipy.io.wavfile as wavfile
+
+    rng = np.random.default_rng(8)
+    seconds = 0.0
+    per_chapter = n // 4
+    for c in range(4):
+        chap = os.path.join(root, "LibriSpeech", "test-clean", "61", str(70 + c))
+        os.makedirs(chap)
+        lines = []
+        for i in range(per_chapter):
+            utt = f"61-{70 + c}-{i:04d}"
+            n = int(16000 * rng.uniform(3, 20))
+            wavfile.write(os.path.join(chap, f"{utt}.wav"), 16000,
+                          (rng.standard_normal(n) * 3000).astype(np.int16))
+            seconds += n / 16000
+            words = rng.choice(WORDS, int(rng.integers(3, 25)))
+            lines.append(f"{utt} {' '.join(words).upper()}")
+        with open(os.path.join(chap, f"61-{70 + c}.trans.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "longset.jsonl"), "w") as f:
+        for k, s in enumerate(EVAL_LONG_SECONDS):
+            _write_wav(os.path.join(root, f"long{k}.wav"), s, rng)
+            text = " ".join(rng.choice(WORDS, 3 * s))
+            f.write(json.dumps({"audio": f"long{k}.wav", "text": text, "id": f"long{k}"}) + "\n")
+    return seconds
+
+
+def _timed_short_form(model, tree: str, kv_quant: bool) -> tuple:
+    """``short_form_eval`` at EVAL_BATCH with its parts timed: the decode
+    calls and the card's log-mel (each behind a synchronize), the normalizer
+    and the WER on the host; the rest of the wall is reading and padding
+    the audio and the copy to the card."""
+    from olmoasr_tpu_torch.eval import harness
+    from olmoasr_tpu_torch.normalizers import EnglishTextNormalizer
+
+    parts = {"decode": 0.0, "log_mel": 0.0, "normalizer": 0.0, "wer": 0.0}
+
+    def timed(part, fn, sync):
+        def call(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            return out
+        return call
+
+    model.decode = timed("decode", model.decode, True)
+    mel_fn, measures = harness.log_mel_spectrogram, harness.compute_measures
+    harness.log_mel_spectrogram = timed("log_mel", mel_fn, True)
+    harness.compute_measures = timed("wer", measures, False)
+    _reset_counts()
+    try:
+        result = harness.short_form_eval(
+            model, "librispeech_clean", tree, batch_size=EVAL_BATCH, kv_quant=kv_quant,
+            normalizer=timed("normalizer", EnglishTextNormalizer(), False))
+    finally:
+        del model.decode
+        harness.log_mel_spectrogram, harness.compute_measures = mel_fn, measures
+    counts, steps = _read_counts()
+    parts["audio_and_copy"] = result.wall_seconds - sum(parts.values())
+    return result, counts, steps, parts
+
+
+def _check_eval_result(label, result, tree, audio_s, model, kv_quant, out_dir) -> int:
+    """n_samples and audio seconds; every hypothesis that of ``model.decode``
+    run directly on the same batch; the corpus WER recomputed from
+    ``write_results``' per-sample CSV and its text file. Returns how many
+    hypotheses of the ragged last batch change when it is padded to
+    EVAL_BATCH with its last clip, as the JAX harness pads it (the kernels
+    split the work by the row count, so bf16 rounding may flip a near tie:
+    counted, not failed)."""
+    import csv
+
+    from olmoasr_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+    from olmoasr_tpu_torch.decoding import DecodingOptions
+    from olmoasr_tpu_torch.eval import harness
+    from olmoasr_tpu_torch.eval.datasets import DatasetFactory
+    from olmoasr_tpu_torch.eval.wer import compute_measures
+    from olmoasr_tpu_torch.normalizers import EnglishTextNormalizer
+
+    if result.n_samples != EVAL_UTTERANCES or abs(result.audio_seconds - audio_s) > 1e-6:
+        fail(f"{label}: {result.n_samples} samples, {result.audio_seconds} s; expected "
+             f"{EVAL_UTTERANCES}, {audio_s} s")
+    items = DatasetFactory.create_loader("librispeech_clean", tree).load()
+    norm = EnglishTextNormalizer()
+    options = DecodingOptions(language="en", without_timestamps=True, fp16=True,
+                              kv_quant=kv_quant)
+    hyps = []
+    for i in range(0, len(items), EVAL_BATCH):
+        wavs = [pad_or_trim(harness._item_waveform(it)) for it in items[i:i + EVAL_BATCH]]
+        mel = log_mel_spectrogram(torch.from_numpy(np.stack(wavs)).cuda())
+        hyps += [norm(r.text) for r in model.decode(mel, options)]
+    n_real = len(wavs)
+    mel = log_mel_spectrogram(torch.from_numpy(np.stack(
+        wavs + [wavs[-1]] * (EVAL_BATCH - n_real))).cuda())
+    padded = [norm(r.text) for r in model.decode(mel, options)[:n_real]]
+    flips = sum(a != b for a, b in zip(padded, hyps[-n_real:]))
+    print(f"  {label}: the ragged last batch of {n_real} padded to {EVAL_BATCH}: {flips} of its "
+          f"hypotheses differ from the ragged decode's")
+    got = [r["hyp"] for r in result.per_sample]
+    if got != hyps:
+        bad = [k for k, (a, b) in enumerate(zip(got, hyps)) if a != b]
+        fail(f"{label}: {len(bad)} hypotheses differ from a direct decode, first {bad[:5]}: "
+             f"{got[bad[0]]!r} / {hyps[bad[0]]!r}")
+    if not any(hyps):
+        fail(f"{label}: every hypothesis is empty")
+    harness.write_results(result, out_dir, label.replace(" ", "_"))
+    base = os.path.join(out_dir, f"librispeech_clean_{label.replace(' ', '_')}")
+    with open(base + "_per_sample.csv", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f))
+    wer = compute_measures([r["ref"] for r in rows], [r["hyp"] for r in rows]).wer
+    with open(base + ".txt") as f:
+        text_wer = [line for line in f if line.startswith("wer=")][0].strip()
+    if wer != result.wer or text_wer != f"wer={result.wer * 100:.2f}" or len(rows) != len(items):
+        fail(f"{label}: the per-sample CSV gives WER {wer}, the text {text_wer}, the result "
+             f"{result.wer}")
+    return flips
+
+
+def _validate_fp32() -> dict:
+    """fp32 ``validate`` of the narrow model (GRAD_DIMS, its vocabulary cut
+    to the byte tokens) on the card and on the CPU on one batch of 2: the
+    loss to VAL_LOSS_TOL, the WER equal, the card's argmax ids equal to the
+    CPU's wherever the CPU's top two lead by more than LOGIT_TOL."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+    from olmoasr_tpu_torch.models.dims import ModelDimensions
+    from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
+    from olmoasr_tpu_torch.training import train as train_mod
+    from olmoasr_tpu_torch.training.validate import validate
+
+    dims = ModelDimensions(**GRAD_DIMS)
+    model = model_mod.init_params(model_mod.empty_model(dims, True),
+                                  torch.Generator().manual_seed(0), include_padding_token=True)
+    with torch.no_grad():
+        model.decoder.token_embedding.weight[256:50256].zero_()
+    rng = np.random.default_rng(9)
+    T = dims.n_text_ctx
+    tokens = rng.integers(0, 256, (2, T + 1))
+    pad = np.arange(T)[None] >= np.array([T, 150])[:, None]
+    batch = {"mel": rng.standard_normal((2, 80, 3000)).astype(np.float32),
+             "text_input": np.where(pad, PADDING_TOKEN, tokens[:, :-1]),
+             "text_target": np.where(pad, PADDING_TOKEN, tokens[:, 1:]),
+             "padding_mask": np.where(pad, -np.inf, 0.0).astype(np.float32)}
+    args = [torch.from_numpy(batch[k]) for k in ("mel", "text_input", "text_target",
+                                                  "padding_mask")]
+    cpu = validate(model, [batch], compute_dtype=torch.float32)
+    with torch.no_grad():
+        logits = model_mod.forward_train(model, args[0], args[1], args[3],
+                                         compute_dtype=torch.float32)
+    top2 = logits.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+    model.cuda()
+    _reset_counts()
+    gpu = validate(model, [batch], compute_dtype=torch.float32)
+    counts, _ = _read_counts()
+    with torch.no_grad():
+        _, aux = train_mod.loss_fn(model, *(a.cuda() for a in args), compute_dtype=torch.float32,
+                                   remat=False, return_pred=True)
+    differ = int((aux["pred"].cpu() != logits.argmax(-1))[sure].sum())
+    loss_err = abs(gpu["val/loss"] - cpu["val/loss"]) / abs(cpu["val/loss"])
+    print(f"  validate fp32 (2+2 layers, width 256, B=2): loss {gpu['val/loss']:.6f} (card) vs "
+          f"{cpu['val/loss']:.6f} (CPU), relative {loss_err:.2e} (tol {VAL_LOSS_TOL:.0e}); "
+          f"WER {gpu['val/wer']:.4f} vs {cpu['val/wer']:.4f}; argmax ids differing at "
+          f"{differ} of {int(sure.sum())} positions whose CPU margin exceeds {LOGIT_TOL:.0e} "
+          f"(of {sure.numel()}); attention launches {counts['train_attention_fwd']} forward "
+          f"{counts['train_attention_bwd']} backward")
+    if not loss_err <= VAL_LOSS_TOL or gpu["val/wer"] != cpu["val/wer"] or differ:
+        fail(f"validate fp32: loss {loss_err}, WER {gpu['val/wer']} vs {cpu['val/wer']}, "
+             f"{differ} argmax ids differ")
+    if counts["train_attention_fwd"] != 2 * 3 or counts["train_attention_bwd"]:
+        fail(f"validate fp32: attention launches {counts}: one forward, no backward")
+    return {"loss_rel_err": loss_err, "wer": gpu["val/wer"], "sure": int(sure.sum())}
+
+
+def _validate_small(shards: str) -> dict:
+    """small.en bf16 ``validate`` (fp32 weights, bf16 compute, as training
+    runs) over 2 micro-batches of 16 from the shards' loader."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+    from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+    from olmoasr_tpu_torch.training.dataset import (
+        AudioTextDataset, BatchLoader, load_jsonl_samples,
+    )
+    from olmoasr_tpu_torch.training.validate import validate
+
+    dims = VARIANT_TO_DIMS["small.en"]
+    model = model_mod.init_params(
+        model_mod.empty_model(dims, True, device="cuda", dtype=torch.float32),
+        torch.Generator().manual_seed(0), include_padding_token=True)
+    loader = BatchLoader(AudioTextDataset(load_jsonl_samples([shards]), dims.n_text_ctx, seed=0),
+                         micro_batch_size=16, accum_steps=1, seed=0, num_workers=8)
+    batches = []
+    for batch in loader:
+        batches.append({k: v[0] for k, v in batch.items()})
+        if len(batches) == 2:
+            break
+    validate(model, batches[:1])  # warm-up, not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = validate(model, batches)
+    wall = time.perf_counter() - t0
+    print(f"  validate small.en bf16, 2 micro-batches of 16: wall {wall:.3f} s, loss "
+          f"{out['val/loss']:.4f}, WER {out['val/wer']:.4f}")
+    if not np.isfinite(out["val/loss"]) or out["val/n_batches"] != 2:
+        fail(f"validate small.en: {out}")
+    del model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, **out}
+
+
+def _trainer_options(shards: str, tree: str, tmp: str) -> dict:
+    """``train_loop.main`` on small.en with the options this slice adds:
+    sync eval every 3 steps (eval_max_samples=32; every 3, so that the
+    profiler's step 2 holds no eval; the trained embedding cut to the byte
+    tokens just before it, as :func:`byte_vocabulary` cuts it, so that its
+    hypotheses have text) held to ``short_form_eval`` of the ``best.npz`` it
+    wrote, per sample, and the profiler over step 2, then
+    async eval every step over a tree of EVAL_ASYNC_UTTERANCES (the harness
+    spawned on the card, waited for); then the cast-moment Adam (bf16 mu and nu) on the narrow model: two
+    steps through ``main``, its checkpoint restored on the card and on the
+    CPU, one more step on the card, and the CPU twin's optimizer step from
+    the card's clipped gradients, held to CAST_TOL x the step's lr."""
+    from olmoasr_tpu_torch import load_model
+    from olmoasr_tpu_torch.eval import harness
+    from olmoasr_tpu_torch.models.dims import ModelDimensions
+    from olmoasr_tpu_torch.training import checkpoint as ckpt_mod
+    from olmoasr_tpu_torch.training import train as train_mod
+    from olmoasr_tpu_torch.training import train_loop
+    from olmoasr_tpu_torch.training.dataset import (
+        AudioTextDataset, BatchLoader, load_jsonl_samples,
+    )
+
+    out = {}
+    ckpt = os.path.join(tmp, "ckpt")
+    prof_dir = os.path.join(tmp, "prof")
+    kw = dict(train_shards=shards, ckpt_dir=ckpt, ckpt_every=0, log_every=1, device="cuda",
+              eval_set="librispeech_clean")
+    small_tree = os.path.join(tmp, "eval_async")
+    _eval_tree(small_tree, EVAL_ASYNC_UTTERANCES)
+    here = os.getcwd()
+    os.chdir(tmp)  # logs/ and eval_results/ go under the working directory
+    spawned, evals = [], []
+    spawn, sync_eval, short_form = (train_loop.run_async_eval, train_loop.run_sync_eval,
+                                    harness.short_form_eval)
+    train_loop.run_async_eval = lambda *a: spawned.append(spawn(*a)) or spawned[-1]
+
+    def byte_sync_eval(state, *a, **k):
+        byte_vocabulary(state.model)
+        return sync_eval(state, *a, **k)
+
+    train_loop.run_sync_eval = byte_sync_eval
+    harness.short_form_eval = lambda *a, **k: evals.append(short_form(*a, **k)) or evals[-1]
+    try:
+        t0 = time.perf_counter()
+        sync = train_loop.main(variant="small.en", micro_batch_size=8, eff_batch_size=8,
+                               exp_name="eval_sync", eval_every=3, eval_mode="sync",
+                               eval_max_samples=32, max_steps_this_run=3, profile_dir=prof_dir,
+                               profile_steps=(1, 2), eval_dir=tree, **kw)
+        out["sync_run_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_loop.main(variant="small.en", micro_batch_size=8, eff_batch_size=8,
+                        exp_name="eval_async", eval_every=1, eval_mode="async",
+                        max_steps_this_run=1, eval_dir=small_tree, **kw)
+        if len(spawned) != 1:
+            fail(f"async eval: {len(spawned)} harness processes spawned, expected 1")
+        rc = spawned[0].wait(timeout=600)
+        out["async_run_s"] = time.perf_counter() - t0
+        results = sorted(os.listdir(os.path.join(tmp, "eval_results", "eval_async")))
+    finally:
+        train_loop.run_async_eval, train_loop.run_sync_eval = spawn, sync_eval
+        harness.short_form_eval = short_form
+        for proc in spawned:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        os.chdir(here)
+    best = os.path.join(ckpt, "eval_sync", "best.npz")
+    if not np.isfinite(sync.get("eval/wer", np.nan)) or not os.path.isfile(best) \
+            or len(evals) != 1:
+        fail(f"sync eval: eval/wer {sync.get('eval/wer')}, best.npz written: "
+             f"{os.path.isfile(best)}, {len(evals)} short_form_eval calls")
+    want = short_form(load_model(best, device="cuda"), "librispeech_clean", tree, max_samples=32)
+    same = sum(a == b for a, b in zip(evals[0].per_sample, want.per_sample))
+    print(f"  sync eval against short_form_eval of best.npz: WER {evals[0].wer:.4f} / "
+          f"{want.wer:.4f}, {same} of {want.n_samples} samples equal, "
+          f"{sum(bool(r['hyp']) for r in want.per_sample)} hypotheses with text")
+    if sync["eval/wer"] != want.wer or evals[0].per_sample != want.per_sample \
+            or want.n_samples != 32 or not any(r["hyp"] for r in want.per_sample):
+        fail(f"sync eval: eval/wer {sync['eval/wer']} against best.npz's {want.wer}, {same} of "
+             f"{want.n_samples} samples equal")
+    traces = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, traces[0]), encoding="utf-8") as f:
+        trace = f.read()
+    named = {k: trace.count(k) for k in ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel",
+                                         "attn_bwd_dkv_mma_kernel")}
+    print(f"  trainer, small.en micro batch 8: sync eval at step 3 over 32 utterances, eval/wer "
+          f"{sync['eval/wer']:.4f}, best.npz written, run {out['sync_run_s']:.1f} s; profiler "
+          f"trace of step 2 {traces[0]} ({len(trace) / 1e6:.1f} MB), kernel names {named}")
+    if len(traces) != 1 or not all(named.values()):
+        fail(f"profiler: traces {traces}, row 3 / row 9 kernels named {named}")
+    want = [f"librispeech_clean_eval_1.npz{s}" for s in (".json", ".txt", "_per_sample.csv")]
+    args = spawned[0].args
+    print(f"  async eval: eval_1.npz, the harness spawned with --device "
+          f"{args[args.index('--device') + 1]}, exit {rc}, results {results}, run "
+          f"{out['async_run_s']:.1f} s")
+    if rc != 0 or results != want or args[args.index("--device") + 1] != "cuda":
+        fail(f"async eval: exit {rc}, results {results}, arguments {args}")
+
+    dims = ModelDimensions(**GRAD_DIMS)
+    bf16 = torch.bfloat16
+    cfg = train_mod.TrainConfig(train_steps=10, eff_batch_size=2, micro_batch_size=2,
+                                mu_dtype=bf16, nu_dtype=bf16)
+    train_loop.main(variant=dims, micro_batch_size=2, eff_batch_size=2, train_steps=10,
+                    exp_name="cast", max_steps_this_run=2, mu_dtype="bfloat16",
+                    nu_dtype="bfloat16", **{k: v for k, v in kw.items() if k != "eval_set"})
+    mgr = ckpt_mod.CheckpointManager(os.path.join(ckpt, "cast"))
+    gpu, _ = mgr.restore(train_mod.init_train_state(42, dims, cfg, device="cuda"))
+    cpu, _ = mgr.restore(train_mod.init_train_state(42, dims, cfg, device="cpu"))
+    stored = {t.dtype for st in gpu.optimizer.state.values()
+              for t in (st["exp_avg"], st["exp_avg_sq"])}
+    loader = BatchLoader(AudioTextDataset(load_jsonl_samples([shards]), dims.n_text_ctx, seed=1),
+                         micro_batch_size=2, accum_steps=1, seed=1, prefetch=0)
+    batch = next(iter(loader))
+    gpu, metrics = train_mod.make_train_step(dims, cfg)(
+        gpu, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    lr = float(metrics["lr"])
+    for p, q in zip(cpu.model.parameters(), gpu.model.parameters()):
+        p.grad = q.grad.cpu()
+    cpu.optimizer.param_groups[0]["lr"] = train_mod.lr_schedule(cfg)(2)
+    cpu.optimizer.step()
+    err = max(float((p.detach() - q.detach().cpu()).abs().max())
+              for p, q in zip(cpu.model.parameters(), gpu.model.parameters()))
+    print(f"  cast-moment Adam (mu, nu bf16), 2+2 layers width 256: moments stored as "
+          f"{sorted(map(str, stored))}; step 3 (lr {lr:.3e}) on the card against the CPU twin's "
+          f"optimizer step from the card's gradients: parameters {err:.3e} apart, "
+          f"{err / lr:.2e} x the lr (tol {CAST_TOL:.0e} x)")
+    if stored != {bf16} or not lr > 0 or not err <= CAST_TOL * lr:
+        fail(f"cast-moment step: moments {stored}, lr {lr}, parameters {err} apart")
+    out.update({"eval_wer": sync["eval/wer"], "trace_names": named, "cast_err": err,
+                "cast_lr": lr})
+    return out
+
+
+def phase_eval() -> dict:
+    """The evaluation slice on small.en at full width and depth, seeded
+    random weights with the vocabulary cut to the byte tokens
+    (:func:`byte_vocabulary`) so that hypotheses have text, bf16:
+    ``short_form_eval`` over EVAL_UTTERANCES utterances at batch EVAL_BATCH
+    with a bf16 and an int8 cross cache (the split chain, then "sc" +
+    ``mlp_block``), each checked against a direct ``decode`` and its written
+    results; ``long_form_eval`` (beam 5, best_of 5) of two files; the
+    harness's command line in its own process on an ``.npz`` of the same
+    weights, against the same run in this process; fp32 ``validate`` on
+    the card against the CPU, then small.en's; the trainer's in-loop eval
+    (sync, async), profiler and cast-moment Adam."""
+    from olmoasr_tpu_torch import build_model, load_model
+    from olmoasr_tpu_torch.eval import harness
+    from olmoasr_tpu_torch.training import checkpoint as ckpt_mod
+    from olmoasr_tpu_torch.training import train as train_mod
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "eval")
+        audio_s = _eval_tree(tree)
+        model = byte_vocabulary(build_model("small.en", seed=0, device="cuda",
+                                            dtype=torch.bfloat16))
+        L = model.dims.n_text_layer
+        harness.short_form_eval(model, "librispeech_clean", tree, batch_size=4,
+                                max_samples=4)  # warm-up: FFT plans, the first launches
+        for kv_quant, label, route in ((False, "short_form_bf16", "split"),
+                                       (True, "short_form_int8", "sc")):
+            result, counts, steps, parts = _timed_short_form(model, tree, kv_quant)
+            wall = result.wall_seconds
+            host = parts["normalizer"] + parts["wer"] + parts["audio_and_copy"]
+            print(f"eval: {label}, small.en, {result.n_samples} utterances, "
+                  f"{result.audio_seconds:.1f} s of audio, batch {EVAL_BATCH}: WER "
+                  f"{result.wer:.4f}, wall {wall:.3f} s, RTFx {result.rtfx:.1f}; decode "
+                  f"{parts['decode']:.3f} s, card log-mel {parts['log_mel']:.3f} s, host "
+                  f"{host:.3f} s ({100 * host / wall:.1f}%: audio and copy "
+                  f"{parts['audio_and_copy']:.3f}, normalizer {parts['normalizer']:.3f}, WER "
+                  f"{parts['wer']:.3f}); {steps} single-token steps; launches "
+                  + ", ".join(f"{k} {counts[k]}" for k in (
+                      "ln_matmul", "self_attend_decode", "matmul_residual",
+                      "cross_block_decode", "mlp_block", "layer_block_decode")))
+            _check_decode_counts(label, counts, steps, L, route=route)
+            if counts["train_attention_fwd"] != model.dims.n_audio_layer * 2:
+                fail(f"{label}: encoder attention launched {counts['train_attention_fwd']} times "
+                     f"for 2 batches")
+            flips = _check_eval_result(label, result, tree, audio_s, model, kv_quant,
+                                       os.path.join(tmp, "results"))
+            out[label] = {"wer": result.wer, "wall_s": wall, "rtfx": result.rtfx,
+                          "parts_s": parts, "host_share": host / wall, "steps": steps,
+                          "padded_last_batch_flips": flips}
+            out["launches"][label] = counts
+
+        _reset_counts()
+        result = harness.long_form_eval(model, "longset", tree)
+        counts, steps = _read_counts()
+        print(f"eval: long_form_eval (beam 5, best_of 5), {result.n_samples} files, "
+              f"{result.audio_seconds:.0f} s: WER {result.wer:.4f}, wall "
+              f"{result.wall_seconds:.3f} s, {result.rtfx:.2f} audio-s/s; launches "
+              f"cross_block_decode {counts['cross_block_decode']} (group_kernel "
+              f"{counts['cross_block_decode_group']}), self_attend_decode "
+              f"{counts['self_attend_decode']} (ancestry {counts['self_attend_decode_beam']})")
+        if result.n_samples != 2 or result.audio_seconds != sum(EVAL_LONG_SECONDS) \
+                or not counts["cross_block_decode_group"] or not counts["self_attend_decode_beam"]:
+            fail(f"long_form_eval: {result.n_samples} files, {result.audio_seconds} s, "
+                 f"launches {counts}")
+        out["long_form"] = {"wer": result.wer, "wall_s": result.wall_seconds,
+                            "audio_s_per_s": result.rtfx}
+        out["launches"]["long_form"] = counts
+
+        npz = os.path.join(tmp, "eval.npz")
+        ckpt_mod.save_eval_checkpoint(npz, train_mod.TrainState(model, None), model.dims)
+        del model
+        torch.cuda.empty_cache()
+        cli_out = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        proc = _run([sys.executable, "-m", "olmoasr_tpu_torch.eval.harness", "--eval_set",
+                     "librispeech_clean", "--eval_dir", tree, "--ckpt", npz, "--out_dir",
+                     cli_out, "--max_samples", str(EVAL_CLI_SAMPLES), "--batch_size",
+                     str(EVAL_CLI_SAMPLES), "--device", "cuda"], 600)
+        cli_s = time.perf_counter() - t0
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        mine = harness.short_form_eval(load_model(npz, device="cuda"), "librispeech_clean", tree,
+                                       batch_size=EVAL_CLI_SAMPLES, max_samples=EVAL_CLI_SAMPLES)
+        harness.write_results(mine, os.path.join(tmp, "mine"), "eval.npz")
+        csvs = []
+        for d in (cli_out, os.path.join(tmp, "mine")):
+            with open(os.path.join(d, "librispeech_clean_eval.npz_per_sample.csv")) as f:
+                csvs.append(f.read())
+        print(f"eval: the harness CLI in its own process on {EVAL_CLI_SAMPLES} utterances: "
+              f"{cli_s:.1f} s, WER {last['wer']:.4f}; per-sample rows equal to this "
+              f"process's: {csvs[0] == csvs[1]}")
+        if csvs[0] != csvs[1] or last["wer"] != mine.wer or last["n_samples"] != mine.n_samples:
+            fail(f"harness CLI: {last} against {mine.to_dict()}, per-sample rows equal: "
+                 f"{csvs[0] == csvs[1]}")
+        out["cli_s"] = cli_s
+
+        out["validate_fp32"] = _validate_fp32()
+        shards = write_shards(tmp, n=64)
+        out["validate_small"] = _validate_small(shards)
+        out["trainer"] = _trainer_options(shards, tree, tmp)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --ab: the kernels of two trees on the same inputs
 # ---------------------------------------------------------------------------
 
@@ -3184,6 +3666,7 @@ def main() -> None:
     training_flash = timed(phase_training_flash)
     timed(phase_train_fp32)
     timed(phase_entry_points)
+    evaluation = timed(phase_eval)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax",
                                                                    "olmoasr_tpu"))
     if leaked:
@@ -3245,6 +3728,7 @@ def main() -> None:
                                          for k in ("B=1", "B=8")},
             "launches_training_flash_step": training_flash["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
+            "launches_eval": {k: v[name] for k, v in evaluation["launches"].items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "ms_spin": main_case["ms_spin"],
             "plain_ms": main_case["plain_ms"],

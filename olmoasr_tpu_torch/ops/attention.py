@@ -23,8 +23,10 @@ raises; a CPU tensor runs the plain PyTorch twin below. There is no
 fallback from one to the other. Each
 wrapper counts its launches in ``<function>.launches``;
 ``self_attend_decode.beam_launches`` counts those with an ancestry map,
-``self_attend_decode.q8_launches`` those over int8 rings and
-``layer_block_decode.mlp_launches`` those of the whole layer.
+``self_attend_decode.q8_launches`` those over int8 rings,
+``cross_block_decode.group_launches`` those with ``kv_group > 1`` (the
+attention's ``group_kernel``) and ``layer_block_decode.mlp_launches`` those
+of the whole layer.
 
 Precision contract, shared by kernel and twin: LayerNorm in fp32 (eps 1e-5),
 operands of every product rounded to the weight type, products accumulated
@@ -492,10 +494,12 @@ def cross_block_decode(
     out = torch.empty_like(x)
     (_proj if bf16 else _linear)(lib, stream, attn, wo, bo, out.view(B, D), resid=x.view(B, D))
     cross_block_decode.launches += 1
+    cross_block_decode.group_launches += kv_group > 1
     return out
 
 
 cross_block_decode.launches = 0
+cross_block_decode.group_launches = 0  # the launches with kv_group > 1 (group_kernel)
 
 
 # ---------------------------------------------------------------------------

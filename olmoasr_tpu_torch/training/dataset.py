@@ -20,8 +20,8 @@ Host-side throughput: a prefetch thread feeds batches shaped
 A copy of ``olmoasr_tpu/training/dataset.py`` on the port's own copies of the
 tokenizer, the transcript reader and the audio helpers (the port imports
 nothing of the JAX package); ``tests/test_torch_training.py`` holds its
-batches bit-equal to the original's, with and without ``device_mel``. Not
-ported yet: ``YodasDataset``.
+batches bit-equal to the original's, with and without ``device_mel``, and
+``YodasDataset`` / ``load_yodas_rows`` to the originals'.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from olmoasr_tpu_torch.audio import load_audio, log_mel_spectrogram_np, pad_or_t
 from olmoasr_tpu_torch.data.transcripts import TranscriptReader
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
 from olmoasr_tpu_torch.tokenizer import Tokenizer, get_tokenizer
-from olmoasr_tpu_torch.utils import convert_to_milliseconds
+from olmoasr_tpu_torch.utils import convert_to_milliseconds, convert_to_timestamp
 
 
 def convert_to_token_idx(timestamp: Union[str, int], timestamp_begin: int) -> Optional[int]:
@@ -300,6 +300,61 @@ class AudioTextDataset:
             "padding_mask": padding_mask,
             "timestamp_mode": np.asarray(timestamp_mode),
         }
+
+
+class YodasDataset(AudioTextDataset):
+    """YODAS-format training dataset (rebuild of the data side of
+    ``scripts/training/train_yodas.py``): rows carry ``audio``
+    (path/array), ``text`` (list of utterance strings), ``ts`` (list of
+    (start, end) seconds), ``utt_id``, ``dur``. Reuses the same 50%
+    timestamp-mode token construction by converting rows to cue transcripts."""
+
+    def __init__(self, rows: Sequence[Dict], n_text_ctx: int = 448, **kw):
+        samples = []
+        for row in rows:
+            transcript = {
+                (
+                    _s_to_ts(float(s)),
+                    _s_to_ts(float(e)),
+                ): text
+                for (s, e), text in zip(row["ts"], row["text"])
+            }
+            samples.append(
+                Sample(
+                    audio=row["audio"],
+                    transcript=transcript,
+                    norm_end=int(float(row.get("dur", 30.0)) * 1000),
+                )
+            )
+        super().__init__(samples, n_text_ctx, **kw)
+
+
+def _s_to_ts(seconds: float) -> str:
+    return convert_to_timestamp(int(seconds * 1000))
+
+
+def load_yodas_rows(paths: Sequence[str]) -> List[Dict]:
+    """Read YODAS rows from jsonl(.gz) (as written by data/yodas.py) or from
+    HF-datasets Arrow files when pyarrow is available."""
+    rows: List[Dict] = []
+    for path in paths:
+        if path.endswith((".jsonl", ".jsonl.gz")):
+            opener = gzip.open if path.endswith(".gz") else open
+            with opener(path, "rt", encoding="utf-8") as f:
+                for line in f:
+                    if line.strip():
+                        r = json.loads(line)
+                        if "audio" not in r and "seg_id" in r:
+                            r["audio"] = r["seg_id"] + ".npy"
+                        rows.append(r)
+        else:
+            import pyarrow as pa
+
+            with pa.memory_map(path) as source:
+                reader = pa.ipc.open_stream(source)
+                for batch in reader:
+                    rows.extend(batch.to_pylist())
+    return rows
 
 
 def load_jsonl_samples(paths: Sequence[str]) -> List[Sample]:

@@ -13,7 +13,10 @@ package builds it: the clip scales by ``max_norm / norm`` only when
 and leaves the parameters as they were, while the moments move.
 ``torch.optim.AdamW`` over one parameter group computes the same update
 (``p - lr * (adam + wd * p)``) when its learning rate is set so before each
-step. ``attention`` picks the attention kernels, ``"kernel"`` or ``"flash"``
+step. With ``mu_dtype`` or ``nu_dtype`` set, :class:`CastMomentAdamW` takes
+its place: the JAX package's ``_scale_by_adam_cast`` chain (both set) or
+``optax.adamw(mu_dtype=...)`` (``mu_dtype`` alone). ``attention`` picks the
+attention kernels, ``"kernel"`` or ``"flash"``
 (``models.whisper.forward_train``): the JAX package picks them with its
 ``OLMOASR_ENC_ATTN`` / ``OLMOASR_DEC_ATTN`` / ``OLMOASR_TRAIN_FLASH_DEC``
 switches. Not ported, because they tune the TPU: ``encoder_flash`` /
@@ -48,8 +51,9 @@ class TrainConfig:
     warmup_frac: float = 0.002  # warmup = 0.2% of steps (train_timestamps.py:770)
     remat: bool = True
     compute_dtype: Any = torch.bfloat16
-    # moment storage dtypes; None = the parameters' fp32 (the JAX package's
-    # _scale_by_adam_cast for other dtypes is not ported yet)
+    # Adam's moment storage dtypes (CastMomentAdamW); None = the parameters'
+    # fp32, the reference's exact recipe. A bf16 mu and nu halve the
+    # optimizer state; the moment arithmetic stays fp32, cast on store.
     mu_dtype: Any = None
     nu_dtype: Any = None
     attention: str = "kernel"  # "kernel" (ops.train_attention) or "flash" (ops.flash)
@@ -84,22 +88,89 @@ def lr_schedule(config: TrainConfig):
     return fn
 
 
-def make_optimizer(config: TrainConfig, params) -> torch.optim.AdamW:
+class CastMomentAdamW(torch.optim.Optimizer):
+    """Adam with its moments stored in ``mu_dtype`` / ``nu_dtype`` (None: the
+    parameter's dtype), then the decayed weights, then the learning rate:
+    ``p -= lr * (adam + weight_decay * p)``, the arithmetic in fp32.
+
+    Where ``nu_dtype`` is set (``cast_update``, the JAX package's
+    ``_scale_by_adam_cast``) the update reads the moments as stored,
+    ``(mu/bc1) / (sqrt(nu/bc2) + eps)``. With ``mu_dtype`` alone
+    (``optax.adamw(mu_dtype=...)``) it reads the fp32 moments before their cast
+    to storage, and mu's decay term ``b1 * mu`` is computed in ``mu_dtype``,
+    ``b1`` rounded to it, as jax computes a Python scalar times an array.
+    Clipping is the train step's (:func:`clip_by_global_norm`). The learning
+    rate is the group's ``lr``, which the train step sets before each
+    step."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.98), eps: float = 1e-6,
+                 weight_decay: float = 0.1, mu_dtype=None, nu_dtype=None):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+        self.cast_update = nu_dtype is not None
+
+    def load_state_dict(self, state_dict):
+        """``torch.optim.Optimizer`` casts loaded moments to the parameters'
+        dtype; put them back in their storage dtypes."""
+        super().load_state_dict(state_dict)
+        for p, st in self.state.items():
+            for key, dtype in (("exp_avg", self.mu_dtype), ("exp_avg_sq", self.nu_dtype)):
+                if key in st:
+                    st[key] = st[key].to(dtype or p.dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        f32 = torch.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                st["step"] += 1
+                g = p.grad.to(f32)
+                mu, nu = st["exp_avg"], st["exp_avg_sq"]
+                if self.cast_update:
+                    mu_new = b1 * mu.to(f32) + (1 - b1) * g
+                else:  # optax: (1 - b1) * g + b1 * mu, b1 * mu in mu's dtype
+                    mu_new = (1 - b1) * g + (mu * torch.tensor(b1, dtype=mu.dtype)).to(f32)
+                nu_new = b2 * nu.to(f32) + (1 - b2) * g.square()
+                mu.copy_(mu_new)
+                nu.copy_(nu_new)
+                if self.cast_update:
+                    mu_new, nu_new = mu.to(f32), nu.to(f32)
+                c = np.float32(st["step"])
+                bc1 = float(np.float32(1) - np.float32(b1) ** c)
+                bc2 = float(np.float32(1) - np.float32(b2) ** c)
+                update = (mu_new / bc1) / ((nu_new / bc2).sqrt() + group["eps"])
+                update = update + group["weight_decay"] * p.to(f32)
+                p.add_((-group["lr"] * update).to(p.dtype))
+
+
+def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
+    """The reference's AdamW (``torch.optim.AdamW``), or
+    :class:`CastMomentAdamW` where ``mu_dtype`` or ``nu_dtype`` is set, as
+    the JAX ``make_optimizer`` branches (train.py:103-160)."""
+    kw = dict(lr=0.0, betas=(config.beta1, config.beta2), eps=config.eps,
+              weight_decay=config.weight_decay)
     if config.mu_dtype is not None or config.nu_dtype is not None:
-        raise NotImplementedError("mu_dtype / nu_dtype: the cast-moment Adam is not ported")
-    return torch.optim.AdamW(
-        list(params), lr=0.0, betas=(config.beta1, config.beta2), eps=config.eps,
-        weight_decay=config.weight_decay,
-    )
+        return CastMomentAdamW(list(params), mu_dtype=config.mu_dtype,
+                               nu_dtype=config.nu_dtype, **kw)
+    return torch.optim.AdamW(list(params), **kw)
 
 
 def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: torch.Tensor,
             padding_mask: Optional[torch.Tensor], *, compute_dtype=torch.bfloat16,
-            remat: bool = True, attention: str = "kernel"):
+            remat: bool = True, attention: str = "kernel", return_pred: bool = False):
     """Teacher-forced cross entropy that ignores PADDING_TOKEN
     (train_timestamps.py:1444-1450), as logsumexp minus the target's logit;
     returns (loss, aux) with the teacher-forced ``accuracy`` and
-    ``n_tokens``.
+    ``n_tokens``, and with ``return_pred`` the (B, T) argmax ids ``pred``
+    (validation reads these instead of the logits).
 
     A (B, 480000) ``mel`` is the ``device_mel`` transport's raw 30 s PCM
     (int16, or f32): its log-mel is computed here on the batch's device, in
@@ -120,11 +191,25 @@ def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: tor
     loss = torch.where(valid, nll, 0.0).sum() / n_valid
     pred = logits.argmax(dim=-1)
     aux = {"accuracy": ((pred == target) & valid).sum() / n_valid, "n_tokens": n_valid}
+    if return_pred:
+        aux["pred"] = pred
     return loss, aux
 
 
 def global_norm(tensors) -> torch.Tensor:
     return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+
+
+def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: ``g / norm * max_norm`` when
+    ``norm >= max_norm``. Returns the norm before clipping."""
+    norm = global_norm(grads)
+    clipped = norm >= max_norm
+    div = torch.where(clipped, norm, 1.0)
+    mul = torch.where(clipped, max_norm, 1.0)
+    for g in grads:
+        g.div_(div).mul_(mul)
+    return norm
 
 
 def make_train_step(dims: ModelDimensions, config: TrainConfig):
@@ -156,13 +241,7 @@ def make_train_step(dims: ModelDimensions, config: TrainConfig):
         if n_accum > 1:
             for g in grads:
                 g.div_(n_accum)
-        norm = global_norm(grads)
-        # optax.clip_by_global_norm: g / norm * max_norm when norm >= max_norm
-        clipped = norm >= config.max_grad_norm
-        div = torch.where(clipped, norm, 1.0)
-        mul = torch.where(clipped, config.max_grad_norm, 1.0)
-        for g in grads:
-            g.div_(div).mul_(mul)
+        norm = clip_by_global_norm(grads, config.max_grad_norm)
         lr = schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr

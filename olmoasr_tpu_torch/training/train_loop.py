@@ -9,29 +9,89 @@ train_timestamps.py main/train orchestration):
   * checkpoints: periodic ``step_<N>/`` pruned to the latest, resume by
     experiment name; NaN alert with the offending step
   * metrics: the same train/* and efficiency/* names as the JAX loop
+  * evaluation every ``eval_every`` steps: ``sync`` decodes the eval set in
+    this process (greedy short-form WER, ``best.npz`` on a new best),
+    ``async`` saves ``eval_<step>.npz`` and spawns the port's eval harness
+    on it (train_timestamps.py:1835-2089)
+  * ``profile_dir``: a ``torch.profiler`` trace of steps
+    ``profile_steps[0]`` to ``profile_steps[1]`` of this run
 
 Runs on ``cuda`` unless the caller asks for another device (the tests run it
 on the CPU at micro dims). ``device_mel`` ships each sample's 30 s PCM
 instead of its log-mel and computes the log-mel in the train step on the
-device (``train.loss_fn``). Not ported yet, and raising: FSDP
-(``fsdp_size != 1``), in-loop evaluation (``eval_every > 0``) and profiling
-(``profile_dir``).
+device (``train.loss_fn``). ``mu_dtype`` / ``nu_dtype`` store Adam's moments
+in another dtype (``train.CastMomentAdamW``). Not ported yet, and raising:
+FSDP (``fsdp_size != 1``).
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Any, Dict, Optional
+import subprocess
+import sys
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS, ModelDimensions
 from olmoasr_tpu_torch.training import checkpoint as ckpt_mod
 from olmoasr_tpu_torch.training import train as train_mod
 from olmoasr_tpu_torch.training.dataset import AudioTextDataset, BatchLoader, load_jsonl_samples
 from olmoasr_tpu_torch.training.logging_utils import MetricsLogger, StepTimer
+
+
+def run_async_eval(eval_ckpt_path: str, eval_set: str, eval_dir: str, out_dir: str,
+                   device: str = "cuda") -> subprocess.Popen:
+    """Spawn the port's eval harness on ``eval_ckpt_path``
+    (train_timestamps.py:2013-2089), on ``device``. The JAX package sends
+    this process to the host CPU because a TPU cannot be shared between
+    processes; a GPU can, so it evaluates on the trainer's own device."""
+    cmd = [
+        sys.executable, "-m", "olmoasr_tpu_torch.eval.harness",
+        "--eval_set", eval_set, "--eval_dir", eval_dir,
+        "--ckpt", eval_ckpt_path, "--out_dir", out_dir, "--device", str(device),
+    ]
+    env = dict(os.environ)
+    # the harness of the checkout this trainer runs from
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (root, env.get("PYTHONPATH"))))
+    return subprocess.Popen(cmd, env=env)
+
+
+def run_sync_eval(state: "train_mod.TrainState", dims: ModelDimensions, eval_set: str,
+                  eval_dir: str, *, batch_size: int = 16,
+                  max_samples: Optional[int] = None) -> float:
+    """Synchronous in-loop eval with real ``model.decode`` (the reference's
+    ``evaluate()``, train_timestamps.py:1835-2089): batched greedy
+    short-form WER of an inference model built from the current weights
+    (the padding row stripped), on the training device. Returns the corpus
+    WER (fraction)."""
+    from olmoasr_tpu_torch.api import _new_model
+    from olmoasr_tpu_torch.eval.harness import short_form_eval
+    from olmoasr_tpu_torch.models import convert as convert_mod
+
+    device = next(state.model.parameters()).device
+    model = _new_model(dims, False, device, torch.float32)
+    with torch.no_grad():
+        model.load_state_dict(convert_mod.strip_padding_row(state.model.state_dict()))
+    result = short_form_eval(model.eval(), eval_set, eval_dir, batch_size=batch_size,
+                             max_samples=max_samples)
+    return float(result.wer)
+
+
+def _dtype(name):
+    """A dtype from its torch name (``"bfloat16"``), as the CLI passes it."""
+    return getattr(torch, name) if isinstance(name, str) else name
+
+
+def _stop_profile(prof, profile_dir: str, steps: Tuple[int, int]) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_steps_{steps[0]}_{steps[1]}.json"))
 
 
 def main(
@@ -49,21 +109,29 @@ def main(
     ckpt_every: int = 1000,
     log_every: int = 20,
     eval_every: int = 0,
+    eval_mode: str = "async",  # "async" subprocess | "sync" in-loop decode
+    eval_set: str = "librispeech_clean",
+    eval_dir: str = "eval_data",
+    eval_max_samples: Optional[int] = None,
     seed: int = 42,
     device_mel: bool = False,
     max_steps_this_run: Optional[int] = None,
     profile_dir: Optional[str] = None,
+    profile_steps: Tuple[int, int] = (10, 15),
     device: str = "cuda",
     attention: str = "kernel",
+    mu_dtype: Optional[str] = None,
+    nu_dtype: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Train an OLMoASR variant. Returns the last logged metrics and
     ``global_step``. ``attention`` is ``TrainConfig.attention``: the
-    attention kernels, ``"kernel"`` or ``"flash"``."""
-    for unported, what in ((fsdp_size != 1, "fsdp_size != 1 (FSDP)"),
-                           (eval_every > 0, "eval_every > 0 (in-loop evaluation)"),
-                           (profile_dir, "profile_dir")):
-        if unported:
-            raise NotImplementedError(f"{what} is not ported to the GPU trainer yet")
+    attention kernels, ``"kernel"`` or ``"flash"``; ``mu_dtype`` /
+    ``nu_dtype`` are ``TrainConfig``'s, a torch dtype or its name
+    (``"bfloat16"``). The profiler traces from step ``start +
+    profile_steps[0]`` up to ``start + profile_steps[1]`` (or the run's end)
+    and writes a Chrome trace into ``profile_dir``."""
+    if fsdp_size != 1:
+        raise NotImplementedError("fsdp_size != 1 (FSDP) is not ported to the GPU trainer yet")
     exp_name = exp_name or f"{variant.replace('.', '_')}_bs{eff_batch_size}"
     dims = VARIANT_TO_DIMS[variant] if isinstance(variant, str) else variant
 
@@ -73,7 +141,7 @@ def main(
     config = train_mod.TrainConfig(
         train_steps=train_steps, eff_batch_size=eff_batch_size,
         micro_batch_size=micro_batch_size, peak_lr=peak_lr, remat=remat,
-        attention=attention,
+        attention=attention, mu_dtype=_dtype(mu_dtype), nu_dtype=_dtype(nu_dtype),
     )
     state, meta, manager = ckpt_mod.resume_or_init(
         os.path.join(ckpt_dir, exp_name),
@@ -96,12 +164,23 @@ def main(
     global_step = start_step
     epoch = int(meta.get("epoch", 0))
     final_metrics: Dict[str, Any] = {}
+    eval_proc: Optional[subprocess.Popen] = None
+    prof = None
     stop = False
     while global_step < train_steps and not stop:
         loader.set_epoch(epoch)
         timer.start("dataloader")
         for batch in loader:
             timer.stop("dataloader")
+            if profile_dir and global_step == start_step + profile_steps[0]:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if torch.device(device).type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            if prof is not None and global_step == start_step + profile_steps[1]:
+                _stop_profile(prof, profile_dir, profile_steps)
+                prof = None
             timer.start("step")
             state, metrics = step_fn(
                 state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
@@ -127,6 +206,32 @@ def main(
             if ckpt_every and global_step % ckpt_every == 0:
                 manager.save(global_step, state, dims, epoch=epoch, best_eval_wer=best_eval_wer)
 
+            if eval_every and global_step % eval_every == 0:
+                if eval_mode == "sync":
+                    # in-loop model.decode WER with best-checkpoint gating
+                    # (train_timestamps.py:1835-2089); a failed eval (missing
+                    # eval data, say) is reported and does not stop the run
+                    wer = None
+                    try:
+                        wer = run_sync_eval(state, dims, eval_set, eval_dir,
+                                            max_samples=eval_max_samples)
+                    except Exception as e:
+                        logger.alert("sync eval failed", str(e))
+                    if wer is not None:
+                        logger.log({"eval/wer": wer}, step=global_step)
+                        final_metrics["eval/wer"] = wer
+                        if best_eval_wer is None or wer < best_eval_wer:
+                            best_eval_wer = wer
+                            ckpt_mod.save_eval_checkpoint(
+                                os.path.join(ckpt_dir, exp_name, "best.npz"), state, dims)
+                else:
+                    eval_ckpt = os.path.join(ckpt_dir, exp_name, f"eval_{global_step}.npz")
+                    ckpt_mod.save_eval_checkpoint(eval_ckpt, state, dims)
+                    if eval_proc is None or eval_proc.poll() is not None:
+                        eval_proc = run_async_eval(eval_ckpt, eval_set, eval_dir,
+                                                   os.path.join("eval_results", exp_name),
+                                                   device)
+
             if max_steps_this_run and global_step - start_step >= max_steps_this_run:
                 stop = True
                 break
@@ -138,6 +243,8 @@ def main(
             epoch += 1
             continue
 
+    if prof is not None:  # the run ended inside the traced steps
+        _stop_profile(prof, profile_dir, profile_steps)
     manager.save(global_step, state, dims, epoch=epoch, best_eval_wer=best_eval_wer)
     logger.close()
     final_metrics["global_step"] = global_step
@@ -145,12 +252,15 @@ def main(
 
 
 def build_cli_parser():
-    """Flags from the main() signature, as the JAX loop's CLI builds them."""
+    """Flags from the main() signature, as the JAX loop's CLI builds them
+    (``profile_steps``, a tuple, is left at its default)."""
     import argparse
     import inspect
 
     parser = argparse.ArgumentParser(description="OLMoASR training on one GPU")
     for name, p in inspect.signature(main).parameters.items():
+        if isinstance(p.default, tuple):
+            continue  # not expressible as one flag
         if isinstance(p.default, bool):
             parser.add_argument(f"--{name}", type=lambda s: s.lower() in ("1", "true", "yes"),
                                 default=p.default)

@@ -8,8 +8,9 @@ setup(
     packages=find_packages(
         include=["olmoasr_tpu", "olmoasr_tpu.*", "olmoasr", "olmoasr_tpu_torch*"]
     ),
-    # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"olmoasr_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch/CUDA port builds its kernels from these sources at first use;
+    # its normalizer reads its own spelling asset
+    package_data={"olmoasr_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "assets/english.json"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "regex", "scipy", "optax"],
     entry_points={

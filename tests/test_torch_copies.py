@@ -159,3 +159,47 @@ def test_token_building():
                 want = jds.build_tokens(tr, j, norm_end, rng=np.random.default_rng(seed))
                 got = tds.build_tokens(tr, t, norm_end, rng=np.random.default_rng(seed))
                 assert got == want, (norm_end, seed, bool(tr))
+
+
+def test_yodas_rows_and_batches(tmp_path):
+    """``load_yodas_rows`` on a jsonl.gz of seeded rows (one naming its audio
+    by ``seg_id``), then ``YodasDataset`` batches, bit-equal to the JAX
+    package's."""
+    import gzip
+    import json
+
+    rng = np.random.default_rng(7)
+    rows = []
+    for i in range(6):
+        wav = (rng.standard_normal(int(16000 * rng.uniform(2, 8))) * 2000).astype(np.int16)
+        np.save(tmp_path / f"seg{i}.npy", wav)
+        t, ts, text = 0.0, [], []
+        for _ in range(int(rng.integers(1, 4))):
+            start, t = t, t + float(rng.uniform(0.3, 2.0))
+            ts.append([round(start, 3), round(t, 3)])
+            text.append(" ".join(rng.choice(["yodas", "speech", "rows", "again"], 3)))
+        row = {"text": text, "ts": ts, "utt_id": f"u{i}", "dur": round(t + 0.5, 3)}
+        if i == 0:
+            row["seg_id"] = str(tmp_path / "seg0")
+        else:
+            row["audio"] = str(tmp_path / f"seg{i}.npy")
+        rows.append(row)
+    path = str(tmp_path / "yodas.jsonl.gz")
+    with gzip.open(path, "wt") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n\n")
+    got, want = tds.load_yodas_rows([path]), jds.load_yodas_rows([path])
+    assert got == want and len(got) == 6 and got[0]["audio"].endswith("seg0.npy")
+    for seconds in (0.0, 1.2345, 61.5):
+        assert tds._s_to_ts(seconds) == jds._s_to_ts(seconds)
+    loaders = [mod.BatchLoader(mod.YodasDataset(mod.load_yodas_rows([path]), 448, seed=3),
+                               micro_batch_size=2, accum_steps=1, seed=3, prefetch=0)
+               for mod in (jds, tds)]
+    for epoch in (0, 1):
+        for loader in loaders:
+            loader.set_epoch(epoch)
+        batches = [list(loader) for loader in loaders]
+        assert len(batches[0]) == len(batches[1]) == 3
+        for w, g in zip(*batches):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), (epoch, k)

@@ -49,16 +49,20 @@ def test_port_never_imports_jax():
     assert "olmoasr_tpu_torch.transcribe" in names and "olmoasr_tpu_torch.serve" in names
     for name in ("training.train", "training.train_loop", "training.dataset",
                  "training.checkpoint", "training.logging_utils", "data.transcripts",
-                 "tokenizer", "writers", "utils", "models.dims"):
+                 "tokenizer", "writers", "utils", "models.dims", "training.validate",
+                 "eval.harness", "eval.datasets", "eval.wer", "eval.analysis", "eval.figures",
+                 "normalizers", "normalizers.english", "normalizers.basic",
+                 "normalizers.build_spelling"):
         assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 
 
 def test_entry_points_import_no_jax():
-    """The server module, the trainer and ``python -m
+    """The server module, the trainer, the eval harness and ``python -m
     olmoasr_tpu_torch.transcribe --help``."""
     _assert_imports_no_jax(["olmoasr_tpu_torch.serve"])
     _assert_imports_no_jax(["olmoasr_tpu_torch.training.train_loop"])
+    _assert_imports_no_jax(["olmoasr_tpu_torch.eval.harness", "olmoasr_tpu_torch.normalizers"])
     code = (
         "import runpy, sys\n"
         "sys.argv = ['transcribe', '--help']\n"

@@ -7,7 +7,12 @@ bit-equal to the JAX loader's, and ``train_loop.main`` with resume and the
 bit-equal to the JAX loader's (int16 and f32 sources), ``loss_fn`` and every
 gradient from int16 PCM against JAX's ``loss_fn`` from the same PCM (its
 conv-DFT log-mel against the port's ``torch.stft``, the log-mels 2.5e-6
-apart at most), and ``train_loop.main(device_mel=True)``.
+apart at most), and ``train_loop.main(device_mel=True)``. The cast-moment
+Adam (``mu_dtype`` / ``nu_dtype``) over three clipped updates against the
+JAX ``make_optimizer`` chain, and ``train_loop.main``'s in-loop evaluation
+(sync with its best-WER gate and a failing eval, a real sync eval, async
+through the port's harness in its own process), its profiler trace and its
+bf16 moments through a checkpoint.
 
 The JAX side runs its Pallas attention kernels in interpret mode: the
 decoder through ``OLMOASR_DEC_ATTN=kernel_interpret``, the encoder by
@@ -55,6 +60,7 @@ from olmoasr_tpu_torch.training import train as ttrain
 MICRO = dict(n_mels=80, n_audio_ctx=40, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
              n_vocab=51864, n_text_ctx=24, n_text_state=128, n_text_head=2, n_text_layer=2)
 TOL, GRAD_TOL = 2e-4, 4e-3
+CAST_TOL = 1e-3  # CastMomentAdamW's parameters against JAX's, x the peak learning rate
 ACCUM, MICRO_B, STEPS = 2, 2, 3
 
 
@@ -217,6 +223,55 @@ def test_three_accumulated_steps_match_jax(jax_kernels, params):
     assert state.step == STEPS and float(m["lr"]) > 0
 
 
+@pytest.mark.parametrize("moments", ["mu and nu bf16", "mu bf16"])
+def test_cast_moment_adam_matches_jax(moments):
+    """Three clipped updates of ``CastMomentAdamW`` against the JAX
+    ``make_optimizer`` chain on the same parameters and gradients: its
+    ``_scale_by_adam_cast`` with both moments in bf16, and
+    ``optax.adamw(mu_dtype=bf16)`` with mu alone. Moments stored in bf16
+    and JAX's within 2^-9 of their largest; parameters within CAST_TOL x the
+    peak learning rate (1.2e-4 x is seen; reading mu before its bf16 cast
+    where JAX reads it after, or the other way round, gives 6e-3 to 1.6e-2
+    x)."""
+    import optax
+
+    nu = jnp.bfloat16 if moments == "mu and nu bf16" else None
+    jcfg = jtrain.TrainConfig(train_steps=10, peak_lr=1e-3, mu_dtype=jnp.bfloat16, nu_dtype=nu)
+    tcfg = ttrain.TrainConfig(train_steps=10, peak_lr=1e-3, mu_dtype=torch.bfloat16,
+                              nu_dtype=torch.bfloat16 if nu else None)
+    rng = np.random.default_rng(0)
+    shapes = {"w": (60, 50), "b": (50,), "e": (70, 30)}
+    p0 = {k: rng.standard_normal(v).astype(np.float32) for k, v in shapes.items()}
+    opt = jtrain.make_optimizer(jcfg)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    jstate = opt.init(jp)
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in p0.items()}
+    topt = ttrain.make_optimizer(tcfg, tp.values())
+    assert isinstance(topt, ttrain.CastMomentAdamW) and topt.cast_update == (nu is not None)
+    schedule = ttrain.lr_schedule(tcfg)
+    for step, scale in enumerate((3.0, 0.1, 1.0)):  # clipped, not, not
+        grads = {k: (rng.standard_normal(v) * scale / 4).astype(np.float32)
+                 for k, v in shapes.items()}
+        updates, jstate = opt.update({k: jnp.asarray(g) for k, g in grads.items()}, jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(grads[k].copy())
+        ttrain.clip_by_global_norm([p.grad for p in tp.values()], tcfg.max_grad_norm)
+        topt.param_groups[0]["lr"] = schedule(step)
+        topt.step()
+        adam = jstate[1] if nu is not None else jstate[1][0]
+        for k, p in tp.items():
+            st = topt.state[p]
+            assert st["exp_avg"].dtype == torch.bfloat16
+            assert st["exp_avg_sq"].dtype == (torch.bfloat16 if nu else torch.float32)
+            for mine, theirs in ((st["exp_avg"], adam.mu[k]), (st["exp_avg_sq"], adam.nu[k])):
+                want = np.asarray(theirs, np.float32)
+                assert np.abs(mine.float().numpy() - want).max() <= 2 ** -9 * np.abs(want).max()
+            diff = np.abs(p.detach().numpy() - np.asarray(jp[k])).max()
+            assert diff <= CAST_TOL * tcfg.peak_lr, (step, k, diff)
+    assert schedule(2) > 0 and not np.array_equal(np.asarray(jp["w"]), p0["w"])
+
+
 # ---------------------------------------------------------------------------
 # the loader and the entry point
 # ---------------------------------------------------------------------------
@@ -377,13 +432,146 @@ def test_train_loop_with_device_mel(shard_dir, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
+    """Only FSDP still raises; the cast-moment Adam is there."""
     from olmoasr_tpu_torch.training import train_loop
 
-    for kw in ({"fsdp_size": 2}, {"eval_every": 1}, {"profile_dir": "p"}):
-        with pytest.raises(NotImplementedError):
-            train_loop.main(device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        ttrain.make_optimizer(ttrain.TrainConfig(mu_dtype=torch.bfloat16), [])
+        train_loop.main(device="cpu", fsdp_size=2)
+    opt = ttrain.make_optimizer(ttrain.TrainConfig(mu_dtype=torch.bfloat16),
+                                [torch.zeros(2, requires_grad=True)])
+    assert isinstance(opt, ttrain.CastMomentAdamW) and not opt.cast_update
     args = train_loop.build_cli_parser().parse_args(["--max_steps_this_run", "3",
                                                      "--remat", "false"])
     assert args.max_steps_this_run == 3 and args.remat is False and args.device == "cuda"
+    args = train_loop.build_cli_parser().parse_args([
+        "--eval_every", "2", "--eval_mode", "sync", "--eval_max_samples", "7",
+        "--profile_dir", "p", "--mu_dtype", "bfloat16"])
+    assert (args.eval_every, args.eval_mode, args.eval_max_samples) == (2, "sync", 7)
+    assert args.profile_dir == "p" and args.mu_dtype == "bfloat16"
+    assert not hasattr(args, "profile_steps")  # a tuple: left at its default, as in JAX
+    assert args.nu_dtype is None and args.eval_set == "librispeech_clean"
+
+
+def _eval_tree(root, n=2):
+    import scipy.io.wavfile as wavfile
+
+    chap = root / "LibriSpeech" / "test-clean" / "7" / "8"
+    chap.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(n):
+        wavfile.write(str(chap / f"7-8-{i:04d}.wav"), 16000,
+                      (rng.standard_normal(16000 * 3) * 1000).astype(np.int16))
+        lines.append(f"7-8-{i:04d} HELLO WORLD {i}")
+    (chap / "7-8.trans.txt").write_text("\n".join(lines))
+    return str(root)
+
+
+def _loop_kwargs(shard_dir, **kw):
+    return dict(variant=ModelDimensions(**ENTRY), train_shards=str(shard_dir / "*.jsonl.gz"),
+                train_steps=10, eff_batch_size=2, micro_batch_size=2, ckpt_dir="ckpt",
+                ckpt_every=0, log_every=1, device="cpu", **kw)
+
+
+def test_train_loop_sync_eval_best_gating(shard_dir, tmp_path, monkeypatch):
+    """eval_mode="sync", as the JAX test_sync_eval_best_gating: the WER
+    logged, best.npz written on an improvement only, and a failing eval
+    reported without stopping the run."""
+    from olmoasr_tpu_torch import load_model
+    from olmoasr_tpu_torch.training import train_loop
+
+    monkeypatch.chdir(tmp_path)
+    wers = iter([0.5, RuntimeError("no eval data"), 0.7, 0.3])
+    saved = []
+    save = train_loop.ckpt_mod.save_eval_checkpoint
+
+    def fake_eval(state, dims, eval_set, eval_dir, **kw):
+        v = next(wers)
+        if isinstance(v, Exception):
+            raise v
+        return v
+
+    monkeypatch.setattr(train_loop, "run_sync_eval", fake_eval)
+    monkeypatch.setattr(train_loop.ckpt_mod, "save_eval_checkpoint",
+                        lambda path, state, dims: saved.append(state.step)
+                        or save(path, state, dims))
+    metrics = train_loop.main(**_loop_kwargs(shard_dir), exp_name="sync", eval_every=1,
+                              eval_mode="sync", max_steps_this_run=4)
+    assert metrics["eval/wer"] == 0.3 and saved == [1, 4]
+    assert load_model("ckpt/sync/best.npz", device="cpu").dims.to_dict() == ENTRY
+    with open("logs/sync_metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["alert_text"] for r in lines if "alert" in r] == ["no eval data"]
+    assert [r["eval/wer"] for r in lines if "eval/wer" in r] == [0.5, 0.7, 0.3]
+    with open("ckpt/sync/step_4/meta.json") as f:
+        assert json.load(f)["best_eval_wer"] == 0.3
+
+
+def test_train_loop_sync_eval_profile_and_cast_moments(shard_dir, tmp_path, monkeypatch):
+    """A real sync eval (short_form_eval of the training weights over two
+    utterances) whose WER and per-sample hypotheses equal short_form_eval of
+    the best.npz it wrote, the profiler over steps 1-2 of 2 (the trace
+    written when the run ends inside them), bf16 moments kept through the
+    checkpoint. Just before the eval the trained embedding's text rows past
+    the 256 byte tokens are zeroed (the offline tokenizer decodes nothing
+    else), so that the hypotheses have text and a wrong weight transfer
+    shows."""
+    from olmoasr_tpu_torch import load_model
+    from olmoasr_tpu_torch.eval import harness
+    from olmoasr_tpu_torch.training import checkpoint, train_loop
+
+    monkeypatch.chdir(tmp_path)
+    eval_dir = _eval_tree(tmp_path / "eval")
+    evals, sync_eval, short_form = [], train_loop.run_sync_eval, harness.short_form_eval
+
+    def byte_sync_eval(state, *a, **kw):
+        with torch.no_grad():
+            state.model.decoder.token_embedding.weight[256:50256].zero_()
+        state.model.drop_derived()
+        return sync_eval(state, *a, **kw)
+
+    monkeypatch.setattr(train_loop, "run_sync_eval", byte_sync_eval)
+    monkeypatch.setattr(harness, "short_form_eval",
+                        lambda *a, **kw: evals.append(short_form(*a, **kw)) or evals[-1])
+    metrics = train_loop.main(**_loop_kwargs(shard_dir), exp_name="real", eval_every=2,
+                              eval_mode="sync", eval_dir=eval_dir, max_steps_this_run=2,
+                              profile_dir="prof", profile_steps=(1, 5), mu_dtype="bfloat16",
+                              nu_dtype="bfloat16")
+    assert metrics["global_step"] == 2 and os.path.isfile("ckpt/real/best.npz")
+    (got,) = evals
+    want = short_form(load_model("ckpt/real/best.npz", device="cpu"), "librispeech_clean",
+                      eval_dir)
+    assert metrics["eval/wer"] == got.wer == want.wer and want.n_samples == 2
+    assert got.per_sample == want.per_sample and all(r["hyp"] for r in want.per_sample)
+    (trace,) = os.listdir("prof")
+    with open(os.path.join("prof", trace)) as f:
+        assert "aten::" in f.read()
+    dims = ModelDimensions(**ENTRY)
+    cfg = ttrain.TrainConfig(train_steps=10, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16)
+    state, _ = checkpoint.CheckpointManager("ckpt/real").restore(
+        ttrain.init_train_state(42, dims, cfg, device="cpu"))
+    moments = [t.dtype for st in state.optimizer.state.values()
+               for t in (st["exp_avg"], st["exp_avg_sq"])]
+    assert moments and set(moments) == {torch.bfloat16}
+
+
+def test_train_loop_async_eval(shard_dir, tmp_path, monkeypatch):
+    """eval_mode="async": eval_<step>.npz written and the port's harness
+    spawned on it with the trainer's device; its results files appear."""
+    from olmoasr_tpu_torch.training import train_loop
+
+    monkeypatch.chdir(tmp_path)
+    eval_dir = _eval_tree(tmp_path / "eval")
+    procs = []
+    spawn = train_loop.run_async_eval
+    monkeypatch.setattr(train_loop, "run_async_eval",
+                        lambda *a: procs.append(spawn(*a)) or procs[-1])
+    train_loop.main(**_loop_kwargs(shard_dir), exp_name="async", eval_every=1,
+                    eval_dir=eval_dir, max_steps_this_run=1)
+    (proc,) = procs
+    assert proc.wait(timeout=300) == 0
+    assert proc.args[proc.args.index("--device") + 1] == "cpu"
+    assert "olmoasr_tpu_torch.eval.harness" in proc.args
+    assert sorted(os.listdir("eval_results/async")) == [
+        "librispeech_clean_eval_1.npz.json", "librispeech_clean_eval_1.npz.txt",
+        "librispeech_clean_eval_1.npz_per_sample.csv"]
