@@ -2238,7 +2238,7 @@ class LoaderWatch:
 
 
 def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
-                   device_mel: bool = False) -> dict:
+                   device_mel: bool = False, keep_params_after: int = 0) -> dict:
     """small.en at full width and depth (768 wide, 12 + 12 layers, 1500 / 448
     positions) through ``train_loop.main(attention=..., device_mel=...)`` on the card: 256
     samples, micro batch 16, effective batch 32 (2 micro-batches a step),
@@ -2251,7 +2251,9 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
     against the window's says what the loader's threads cost the step; the
     resumed step runs under the profiler, for the kernels' device time.
     With ``device_mel`` the loader ships int16 PCM and the step computes the
-    log-mel; step 1's first micro-batch of PCM is kept (``pcm``)."""
+    log-mel; step 1's first micro-batch of PCM is kept (``pcm``). With
+    ``keep_params_after`` (a step's number) the parameters after that step
+    are kept on the host (``params``)."""
     import statistics as stats
 
     from torch.autograd import DeviceType
@@ -2271,8 +2273,8 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
     profiled: dict = {}
     initial: list = []
 
-    def watched(dims_, config):
-        step_fn = make_step(dims_, config)
+    def watched(dims_, config, mesh=None):
+        step_fn = make_step(dims_, config, mesh)
 
         def step(state, batch):
             kernels, _ = _counters()
@@ -2313,6 +2315,9 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
                    "tokens": int((batch["text_target"] != PADDING_TOKEN).sum()), "quiet": quiet}
             same = lambda: all(torch.equal(a, p) for a, p in
                                zip(initial, state.model.parameters()))
+            if n == keep_params_after:
+                profiled["params"] = {k: p.detach().cpu()
+                                      for k, p in state.model.named_parameters()}
             if n == 1:
                 row["unchanged"] = same()
             elif n == 2:
@@ -2406,7 +2411,7 @@ def phase_training(attention: str = "kernel", n_steps: int = TRAIN_STEPS,
            "device_idle": idle, "device_idle_quiet": idle_quiet,
            "profiled_step_wall_s": steps[-1]["wall_s"], "steps": steps,
            "launches": {fwd_name: steps[1]["fwd"], bwd_name: steps[1]["bwd"]},
-           "pcm": profiled.get("pcm")}
+           "pcm": profiled.get("pcm"), "params": profiled.get("params")}
     print(f"{label}: small.en bf16, micro batch {TRAIN_MICRO} x {micro}, remat: set-up "
           f"{out['setup_s']:.3f} s, warm-up step {out['warmup_step_s']:.3f} s; steps 2-"
           f"{n_steps - 1} with the loader's waits {window_s:.3f} s = {per_step:.3f} s a step, "
@@ -2442,7 +2447,7 @@ def phase_training_device_mel(host: dict) -> dict:
     the host-mel run's on the same batch (the same seeds)."""
     from olmoasr_tpu_torch.audio import log_mel_spectrogram, log_mel_spectrogram_np
 
-    out = phase_training(n_steps=TRAIN_STEPS_MEL, device_mel=True)
+    out = phase_training(n_steps=TRAIN_STEPS_MEL, device_mel=True, keep_params_after=2)
     pcm = out.pop("pcm")
     if pcm is None or pcm.dtype != torch.int16 or tuple(pcm.shape) != (TRAIN_MICRO, 480000):
         fail(f"device_mel: the batch's PCM is {None if pcm is None else (pcm.dtype, pcm.shape)}")
@@ -2488,6 +2493,308 @@ FLASH_GRAD_TOL = 1e-4  # the flash route rounds nothing in fp32
 def phase_training_flash() -> dict:
     """:func:`phase_training` on the flash route, TRAIN_STEPS_FLASH steps."""
     return phase_training("flash", TRAIN_STEPS_FLASH)
+
+
+DIST_STEPS = 3  # each torchrun run: steps 1-3 (step 3 with the loader held back) + 1 profiled
+# world 2 on the one card: NCCL refuses two ranks on one device ("Duplicate GPU
+# detected"); gloo carries FSDP2's all-gathers and reduce-scatters of CUDA
+# tensors, but DTensor's functional collectives (``full_tensor``, which the
+# checkpoint's full-state gather uses) crash on it (SIGSEGV in wait_tensor,
+# torch 2.11.0+cu128; ``python -m olmoasr_tpu_torch.perf.probe_ranks``):
+# these runs gather step 2's parameters with c10d all-gathers and skip the
+# checkpoint's save
+DIST_WORLD2 = ("full", "grad_op")
+# world 1 (DDP, NCCL) against the one-device run: each parameter after step 2
+# within DDP1_ULPS units in the last place of the largest element of its tensor
+DDP1_ULPS = 2
+# world 2 against world 1: step 2's update (the parameters' move from their
+# seeded start), its difference in L2 against its L2 (bf16 compute over
+# other per-rank micro-batch shapes)
+UPDATE_TOL = 0.1
+
+
+def _train_rank(job_path: str) -> None:
+    """One rank of a torchrun run of ``phase_training_distributed``: for
+    each run of the job, ``train_loop.main`` for DIST_STEPS + 1 steps, each
+    step wrapped to read its wall (synchronised), loss, grad norm, lr and
+    the attention launches in this process; step 2's parameters gathered
+    and written by rank 0, step DIST_STEPS with the loader held back, the
+    last step under the profiler on rank 0. A job with ``backend`` "gloo"
+    joins a gloo group here, which ``main`` then uses (two ranks on one
+    card, see DIST_WORLD2); else each ``main`` joins torchrun's group with
+    NCCL. Each rank writes its runs' rows to ``out_dir/rank<r>.json``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
+    from olmoasr_tpu_torch.training import checkpoint as ckpt_mod
+    from olmoasr_tpu_torch.training import dataset as dataset_mod
+    from olmoasr_tpu_torch.training import train as train_mod
+    from olmoasr_tpu_torch.training import train_loop
+
+    with open(job_path) as f:
+        job = json.load(f)
+    rank = int(os.environ["RANK"])
+    gloo = job["backend"] == "gloo"
+    if gloo:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("gloo")
+    make_step, save = train_mod.make_train_step, ckpt_mod.CheckpointManager.save
+    runs = []
+    try:
+        for i, kwargs in enumerate(job["runs"]):
+            fwd_name, bwd_name = TRAIN_ROUTES[kwargs["attention"]]
+            rows: list = []
+            events: list = []
+
+            def watched(dims_, config, mesh=None):
+                step_fn = make_step(dims_, config, mesh)
+
+                def step(state, batch):
+                    kernels, _ = _counters()
+                    n = state.step + 1
+                    quiet = n == DIST_STEPS
+                    if quiet:
+                        watch.pause()
+                    try:
+                        _reset_counts()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        if n == DIST_STEPS + 1 and rank == 0:
+                            with profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+                                state, metrics = step_fn(state, batch)
+                                torch.cuda.synchronize()
+                            events.extend(
+                                (e.name, e.time_range.elapsed_us()) for e in prof.events()
+                                if e.device_type == DeviceType.CUDA and "#" not in e.name
+                                and not getattr(e, "is_user_annotation", False))
+                        else:
+                            state, metrics = step_fn(state, batch)
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                    finally:
+                        if quiet:
+                            watch.resume()
+                    rows.append({"step": state.step, "t0": t0, "t1": t1, "wall_s": t1 - t0,
+                                 "loss": float(metrics["loss"]),
+                                 "grad_norm": float(metrics["grad_norm"]),
+                                 "lr": float(metrics["lr"]), "fwd": kernels[fwd_name].launches,
+                                 "bwd": kernels[bwd_name].launches, "quiet": quiet,
+                                 "tokens": int((batch["text_target"] != PADDING_TOKEN).sum())})
+                    if n == 2:  # every rank gathers, rank 0 writes
+                        params = (_gather_c10d(state.model) if gloo
+                                  else ckpt_mod.model_state_dict(state))
+                        if rank == 0:
+                            torch.save(params, os.path.join(job["out_dir"], f"params{i}.pt"))
+                    return state, metrics
+
+                return step
+
+            train_mod.make_train_step = watched
+            if gloo:  # see DIST_WORLD2
+                ckpt_mod.CheckpointManager.save = lambda *a, **kw: None
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with LoaderWatch(dataset_mod.AudioTextDataset) as watch:
+                train_loop.main(**kwargs, max_steps_this_run=DIST_STEPS + 1)
+            runs.append({"rows": rows, "events": events, "wall_s": time.perf_counter() - t0,
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    finally:
+        train_mod.make_train_step, ckpt_mod.CheckpointManager.save = make_step, save
+        if torch.distributed.is_initialized():  # the gloo group made here
+            torch.distributed.destroy_process_group()
+    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "runs": runs}, f)
+
+
+def _gather_c10d(model) -> dict:
+    """The FSDP2-sharded model's full parameters on the host, through c10d
+    all-gathers of each parameter's dim-0 shard (``torch.chunk``'s split,
+    padded to equal shards), not DTensor's functional collectives (see
+    DIST_WORLD2)."""
+    from olmoasr_tpu_torch.training import train as train_mod
+
+    world = torch.distributed.get_world_size()
+    out = {}
+    with torch.no_grad():
+        for name, p in train_mod.unwrap(model).named_parameters():
+            local = p.to_local()
+            rows = -(-p.shape[0] // world)
+            shard = local.new_zeros((rows, *p.shape[1:]))
+            shard[:local.shape[0]] = local
+            full = local.new_empty((rows * world, *p.shape[1:]))
+            torch.distributed.all_gather_into_tensor(full, shard)
+            out[name] = full[:p.shape[0]].cpu()
+    return out
+
+
+def _torchrun(label: str, world: int, job: dict, tmp: str) -> list:
+    """``job`` (``main``'s arguments of each run and the backend) on
+    ``world`` ranks of this card through one torchrun of
+    :func:`_train_rank`; for each run, every rank's result, rank 0's first,
+    and the path of step 2's parameters. Fails on a failed rank."""
+    out_dir = os.path.join(tmp, label)
+    os.makedirs(out_dir)
+    job_path = os.path.join(out_dir, "job.json")
+    with open(job_path, "w") as f:
+        json.dump({**job, "out_dir": out_dir}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.abspath(__file__), "--train-rank", job_path]
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (here, env.get("PYTHONPATH"))))
+    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // world))  # torchrun's is 1
+    t0 = time.perf_counter()
+    _run(cmd, timeout=600, cwd=tmp, env=env)  # fails on a failed rank
+    print(f"[{label}: torchrun of {len(job['runs'])} run(s) {time.perf_counter() - t0:.1f} s]")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f)["runs"])
+    return [([rank_runs[i] for rank_runs in ranks], os.path.join(out_dir, f"params{i}.pt"))
+            for i in range(len(job["runs"]))]
+
+
+def _ulp(t: torch.Tensor) -> float:
+    """One unit in the last place of the largest magnitude in fp32 ``t``."""
+    return float(torch.finfo(torch.float32).eps) * float(t.abs().max())
+
+
+def _report_run(label: str, ranks: list, one_device: dict) -> dict:
+    """Print a torchrun run beside the one-device ``device_mel`` run; check
+    its steps and launches; return its numbers."""
+    rows = ranks[0]["rows"]
+    n = DIST_STEPS + 1
+    if [r["step"] for r in rows] != list(range(1, n + 1)):
+        fail(f"{label}: steps {[r['step'] for r in rows]}, expected 1-{n}")
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    for r in rows:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            fail(f"{label}: step {r['step']} loss {r['loss']} grad_norm {r['grad_norm']}")
+        if (r["fwd"], r["bwd"]) != (micro * 72, micro * 36):
+            fail(f"{label}: step {r['step']} attention launches {(r['fwd'], r['bwd'])} in "
+                 f"rank 0, expected {(micro * 72, micro * 36)}")
+    by_kernel: dict = {}
+    for name, us in ranks[0]["events"]:
+        base = _kernel_base_name(name)
+        by_kernel[base] = by_kernel.get(base, 0.0) + us / 1e3
+    kernel_ms = sum(by_kernel.values()) or None
+    attn_ms = {k: v for k, v in by_kernel.items() if k in ATTN_KERNELS}
+    window = rows[1]["t1"] - rows[0]["t1"]  # step 2 with the loader's waits
+    out = {"window_step_s": window, "step_wall_s": rows[1]["wall_s"],
+           "quiet_step_wall_s": rows[DIST_STEPS - 1]["wall_s"],
+           "kernel_ms_per_step": kernel_ms, "attention_ms_per_step": attn_ms,
+           "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+           "launches": {"train_attention_fwd": rows[1]["fwd"],
+                        "train_attention_bwd": rows[1]["bwd"]},
+           "losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+           "run_wall_s": ranks[0]["wall_s"]}
+    idle = "not measured" if kernel_ms is None else \
+        f"{100 * (1 - kernel_ms / 1e3 / rows[DIST_STEPS - 1]['wall_s']):.1f}%"
+    print(f"{label}: window step {window:.3f} s (one device {one_device['window_step_s']:.3f}), "
+          f"in-step wall {out['step_wall_s']:.3f} s, held back "
+          f"{out['quiet_step_wall_s']:.3f} s (one device "
+          f"{one_device['quiet_step_wall_s']:.3f}); kernels "
+          + ("not measured" if kernel_ms is None else f"{kernel_ms:.1f} ms")
+          + f" a step (rank 0, profiled step {n}; one device "
+          f"{one_device['kernel_ms_per_step'] or 0:.1f}), so the device idle {idle} of the "
+          f"held-back step; peak memory " + ", ".join(f"{g:.2f}" for g in out["peak_memory_gb"])
+          + f" GB a rank (one device {one_device['peak_memory_gb']:.2f}); rows 3 / 9 "
+          f"launches {rows[1]['fwd']} / {rows[1]['bwd']} a step in rank 0; the run "
+          f"{ranks[0]['wall_s']:.1f} s")
+    for r in rows:
+        print(f"  step {r['step']}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} lr "
+              f"{r['lr']:.3e} wall {r['wall_s']:.3f} s" + (" (held back)" if r["quiet"] else ""))
+    if attn_ms:
+        print("  attention kernels " + ", ".join(f"{k} {v:.1f} ms" for k, v in attn_ms.items()))
+    return out
+
+
+def phase_training_distributed(one_device: dict) -> dict:
+    """Multi-rank training through torchrun on the card, small.en at full
+    width and depth, ``device_mel``, remat, the same seeded data and global
+    batch (micro batch 16 x 2) as ``one_device`` (the ``device_mel`` run of
+    ``phase_training_device_mel``, this process):
+
+    (a) world 1 (``--nproc_per_node=1``, NCCL, ``fsdp_size=1``: DDP) for
+    DIST_STEPS + 1 steps and a save; its parameters after step 2 against the
+    one-device run's (expected bit-equal: one rank's all-reduce is the
+    identity and rows 3 and 9 are deterministic), held to DDP1_ULPS; then
+    one step resumed on one device (``train_loop.main`` in this process)
+    from the checkpoint the rank wrote;
+    (b) world 2 on the one card, FSDP2 ``full`` and ``grad_op`` over gloo
+    (see DIST_WORLD2), micro batch 8 a rank: the same global batch; losses
+    of steps 1-DIST_STEPS against (a)'s within MEL_LOSS_TOL, step 2's update
+    within UPDATE_TOL of (a)'s.
+
+    Prints each run's window and held-back step walls, the kernels' device
+    time of a step (rank 0's profiled step), peak memory per rank and the
+    attention launches a step in rank 0, beside the one-device run."""
+    from olmoasr_tpu_torch.models import whisper as model_mod
+    from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS
+    from olmoasr_tpu_torch.training import train_loop
+
+    base = dict(variant="small.en", eff_batch_size=TRAIN_BATCH, remat=True, ckpt_every=0,
+                log_every=1, attention="kernel", device_mel=True)
+    want = one_device["params"]
+    out: dict = {}
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = write_shards(tmp, n=TRAIN_SAMPLES)
+        base.update(train_shards=shards, ckpt_dir=os.path.join(tmp, "ckpt"))
+        w1 = {**base, "exp_name": "dist_w1", "micro_batch_size": TRAIN_MICRO, "device": "cuda"}
+        ((ranks, params),) = _torchrun("world 1", 1, {"runs": [w1], "backend": "nccl"}, tmp)
+        out["world1"] = _report_run("training, world 1 (torchrun, DDP, NCCL)", ranks, one_device)
+        got = torch.load(params, weights_only=True)
+        diffs = {k: float((got[k] - w).abs().max()) for k, w in want.items()}
+        over = {k: d for k, d in diffs.items() if d > DDP1_ULPS * _ulp(want[k])}
+        worst = max(diffs, key=diffs.get)
+        print(f"  parameters after step 2 against the one-device run's: max abs diff "
+              f"{diffs[worst]:.3e} ({worst}); {sum(d == 0 for d in diffs.values())} of "
+              f"{len(diffs)} tensors bit-equal")
+        if over:
+            fail(f"world 1 (DDP): parameters after step 2 beyond {DDP1_ULPS} ulps of the "
+                 f"one-device run's: {dict(list(over.items())[:5])}")
+        out["world1"]["params_max_abs_diff"] = diffs[worst]
+        os.chdir(tmp)  # the metrics logger writes logs/ under the working directory
+        try:
+            t0 = time.perf_counter()
+            resumed = train_loop.main(**w1, max_steps_this_run=1)
+            resumed_s = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        if resumed["global_step"] != DIST_STEPS + 2 or not np.isfinite(resumed["train/loss"]):
+            fail(f"world 1: the one-device resume gave {resumed}")
+        print(f"  resumed on one device from the rank's step {DIST_STEPS + 1} checkpoint: step "
+              f"{resumed['global_step']} loss {resumed['train/loss']:.6f} in {resumed_s:.1f} s")
+
+        dims = VARIANT_TO_DIMS["small.en"]
+        start = model_mod.empty_model(dims, include_padding_token=True)
+        model_mod.init_params(start, torch.Generator().manual_seed(42), include_padding_token=True)
+        start = dict(start.named_parameters())
+        moved = {k: got[k] - start[k].detach() for k in want}
+        norm = float(torch.stack([m.norm() for m in moved.values()]).norm())
+        w1_losses = out["world1"]["losses"]
+        runs = [{**base, "exp_name": f"dist_w2_{strategy}", "micro_batch_size": TRAIN_MICRO // 2,
+                 "device": "cuda:0", "fsdp_size": 2, "fsdp_strategy": strategy}
+                for strategy in DIST_WORLD2]
+        world2 = _torchrun("world 2", 2, {"runs": runs, "backend": "gloo"}, tmp)
+        for strategy, (ranks, params) in zip(DIST_WORLD2, world2):
+            label = f"training, world 2 on one card (FSDP2 {strategy}, gloo)"
+            run = out[f"world2_{strategy}"] = _report_run(label, ranks, one_device)
+            got2 = torch.load(params, weights_only=True)
+            diff = float(torch.stack([((got2[k] - start[k].detach()) - m).norm()
+                                      for k, m in moved.items()]).norm()) / norm
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(run["losses"][:DIST_STEPS], w1_losses[:DIST_STEPS]))
+            run["update_rel_diff"], run["loss_rel_err"] = diff, loss_err
+            print(f"  against world 1: losses of steps 1-{DIST_STEPS} within {loss_err:.2e} "
+                  f"(tol {MEL_LOSS_TOL}); step 2's update {diff:.4f} of its L2 away "
+                  f"(tol {UPDATE_TOL})")
+            if not loss_err <= MEL_LOSS_TOL or not diff <= UPDATE_TOL:
+                fail(f"{label}: losses {run['losses']} against {w1_losses}, update {diff}")
+    return out
 
 
 def phase_train_fp32() -> dict:
@@ -3664,6 +3971,8 @@ def main() -> None:
     training = timed(phase_training)
     training_mel = timed(phase_training_device_mel, training)
     training_flash = timed(phase_training_flash)
+    training_dist = timed(phase_training_distributed, training_mel)
+    training_mel.pop("params")
     timed(phase_train_fp32)
     timed(phase_entry_points)
     evaluation = timed(phase_eval)
@@ -3727,6 +4036,8 @@ def main() -> None:
             "launches_detect_language": {k: language[k]["launches"][name]
                                          for k in ("B=1", "B=8")},
             "launches_training_flash_step": training_flash["launches"].get(name, 0),
+            "launches_training_distributed_step":
+                training_dist["world1"]["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "launches_eval": {k: v[name] for k, v in evaluation["launches"].items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
@@ -3759,6 +4070,8 @@ if __name__ == "__main__":
             kernel_cases(*sys.argv[2:])
         elif sys.argv[1] == "--greedy-steps" and len(sys.argv) == 4:
             greedy_steps(*sys.argv[2:])
+        elif sys.argv[1] == "--train-rank" and len(sys.argv) == 3:
+            _train_rank(sys.argv[2])  # one rank of phase_training_distributed, under torchrun
         else:
             fail(f"usage: {sys.argv[0]} [--ab TREE]")
     else:

@@ -21,8 +21,8 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 class OLMoASR(model_mod.Whisper):
     """Whisper-architecture model with ``transcribe``, ``decode``,
     ``detect_language``, ``embed_audio``, ``logits`` and ``forward``
-    (reference ``OLMoASR`` API);
-    ``device`` and ``dtype`` are the ``Whisper`` module's."""
+    (reference ``OLMoASR`` API); ``forward``, ``device`` and ``dtype`` are
+    the ``Whisper`` module's."""
 
     @property
     def is_multilingual(self) -> bool:
@@ -45,12 +45,6 @@ class OLMoASR(model_mod.Whisper):
     def half(self) -> "OLMoASR":
         """The weights cast to bf16 in place, as the JAX package's ``half``."""
         return self.astype(torch.bfloat16)
-
-    def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``forward_train`` at its defaults: (B, T, vocab) fp32 logits, so
-        ``model(mel, tokens, padding_mask)`` works as in the JAX package."""
-        return model_mod.forward_train(self, mel, tokens, padding_mask)
 
     @torch.no_grad()
     def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:
@@ -101,30 +95,33 @@ def _released_path(name: str, download_root: Optional[str]) -> str:
     return os.path.join(download_root, os.path.basename(MODEL2LINK[name]))
 
 
-def load_model(name_or_path: str, device="cuda", download_root: Optional[str] = None,
-               inference: bool = True, dtype: Optional[torch.dtype] = None) -> OLMoASR:
+def load_model(name: str, device="cuda", download_root: Optional[str] = None,
+               inference: bool = True, in_memory: bool = False, *,
+               dtype: Optional[torch.dtype] = None) -> OLMoASR:
     """Load a released checkpoint by name (``available_models()``), a local
     reference ``.pt`` or the JAX package's ``.npz`` onto ``device`` (the card
-    unless the caller asks for the CPU; no fallback).
+    unless the caller asks for the CPU; no fallback). The signature is the
+    JAX package's and the reference's, with ``dtype`` after it.
 
     A released name reads the file that a download leaves under
     ``download_root`` (see :func:`_released_path`); the port does not
-    download, so a missing file raises FileNotFoundError with its URL.
-    ``inference`` drops the training vocabulary's padding row. ``dtype``
-    defaults to the checkpoint's."""
+    download, so a missing file raises FileNotFoundError with its URL. A
+    name that is neither a released model nor a file raises RuntimeError,
+    as in the JAX package. ``inference`` drops the training vocabulary's
+    padding row. ``in_memory`` is accepted and ignored, as the JAX package
+    does: the weights are read into memory either way. ``dtype`` defaults to
+    the checkpoint's."""
     from olmoasr_tpu_torch import MODEL2LINK
 
-    path = name_or_path
-    if name_or_path in MODEL2LINK:
-        path = _released_path(name_or_path, download_root)
+    path = name
+    if name in MODEL2LINK:
+        path = _released_path(name, download_root)
         if not os.path.isfile(path):
             raise FileNotFoundError(
-                f"{path}: released model {name_or_path} is not in the cache; fetch "
-                f"{MODEL2LINK[name_or_path]} there (the port does not download)")
+                f"{path}: released model {name} is not in the cache; fetch "
+                f"{MODEL2LINK[name]} there (the port does not download)")
     elif not os.path.isfile(path):
-        raise FileNotFoundError(
-            f"{path}: not a local .pt or .npz, nor a released model "
-            f"({', '.join(MODEL2LINK)})")
+        raise RuntimeError(f"Model {name} not found; available models = {list(MODEL2LINK)}")
     if path.endswith(".npz"):
         sd, dims = convert_mod.load_npz_checkpoint(path)
     else:

@@ -3,7 +3,10 @@
 Counterpart of ``olmoasr_tpu/models/whisper.py``. The modules carry the
 reference's torch state-dict names (``encoder.blocks.{i}.attn.query.weight``,
 ``decoder.token_embedding.weight``, ...), so released ``.pt`` checkpoints load
-as they are; the forward passes are plain functions over those modules.
+as they are; the forward passes are plain functions over those modules. The
+training forward (``Whisper.forward``) calls each block as a module
+(``ResidualAttentionBlock.forward``), so that data-parallel wrappers (DDP,
+FSDP2) see the calls; inference runs on the unwrapped model.
 
 Numerics follow the JAX model: fp32 LayerNorm islands cast back, q and k each
 scaled by dh^-0.25 with an fp32 softmax in the plain attention, exact (erf)
@@ -97,6 +100,17 @@ class ResidualAttentionBlock(nn.Module):
             nn.Linear(4 * n_state, n_state, **factory),
         )
         self.mlp_ln = nn.LayerNorm(n_state, **factory)
+
+    def forward(self, x: torch.Tensor, n_head: int, attention: str,
+                audio: Optional[torch.Tensor] = None, key_bias: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training forward of this block: ``_encoder_block``, or with
+        ``audio`` ``_decoder_block``. The training forwards call it as a
+        module, so that a wrapper's hooks fire around it (FSDP2's unshard
+        before it and its gradient reduce-scatter after its backward)."""
+        if audio is None:
+            return _encoder_block(x, self, n_head, attention)
+        return _decoder_block(x, self, audio, n_head, key_bias, attention, mask)
 
 
 class AudioEncoder(nn.Module):
@@ -198,6 +212,17 @@ class Whisper(nn.Module):
     def reset_positional_embedding(self) -> None:
         pos = self.encoder.positional_embedding
         pos.copy_(torch.from_numpy(sinusoids(*pos.shape)))
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None, *, compute_dtype=torch.bfloat16,
+                remat: bool = False, return_hidden: bool = False,
+                attention: str = "kernel") -> torch.Tensor:
+        """The training forward, :func:`forward_train` (fp32 logits), so that
+        ``model(mel, tokens, padding_mask)`` works as in the JAX package, and
+        a data-parallel wrapper of the model (DDP, FSDP2) runs its hooks
+        around the whole step's forward."""
+        return forward_train(self, mel, tokens, padding_mask, compute_dtype=compute_dtype,
+                             remat=remat, return_hidden=return_hidden, attention=attention)
 
     @property
     def device(self) -> torch.device:
@@ -327,12 +352,14 @@ def _encoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, n_head: int,
     return _mlp(x, blk)
 
 
-def _blocks(fn, x: torch.Tensor, blocks, remat: bool, *args) -> torch.Tensor:
-    """x through ``fn(x, blk, *args)`` for each block; ``remat`` recomputes
-    each block's forward in the backward (non-reentrant checkpointing), as
-    the JAX package's ``jax.checkpoint`` per block."""
+def _blocks(x: torch.Tensor, blocks, remat: bool, *args, **kwargs) -> torch.Tensor:
+    """x through each block's module call ``blk(x, *args, **kwargs)``;
+    ``remat`` recomputes each block's forward in the backward (non-reentrant
+    checkpointing over the call), as the JAX package's ``jax.checkpoint`` per
+    block."""
     for blk in blocks:
-        x = checkpoint(fn, x, blk, *args, use_reentrant=False) if remat else fn(x, blk, *args)
+        x = (checkpoint(blk, x, *args, use_reentrant=False, **kwargs) if remat
+             else blk(x, *args, **kwargs))
     return x
 
 
@@ -350,7 +377,7 @@ def encode_train(model: Whisper, mel: torch.Tensor, *, compute_dtype=torch.bfloa
     x = F.gelu(F.conv1d(x, enc.conv2.weight.to(x.dtype), enc.conv2.bias.to(x.dtype), stride=2,
                         padding=1))
     x = x.transpose(1, 2).contiguous() + enc.positional_embedding.to(x.dtype)
-    x = _blocks(_encoder_block, x, enc.blocks, remat, model.dims.n_audio_head, attention)
+    x = _blocks(x, enc.blocks, remat, model.dims.n_audio_head, attention)
     return layer_norm(x, enc.ln_post)
 
 
@@ -366,7 +393,8 @@ def encode_audio(model: Whisper, mel: torch.Tensor, attention: str = "kernel") -
 
 
 def _decoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, audio: torch.Tensor,
-                   n_head: int, key_bias: Optional[torch.Tensor], attention: str) -> torch.Tensor:
+                   n_head: int, key_bias: Optional[torch.Tensor], attention: str,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = layer_norm(x, blk.attn_ln)
     q = _linear(h, blk.attn.query)
     k = _linear(h, blk.attn.key)
@@ -376,14 +404,18 @@ def _decoder_block(x: torch.Tensor, blk: ResidualAttentionBlock, audio: torch.Te
         # flash route): a pad query attends the pads at or before it
         ids = None if key_bias is None else (key_bias != 0).int()
         attn = flash_mha(q, k, v, n_head, causal=True, q_ids=ids, kv_ids=ids)
+        attend = flash_mha
+    elif mask is not None:
+        # a legacy full mask (causal included): plain attention for both, the
+        # cross attention unmasked (JAX decode_train's XLA route)
+        attn, attend = sdpa(q, k, v, n_head, mask), sdpa
     else:
-        attn = dec_self_attention(q, k, v, n_head, key_bias)
+        attn, attend = dec_self_attention(q, k, v, n_head, key_bias), cross_attention
     x = x + _linear(attn, blk.attn.out)
     # cross K/V: this layer's projections of the audio features
     ck = _linear(audio, blk.cross_attn.key)
     cv = _linear(audio, blk.cross_attn.value)
     q = _linear(layer_norm(x, blk.cross_attn_ln), blk.cross_attn.query)
-    attend = flash_mha if attention == "flash" else cross_attention
     x = x + _linear(attend(q, ck, cv, n_head), blk.cross_attn.out)
     return _mlp(x, blk)
 
@@ -398,19 +430,30 @@ def decode_train(model: Whisper, tokens: torch.Tensor, audio_features: torch.Ten
     logits. ``padding_mask`` is the loader's additive (B, T) per-key bias
     (-inf on pad columns, clamped to -1e9 in the kernels); self-attention is
     causal, cross-attention unmasked. ``attention`` picks the kernels
-    (``"kernel"`` or ``"flash"``, see ``encode_train``)."""
+    (``"kernel"`` or ``"flash"``, see ``encode_train``).
+
+    A legacy additive (B, T, T) or (B, 1, T, T) ``padding_mask`` goes as the
+    JAX package takes it: on the kernel route, self-attention is plain
+    attention (``sdpa``) under ``padding_mask + causal`` and cross-attention
+    plain and unmasked, outside the kernels; on the flash route the
+    segment ids come from the mask's first query row."""
     _check_attention(attention)
-    if padding_mask is not None and padding_mask.dim() != 2:
-        raise NotImplementedError(
-            "decode_train takes the loader's (B, T) key bias; the legacy (B, T, T) mask "
-            "is not ported")
     dec = model.decoder
     T = tokens.shape[1]
     dtype = audio_features.dtype
     x = dec.token_embedding.weight[tokens.long()].to(dtype) + dec.positional_embedding[:T].to(dtype)
-    key_bias = None if padding_mask is None else padding_mask.float()
-    x = _blocks(_decoder_block, x, dec.blocks, remat, audio_features, model.dims.n_text_head,
-                key_bias, attention)
+    key_bias = mask = None
+    if padding_mask is not None and padding_mask.dim() == 2:
+        key_bias = padding_mask.float()
+    elif padding_mask is not None:
+        full = padding_mask[:, None] if padding_mask.dim() == 3 else padding_mask
+        if attention == "flash":
+            key_bias = full[:, 0, 0, :].float()
+        else:
+            causal = torch.full((T, T), float("-inf"), device=x.device).triu(1)
+            mask = full.to(device=x.device, dtype=torch.float32) + causal
+    x = _blocks(x, dec.blocks, remat, model.dims.n_text_head, attention, audio_features,
+                key_bias, mask)
     x = layer_norm(x, dec.ln)
     if return_hidden:
         return x

@@ -22,20 +22,37 @@ attention kernels, ``"kernel"`` or ``"flash"``
 switches. Not ported, because they tune the TPU: ``encoder_flash`` /
 ``resolved_flash`` (the XLA-attention fallback), ``OLMOASR_GRADS_BF16``,
 ``OLMOASR_CE_CHUNK``.
+
+Multi-rank training (``shard_train_state`` and ``make_train_step`` with a
+mesh; the JAX package's ``shard_train_state`` and
+``make_sharded_train_step``) runs on a (data, fsdp) mesh of
+``parallel.mesh``: DDP over every rank when the fsdp axis is 1, else FSDP2
+(``fully_shard`` on each block, then on the root) on the fsdp axis, hybrid
+(HSDP) when both axes exceed 1; ``zero2`` keeps the parameters unsharded
+between the forward and the backward (SHARD_GRAD_OP). Parameters, their
+all-gathers and the gradient reductions stay fp32. The numbers are the JAX
+sharded step's: each micro-batch's loss averages over the valid tokens of
+the global micro-batch (every rank's), the gradients are summed over the
+ranks and synchronised once a step, after the last micro-batch, and the
+clip's norm is over the whole gradient.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from olmoasr_tpu_torch import audio as audio_mod
 from olmoasr_tpu_torch.models import whisper as model_mod
 from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
+from olmoasr_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -66,7 +83,9 @@ class TrainConfig:
 @dataclass
 class TrainState:
     """The model (fp32 parameters), its optimizer and the count of completed
-    steps. ``train_step`` updates it in place."""
+    steps. ``train_step`` updates it in place. After ``shard_train_state``
+    the model is the Whisper sharded in place by FSDP2, or its DDP wrapper
+    (:func:`unwrap` gives the Whisper)."""
 
     model: Any
     optimizer: torch.optim.Optimizer
@@ -132,8 +151,9 @@ class CastMomentAdamW(torch.optim.Optimizer):
                     st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                     st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
                 st["step"] += 1
-                g = p.grad.to(f32)
-                mu, nu = st["exp_avg"], st["exp_avg_sq"]
+                # elementwise: on a sharded (DTensor) parameter, its shard
+                g = _local(p.grad).to(f32)
+                mu, nu = _local(st["exp_avg"]), _local(st["exp_avg_sq"])
                 if self.cast_update:
                     mu_new = b1 * mu.to(f32) + (1 - b1) * g
                 else:  # optax: (1 - b1) * g + b1 * mu, b1 * mu in mu's dtype
@@ -147,8 +167,16 @@ class CastMomentAdamW(torch.optim.Optimizer):
                 bc1 = float(np.float32(1) - np.float32(b1) ** c)
                 bc2 = float(np.float32(1) - np.float32(b2) ** c)
                 update = (mu_new / bc1) / ((nu_new / bc2).sqrt() + group["eps"])
+                p = _local(p)
                 update = update + group["weight_decay"] * p.to(f32)
                 p.add_((-group["lr"] * update).to(p.dtype))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (a view: writes go through); any other
+    tensor itself."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
 
 
 def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
@@ -163,14 +191,25 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
     return torch.optim.AdamW(list(params), **kw)
 
 
+def unwrap(model):
+    """The Whisper of a training model: a DDP wrapper's module, else the
+    model itself (FSDP2 shards it in place)."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
 def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: torch.Tensor,
             padding_mask: Optional[torch.Tensor], *, compute_dtype=torch.bfloat16,
-            remat: bool = True, attention: str = "kernel", return_pred: bool = False):
+            remat: bool = True, attention: str = "kernel", return_pred: bool = False,
+            n_tokens: Optional[torch.Tensor] = None):
     """Teacher-forced cross entropy that ignores PADDING_TOKEN
     (train_timestamps.py:1444-1450), as logsumexp minus the target's logit;
     returns (loss, aux) with the teacher-forced ``accuracy`` and
     ``n_tokens``, and with ``return_pred`` the (B, T) argmax ids ``pred``
-    (validation reads these instead of the logits).
+    (validation reads these instead of the logits). The sums are divided by
+    ``n_tokens`` where given (a rank's share of the global micro-batch's
+    loss: the global count of valid tokens), else by this batch's count.
+    The forward is the model's call (``Whisper.forward``, or a DDP
+    wrapper's).
 
     A (B, 480000) ``mel`` is the ``device_mel`` transport's raw 30 s PCM
     (int16, or f32): its log-mel is computed here on the batch's device, in
@@ -179,13 +218,12 @@ def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: tor
     step's FLOPs, which ``train_flops_per_sample`` leaves out)."""
     if mel.dim() == 2:
         with torch.no_grad(), torch.autocast(mel.device.type, enabled=False):
-            mel = audio_mod.log_mel_spectrogram(mel, model.dims.n_mels)
-    logits = model_mod.forward_train(model, mel, text_input, padding_mask,
-                                     compute_dtype=compute_dtype, remat=remat,
-                                     attention=attention)
+            mel = audio_mod.log_mel_spectrogram(mel, unwrap(model).dims.n_mels)
+    logits = model(mel, text_input, padding_mask, compute_dtype=compute_dtype, remat=remat,
+                   attention=attention)
     target = text_target.to(logits.device).long()
     valid = target != PADDING_TOKEN
-    n_valid = valid.sum().clamp_min(1)
+    n_valid = (valid.sum() if n_tokens is None else n_tokens).clamp_min(1)
     safe = torch.where(valid, target, 0)
     nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, safe[..., None])[..., 0]
     loss = torch.where(valid, nll, 0.0).sum() / n_valid
@@ -196,52 +234,94 @@ def loss_fn(model, mel: torch.Tensor, text_input: torch.Tensor, text_target: tor
     return loss, aux
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+def global_norm(tensors, group=None) -> torch.Tensor:
+    """The L2 norm of all of ``tensors``. Sharded (DTensor) gradients add
+    their shards' squares, summed over ``group``, the ranks that the shards
+    of one tensor are spread over."""
+    sq = torch.stack([_local(t).float().square().sum() for t in tensors]).sum()
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: ``g / norm * max_norm`` when
-    ``norm >= max_norm``. Returns the norm before clipping."""
-    norm = global_norm(grads)
+    ``norm >= max_norm``. Returns the norm before clipping (over ``group``
+    for sharded gradients, see :func:`global_norm`)."""
+    norm = global_norm(grads, group)
     clipped = norm >= max_norm
     div = torch.where(clipped, norm, 1.0)
     mul = torch.where(clipped, max_norm, 1.0)
     for g in grads:
-        g.div_(div).mul_(mul)
+        _local(g).div_(div).mul_(mul)
     return norm
 
 
-def make_train_step(dims: ModelDimensions, config: TrainConfig):
+def _grad_sync(model, sync: bool):
+    """Whether this backward synchronises the gradients across the ranks:
+    DDP's ``no_sync`` or FSDP2's ``set_requires_gradient_sync`` for the
+    micro-batches before the last."""
+    if isinstance(model, DistributedDataParallel):
+        return nullcontext() if sync else model.no_sync()
+    set_sync = getattr(model, "set_requires_gradient_sync", None)  # an FSDP2 module
+    if set_sync is not None:
+        set_sync(sync)
+    return nullcontext()
+
+
+def make_train_step(dims: ModelDimensions, config: TrainConfig, mesh=None):
     """The train step: ``step(state, batch) -> (state, metrics)``. The batch
     is (accum, micro_B, ...); the gradient is the mean of the micro-batches'
-    gradients, each of a loss averaged over that micro-batch's own valid
-    tokens. Metrics (tensors on the device, not synchronised): ``loss`` and
+    gradients, each of a loss averaged over that micro-batch's valid tokens.
+    Metrics (tensors on the device, not synchronised): ``loss`` and
     ``accuracy`` averaged over the micro-batches, ``grad_norm`` before
-    clipping and ``lr = lr_schedule(step)``."""
+    clipping and ``lr = lr_schedule(step)``.
+
+    With the ``mesh`` of :func:`shard_train_state` (the JAX package's
+    ``make_sharded_train_step``), the batch is this rank's share of the
+    global batch, every micro-batch's loss is averaged over the valid tokens
+    of all ranks' shares (one all-reduce of the counts a step), the
+    gradients are summed over the ranks (DDP and FSDP2 average them: times
+    the world size), synchronised once, after the last micro-batch, and the
+    metrics are those of the global batch on every rank."""
     schedule = lr_schedule(config)
+    world = 1 if mesh is None else mesh.size()
+    norm_group = None
+    if mesh is not None and mesh[FSDP_AXIS].size() > 1:
+        norm_group = mesh[FSDP_AXIS].get_group()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model, opt = state.model, state.optimizer
         params = [p for p in model.parameters() if p.requires_grad]
         opt.zero_grad(set_to_none=True)
         n_accum = batch["mel"].shape[0]
+        counts = None
+        if world > 1:
+            counts = (batch["text_target"] != PADDING_TOKEN).flatten(1).sum(1)
+            dist.all_reduce(counts)
         loss_sum = acc_sum = 0.0
         for i in range(n_accum):
-            loss, aux = loss_fn(
-                model, batch["mel"][i], batch["text_input"][i], batch["text_target"][i],
-                None if batch.get("padding_mask") is None else batch["padding_mask"][i],
-                compute_dtype=config.compute_dtype, remat=config.remat,
-                attention=config.attention,
-            )
-            loss.backward()  # sums into the fp32 .grad of each parameter
+            with _grad_sync(model, i == n_accum - 1):
+                loss, aux = loss_fn(
+                    model, batch["mel"][i], batch["text_input"][i], batch["text_target"][i],
+                    None if batch.get("padding_mask") is None else batch["padding_mask"][i],
+                    compute_dtype=config.compute_dtype, remat=config.remat,
+                    attention=config.attention, n_tokens=None if counts is None else counts[i],
+                )
+                loss.backward()  # sums into the fp32 .grad of each parameter
             loss_sum = loss_sum + loss.detach()
             acc_sum = acc_sum + aux["accuracy"]
         grads = [p.grad for p in params]
+        if world > 1:
+            sums = torch.stack([loss_sum, acc_sum])
+            dist.all_reduce(sums)
+            loss_sum, acc_sum = sums[0], sums[1]
+            for g in grads:
+                g.mul_(world)
         if n_accum > 1:
             for g in grads:
                 g.div_(n_accum)
-        norm = clip_by_global_norm(grads, config.max_grad_norm)
+        norm = clip_by_global_norm(grads, config.max_grad_norm, norm_group)
         lr = schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -252,6 +332,36 @@ def make_train_step(dims: ModelDimensions, config: TrainConfig):
         return state, metrics
 
     return train_step
+
+
+def shard_train_state(state: TrainState, mesh, config: TrainConfig, *,
+                      zero2: bool = False) -> TrainState:
+    """``state`` (a fresh one: its optimizer has taken no step) spread over
+    the ranks of the (data, fsdp) ``mesh``, the JAX package's
+    ``shard_train_state``: with an fsdp axis of 1, the model wrapped in DDP
+    over every rank; else ``fully_shard`` on each block, then on the root,
+    over the fsdp axis, or over both axes (HSDP: replicated over data,
+    sharded over fsdp) when the data axis exceeds 1. ``zero2`` keeps the
+    parameters unsharded from the forward to the backward (SHARD_GRAD_OP,
+    FSDP2's ``reshard_after_forward=False``): gradients and optimizer state
+    stay sharded. FSDP2 replaces the parameters with sharded ones, so the
+    optimizer is built anew over them."""
+    if state.optimizer.state:
+        raise ValueError("shard_train_state takes a state whose optimizer has taken no step")
+    model = state.model
+    if mesh[FSDP_AXIS].size() == 1:
+        device = next(model.parameters()).device
+        model = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False)  # the one buffer is the constant sinusoid table
+    else:
+        from torch.distributed.fsdp import fully_shard
+
+        shard_mesh = mesh[FSDP_AXIS] if mesh[DATA_AXIS].size() == 1 else mesh
+        for blk in (*model.encoder.blocks, *model.decoder.blocks):
+            fully_shard(blk, mesh=shard_mesh, reshard_after_forward=not zero2)
+        fully_shard(model, mesh=shard_mesh, reshard_after_forward=not zero2)
+    return TrainState(model, make_optimizer(config, model.parameters()), state.step)
 
 
 def train_flops_per_sample(dims: ModelDimensions) -> float:

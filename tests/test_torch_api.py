@@ -69,8 +69,14 @@ def test_released_name_loads_the_cached_file(released, monkeypatch):
     # a released name whose file is missing names the URL; the port does not download
     with pytest.raises(FileNotFoundError, match="OLMoASR-tiny.en.pt"):
         load_model("tiny.en", device="cpu")
-    with pytest.raises(FileNotFoundError):
+    # a name that is neither released nor a file: the JAX package's RuntimeError
+    with pytest.raises(RuntimeError, match="available models"):
         load_model("no-such-model", device="cpu")
+    # the JAX package's (and the reference's) signature, by keyword; in_memory is ignored
+    kw = load_model(name="small.en", device="cpu", download_root=os.path.dirname(root) + "/olmoasr",
+                    inference=True, in_memory=True)
+    for k, v in by_path.state_dict().items():
+        assert torch.equal(kw.state_dict()[k], v), k
 
 
 def test_cli_model_dir_resolves_a_released_name(released, tmp_path, monkeypatch):

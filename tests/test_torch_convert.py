@@ -102,7 +102,8 @@ def test_load_model_from_a_local_file(params_np, tmp_path, fmt):
 
 
 def test_load_model_refuses_a_missing_file(tmp_path):
-    with pytest.raises(FileNotFoundError):
+    # neither a file nor a released name: the JAX package's RuntimeError
+    with pytest.raises(RuntimeError, match="available models"):
         load_model(str(tmp_path / "nope.pt"))
 
 

@@ -281,6 +281,42 @@ def test_forward_train_and_every_gradient_match_jax(jax_flash, params):
         assert _rel_err(g, want[path]) <= GRAD_TOL, jax.tree_util.keystr(path)
 
 
+@pytest.mark.parametrize("legacy", ["(B, T, T)", "(B, 1, T, T)"])
+def test_legacy_mask_matches_jax(jax_flash, params, legacy):
+    """A legacy full additive mask on the flash route: the segment ids come
+    from the mask's first query row, in the JAX flash branch and in the
+    port. Loss and every gradient against JAX's, and the loss against the
+    port's own from the (B, T) key bias."""
+    jax, jnp, jtrain = jax_flash.jax, jax_flash.jnp, jax_flash.jtrain
+    b = _batch(4)
+    B, T = b["padding_mask"].shape
+    full = np.ascontiguousarray(np.broadcast_to(b["padding_mask"][:, None, :], (B, T, T)))
+    mask = full if legacy == "(B, T, T)" else full[:, None]
+    keys = ("mel", "text_input", "text_target")
+    (want_loss, _), want_grads = jax.value_and_grad(jtrain.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), jax_flash.JaxDims(**MICRO),
+        *(jnp.asarray(b[k]) for k in keys), jnp.asarray(mask), compute_dtype=jnp.float32,
+        remat=False, flash=True)
+    model = _port_model(params)
+    args = [torch.from_numpy(b[k]) for k in keys]
+    loss, _ = ttrain.loss_fn(model, *args, torch.from_numpy(mask), compute_dtype=torch.float32,
+                             remat=True, attention="flash")
+    loss.backward()
+    assert _rel_err(loss.item(), want_loss) <= 2e-4
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    got = jax.tree_util.tree_flatten_with_path(
+        convert.jax_params_from_state_dict(grads, ModelDimensions(**MICRO)))[0]
+    want = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, want_grads))[0])
+    assert len(got) == len(want)
+    for path, g in got:
+        assert _rel_err(g, want[path]) <= GRAD_TOL, jax.tree_util.keystr(path)
+    with torch.no_grad():
+        bias_loss, _ = ttrain.loss_fn(_port_model(params), *args,
+                                      torch.from_numpy(b["padding_mask"]),
+                                      compute_dtype=torch.float32, attention="flash")
+    assert _rel_err(loss.item(), bias_loss.item()) <= 1e-6
+
+
 def test_train_step_matches_jax(jax_flash, params):
     """Two steps of one micro-batch each: the first at learning rate 0 (the
     parameters stay), the second moves them."""

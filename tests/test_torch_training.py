@@ -60,6 +60,7 @@ from olmoasr_tpu_torch.training import train as ttrain
 MICRO = dict(n_mels=80, n_audio_ctx=40, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
              n_vocab=51864, n_text_ctx=24, n_text_state=128, n_text_head=2, n_text_layer=2)
 TOL, GRAD_TOL = 2e-4, 4e-3
+_JAX_SDPA = jm.sdpa  # the JAX model's plain attention, before ``jax_kernels`` patches it
 CAST_TOL = 1e-3  # CastMomentAdamW's parameters against JAX's, x the peak learning rate
 ACCUM, MICRO_B, STEPS = 2, 2, 3
 
@@ -129,6 +130,23 @@ def _port_grads(params, b, mel_scale=1.0):
     return loss, aux, grads
 
 
+def _flip_floor(params, b) -> float:
+    """The port's largest gradient change, per leaf against its largest
+    magnitude, under a 1e-7 relative change of the mel: the bf16 flips of
+    the attention's P and ds. Measured with one intra-op thread: the CPU's
+    reductions split their sums by the thread count, which moves the floor
+    (1.3167e-3 at 1-7 threads, 1.3202e-3 at 8), so that every process on
+    every machine measures the same sums."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        base = _port_grads(params, b)[2]
+        nudged = _port_grads(params, b, 1 + 1e-7)[2]
+    finally:
+        torch.set_num_threads(threads)
+    return max(_rel_err(g, base[k]) for k, g in nudged.items())
+
+
 def test_loss_and_every_gradient_match_jax(jax_kernels, params):
     dims = JaxDims(**MICRO)
     b = _batch(1)
@@ -141,7 +159,7 @@ def test_loss_and_every_gradient_match_jax(jax_kernels, params):
     _close(loss.item(), jloss, "loss")
     _close(aux["accuracy"].item(), jaux["accuracy"], "accuracy")
     assert int(aux["n_tokens"]) == int(jaux["n_tokens"])
-    floor = max(_rel_err(g, grads[k]) for k, g in _port_grads(params, b, 1 + 1e-7)[2].items())
+    floor = _flip_floor(params, b)
     assert floor <= GRAD_TOL / 2  # the bf16 flips, measured on the port itself
     port_dims = ModelDimensions(**MICRO)
     got = jax.tree_util.tree_flatten_with_path(convert.jax_params_from_state_dict(grads, port_dims))[0]
@@ -151,6 +169,51 @@ def test_loss_and_every_gradient_match_jax(jax_kernels, params):
         _close(g, want[path], jax.tree_util.keystr(path), GRAD_TOL)
     # the padding row gets a gradient through the tied logits, as in JAX
     assert float(grads["decoder.token_embedding.weight"][jm.PADDING_TOKEN].abs().max()) > 0
+
+
+@pytest.mark.parametrize("legacy", ["(B, T, T)", "(B, 1, T, T)"])
+def test_legacy_mask_loss_and_every_gradient_match_jax(jax_kernels, params, monkeypatch, legacy):
+    """A legacy full additive mask (the reference's per-sample (T, T) pad
+    masks, here built from the loader's key bias): the JAX package sends the
+    decoder through its XLA attention, self-attention under ``mask +
+    causal`` and cross-attention unmasked, and so does the port's kernel
+    route (``sdpa``, outside the kernels); the encoder stays on the kernels.
+    Loss and every gradient against JAX's, and the loss against the port's
+    own from the (B, T) key bias."""
+    dims = JaxDims(**MICRO)
+    b = _batch(3)
+    B, T = b["padding_mask"].shape
+    full = np.ascontiguousarray(np.broadcast_to(b["padding_mask"][:, None, :], (B, T, T)))
+    mask = full if legacy == "(B, T, T)" else full[:, None]
+    # JAX's decoder attention with a full mask is its plain sdpa; the
+    # encoder's (no mask, as many queries as keys) stays the interpret kernel
+    enc = jm.sdpa
+    monkeypatch.setattr(jm, "sdpa", lambda q, k, v, n_head, mask=None, key_bias=None: (
+        enc(q, k, v, n_head) if mask is None and key_bias is None and q.shape[1] == k.shape[1]
+        else _JAX_SDPA(q, k, v, n_head, mask, key_bias)))
+    keys = ("mel", "text_input", "text_target")
+    (jloss, jaux), jgrads = jax.value_and_grad(jtrain.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), dims, *(jnp.asarray(b[k]) for k in keys),
+        jnp.asarray(mask), compute_dtype=jnp.float32, remat=False)
+    model = _port_model(params)
+    args = [torch.from_numpy(b[k]) for k in keys]
+    loss, aux = ttrain.loss_fn(model, *args, torch.from_numpy(mask), compute_dtype=torch.float32,
+                               remat=True)
+    loss.backward()
+    _close(loss.item(), jloss, "loss")
+    _close(aux["accuracy"].item(), jaux["accuracy"], "accuracy")
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    got = jax.tree_util.tree_flatten_with_path(
+        convert.jax_params_from_state_dict(grads, ModelDimensions(**MICRO)))[0]
+    want = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jgrads))[0])
+    assert len(got) == len(want)
+    for path, g in got:
+        _close(g, want[path], jax.tree_util.keystr(path), GRAD_TOL)
+    with torch.no_grad():
+        bias_loss, _ = ttrain.loss_fn(_port_model(params), *args,
+                                      torch.from_numpy(b["padding_mask"]),
+                                      compute_dtype=torch.float32, remat=False)
+    _close(loss.item(), bias_loss.item(), "the loss from the (B, T) key bias")
 
 
 def test_loss_and_every_gradient_from_pcm_match_jax(jax_kernels, params):
@@ -407,8 +470,8 @@ def test_train_loop_with_device_mel(shard_dir, tmp_path, monkeypatch):
     losses = {}
     make_step = ttrain.make_train_step
 
-    def recording(dims, config):
-        step = make_step(dims, config)
+    def recording(dims, config, mesh=None):
+        step = make_step(dims, config, mesh)
 
         def run(state, batch):
             state, metrics = step(state, batch)
@@ -432,11 +495,15 @@ def test_train_loop_with_device_mel(shard_dir, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
-    """Only FSDP still raises; the cast-moment Adam is there."""
+    """No option raises any more: an fsdp_size that does not divide the world
+    (2 on one process) and an unknown fsdp_strategy are refused before any
+    work; the cast-moment Adam is there."""
     from olmoasr_tpu_torch.training import train_loop
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="does not divide the world size 1"):
         train_loop.main(device="cpu", fsdp_size=2)
+    with pytest.raises(ValueError, match="fsdp_strategy"):
+        train_loop.main(device="cpu", fsdp_strategy="hybrid")
     opt = ttrain.make_optimizer(ttrain.TrainConfig(mu_dtype=torch.bfloat16),
                                 [torch.zeros(2, requires_grad=True)])
     assert isinstance(opt, ttrain.CastMomentAdamW) and not opt.cast_update
@@ -450,6 +517,9 @@ def test_unported_options_raise():
     assert args.profile_dir == "p" and args.mu_dtype == "bfloat16"
     assert not hasattr(args, "profile_steps")  # a tuple: left at its default, as in JAX
     assert args.nu_dtype is None and args.eval_set == "librispeech_clean"
+    args = train_loop.build_cli_parser().parse_args(["--fsdp_size", "2", "--fsdp_strategy",
+                                                     "grad_op"])
+    assert (args.fsdp_size, args.fsdp_strategy) == (2, "grad_op")
 
 
 def _eval_tree(root, n=2):
