@@ -92,7 +92,13 @@ printed line each (or a few):
    --max_line_width 40``, and the HTTP server (``python -m
    olmoasr_tpu_torch.serve``, int8 cross K/V and ``beam_size=5``) answering
    4 concurrent requests, one with ``word_timestamps``, each in its own
-   process;
+   process; then decoding split across ranks (``decoding.set_infer_mesh``):
+   the short-form slice's greedy bf16 and int8, its beam search and fp32
+   greedy and beam on two ranks of the one card over gloo through torchrun,
+   against one process (each rank's windows equal to one process's decode
+   of them; at fp32 the whole batch's tokens), each rank's wall and the
+   gather's; the transcribe CLI at fp32 under torchrun, world 1 over NCCL
+   and world 2 over gloo, against one process (rank 0's outputs);
 8. evaluation: 96 utterances of 3-20 s seeded noise in a LibriSpeech-format
    tree through ``eval.harness.short_form_eval`` at B=64 on small.en (its
    vocabulary cut to the byte tokens), bf16 and int8 cross K/V, each
@@ -114,7 +120,8 @@ the training step's for the attention backward, the flash training step's
 for the flash forward and backward, the int8-ring loop's for
 the int8 self pass and the routes' for the whole-layer launch and the
 standalone cross attention (``launches_eval``: the evaluation's short-form
-bf16, int8 and long-form runs). Every kernel in that line
+bf16, int8 and long-form runs; ``launches_decode_ranks``: rank 0's greedy
+bf16 decode across two ranks). Every kernel in that line
 carries its bound (the least time the card could take for its main case:
 bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
 larger) and ``library_ms``, the time of one PyTorch call computing the same
@@ -138,6 +145,8 @@ either is printed; so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import re
@@ -162,6 +171,14 @@ except ImportError as exc:  # pragma: no cover - depends on the machine
 
 RUNS = 11  # timed runs per measurement (odd: the median is one run)
 SPIN_CYCLES = 200_000  # about 0.1 ms of the card's clock: longer than the host takes to queue a replay
+
+
+def exact_fp32() -> None:
+    """fp32 products in fp32, TF32 off in cuBLAS and cuDNN (whose
+    convolutions use it by default), in this process: every phase runs so,
+    and each rank or CLI process that a phase compares with this one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def timed_ms(fn, spin: bool = False) -> float:
@@ -2636,18 +2653,9 @@ def _torchrun(label: str, world: int, job: dict, tmp: str) -> list:
     and the path of step 2's parameters. Fails on a failed rank."""
     out_dir = os.path.join(tmp, label)
     os.makedirs(out_dir)
-    job_path = os.path.join(out_dir, "job.json")
-    with open(job_path, "w") as f:
-        json.dump({**job, "out_dir": out_dir}, f)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc_per_node={world}", os.path.abspath(__file__), "--train-rank", job_path]
-    env = dict(os.environ)
-    here = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = os.pathsep.join(filter(None, (here, env.get("PYTHONPATH"))))
-    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // world))  # torchrun's is 1
-    t0 = time.perf_counter()
-    _run(cmd, timeout=600, cwd=tmp, env=env)  # fails on a failed rank
-    print(f"[{label}: torchrun of {len(job['runs'])} run(s) {time.perf_counter() - t0:.1f} s]")
+    wall = _launch("--train-rank", {**job, "out_dir": out_dir},
+                   os.path.join(out_dir, "job.json"), world, tmp)
+    print(f"[{label}: torchrun of {len(job['runs'])} run(s) {wall:.1f} s]")
     ranks = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -3042,6 +3050,303 @@ def _drive_server(server, reqs, err, urllib_request) -> dict:
     if stats["requests"] != len(reqs) or not stats["batches"] < stats["requests"]:
         fail(f"server: {stats['batches']} batches for {stats['requests']} requests")
     return {"server_wall_s": wall, "server_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# phase 7, continued: decoding split across ranks
+# ---------------------------------------------------------------------------
+
+# (label, windows, DecodingOptions fields) of each decode across ranks: the
+# short-form slice's greedy bf16 and int8 and its beam search, and fp32 greedy
+# and beam search, whose tokens must equal one process's
+RANK_CASES = (("greedy bf16", 64, {}), ("greedy int8", 64, {"kv_quant": True}),
+              ("beam5 bf16", BEAM_WINDOWS, {"beam_size": BEAM_SIZE}),
+              ("greedy fp32", 8, {"fp16": False}),
+              ("beam5 fp32", 8, {"beam_size": BEAM_SIZE, "fp16": False}))
+RANKS_CLI_SAMPLE_LEN = 64  # the CLI runs' depth: tokens a window, cut from the CLI's 224
+# the CLI at world 2 against one process, fp32: a segment's avg_logprob and
+# no_speech_prob (its rows decode in batches of another size, so the kernels
+# may sum in another order)
+RANKS_SCORE_TOL = 1e-4
+SCORE_KEYS = ("avg_logprob", "no_speech_prob")
+
+
+def _rank_inputs():
+    """The short-form slice's model and windows: the seeded small.en in bf16
+    and the log-mel of 64 windows of its seeded noise, on the card."""
+    from olmoasr_tpu_torch import build_model
+    from olmoasr_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+
+    model = build_model("small.en", seed=0, device="cuda", dtype=torch.bfloat16)
+    audio = np.random.default_rng(0).standard_normal((64, N_SAMPLES)).astype(np.float32) * 0.1
+    return model, log_mel_spectrogram(torch.from_numpy(audio).cuda())
+
+
+def _decode_cases(model, mel, halves: bool = False) -> dict:
+    """Each of RANK_CASES through ``model.decode`` after a short warm-up:
+    tokens, wall, launches and single-token steps; with a mesh registered
+    also the wall until the gather began and the gather's wall and bytes
+    (``decoding._gather_shards`` timed, synchronised on both sides). With
+    ``halves``, also the tokens of each half of the windows decoded alone
+    (what two ranks decode), in bf16."""
+    from olmoasr_tpu_torch import decoding
+
+    gather = decoding._gather_shards
+    timing: dict = {}
+
+    def timed_gather(mesh, tensors):
+        torch.cuda.synchronize()
+        timing["t0"] = time.perf_counter()
+        out = gather(mesh, tensors)
+        torch.cuda.synchronize()
+        timing["s"] = time.perf_counter() - timing["t0"]
+        timing["bytes"] = sum(t.numel() * t.element_size() for t in out)
+        return out
+
+    decoding._gather_shards = timed_gather
+    out = {}
+    try:
+        for label, n, fields in RANK_CASES:
+            options = decoding.DecodingOptions(language="en", **fields)
+            model.decode(mel[:n], dataclasses.replace(options, sample_len=4))  # warm-up
+            timing.clear()
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = model.decode(mel[:n], options)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, steps = _read_counts()
+            _check_results(f"decode across ranks, {label}", results, n, model.dims)
+            out[label] = {"tokens": [r.tokens for r in results], "wall_s": wall,
+                          "launches": counts, "steps": steps,
+                          "before_gather_s": timing["t0"] - t0 if timing else None,
+                          "gather_s": timing.get("s"), "gather_bytes": timing.get("bytes")}
+            if halves and options.fp16:  # at fp32 the whole batch's tokens are held instead
+                halves_of = (mel[:n // 2], mel[n // 2:n])
+                out[label]["halves_tokens"] = [r.tokens for h in halves_of
+                                               for r in model.decode(h, options)]
+    finally:
+        decoding._gather_shards = gather
+    return out
+
+
+def _decode_rank(job_path: str) -> None:
+    """One rank of ``phase_decode_ranks`` (a), under torchrun: joins a gloo
+    group on the one card, registers a mesh over both ranks and decodes
+    RANK_CASES; writes its rows to ``out_dir/rank<r>.json``."""
+    from olmoasr_tpu_torch import decoding
+    from olmoasr_tpu_torch.parallel import mesh as mesh_mod
+
+    with open(job_path) as f:
+        job = json.load(f)
+    rank = int(os.environ["RANK"])
+    exact_fp32()
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo")
+    try:
+        model, mel = _rank_inputs()
+        decoding.set_infer_mesh(mesh_mod.make_mesh(device_type="cuda"))
+        out = _decode_cases(model, mel)
+    finally:
+        decoding.set_infer_mesh(None)
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(job["out_dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _cli_fp32(argv) -> None:
+    """``transcribe.cli(argv)`` with every decode at fp32 and
+    RANKS_CLI_SAMPLE_LEN tokens a window, the CLI having no flag for
+    either."""
+    from olmoasr_tpu_torch import decoding, transcribe
+
+    options = transcribe.DecodingOptions
+    transcribe.DecodingOptions = lambda **kw: options(
+        **{**kw, "fp16": False, "sample_len": RANKS_CLI_SAMPLE_LEN})
+    try:
+        transcribe.cli(argv)
+    finally:
+        transcribe.DecodingOptions = options
+
+
+def _cli_rank(job_path: str) -> None:
+    """A rank of ``phase_decode_ranks`` (b), under torchrun:
+    :func:`_cli_fp32` of ``job["argv"]``, each ``{rank}`` in it this
+    rank's; with ``backend`` "gloo" it first joins a gloo group, which the
+    CLI then uses (two ranks on the one card)."""
+    with open(job_path) as f:
+        job = json.load(f)
+    gloo = job["backend"] == "gloo"
+    exact_fp32()
+    if gloo:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("gloo")
+    try:
+        _cli_fp32([a.replace("{rank}", os.environ["RANK"]) for a in job["argv"]])
+    finally:
+        if gloo:
+            torch.distributed.destroy_process_group()
+
+
+def _launch(flag: str, job: dict, job_path: str, world: int, cwd: str,
+            timeout: float = 600) -> float:
+    """``chip_smoke.py FLAG JOB`` on ``world`` ranks through torchrun, or as
+    one process (``world`` 0), each process given its share of the host's
+    cores (torchrun's default is one); its wall. Fails on a failed rank."""
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.abspath(__file__), flag, job_path]
+    if world:
+        cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={world}"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (here, env.get("PYTHONPATH"))))
+    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // max(world, 1)))
+    t0 = time.perf_counter()
+    _run(cmd, timeout=timeout, cwd=cwd, env=env)
+    return time.perf_counter() - t0
+
+
+def _same_cli_outputs(label: str, got_dir: str, want_dir: str, exact: bool) -> float:
+    """The five outputs of each file in ``got_dir`` against ``want_dir``:
+    the text formats byte-equal, the json equal but for the segments'
+    scores, within RANKS_SCORE_TOL unless ``exact``. Returns the largest
+    score difference."""
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names or len(names) != 10:
+        fail(f"{label}: wrote {sorted(os.listdir(got_dir))}, one process {names}")
+    worst = 0.0
+    for name in names:
+        with open(os.path.join(got_dir, name), encoding="utf-8") as f:
+            got = f.read()
+        with open(os.path.join(want_dir, name), encoding="utf-8") as f:
+            want = f.read()
+        if got == want:
+            continue
+        if not name.endswith(".json") or exact:
+            fail(f"{label}: {name} differs from the one-process CLI's:\n{got[:600]}\n--\n"
+                 f"{want[:600]}")
+        g, w = json.loads(got), json.loads(want)
+        for a, b in zip(g["segments"], w["segments"]):
+            worst = max([worst] + [abs(a[k] - b[k]) for k in SCORE_KEYS])
+            for k in SCORE_KEYS:
+                a[k] = b[k]
+        if g != w or worst > RANKS_SCORE_TOL:
+            fail(f"{label}: {name} differs from the one-process CLI's (scores up to {worst})")
+    return worst
+
+
+def phase_decode_ranks() -> dict:
+    """Decoding split across ranks (``decoding.set_infer_mesh``), on the one
+    card (NCCL refuses two ranks on one device, so two ranks go over gloo):
+
+    (a) the short-form slice's seeded small.en and windows, RANK_CASES in
+    this process, then on two ranks through torchrun (``--decode-rank``,
+    gloo, a mesh over both): both ranks must build the same results, in
+    bf16 equal to this process's decode of each half of the windows (what
+    each rank decodes), at fp32 to its decode of the whole batch; rows that
+    differ from the whole batch's in bf16 are counted (a kernel may split
+    its work otherwise at another row count, and bf16 rounds that). Each
+    rank's wall until the gather and the gather's wall and bytes; rank 0's
+    launches (greedy bf16: ``launches_decode_ranks``) along each case's
+    route.
+    (b) the transcribe CLI (beam 5 at t=0, ``--batch_size 2``, fp32,
+    RANKS_CLI_SAMPLE_LEN tokens a window) on
+    the entry points' two files, the checkpoint's vocabulary cut to the
+    byte tokens: one process (this one), world 1 through torchrun (the CLI
+    joins NCCL) and world 2 (gloo), the three at once: rank 0's five
+    outputs of each file equal the one process's (world 1 exactly), and
+    rank 1 writes nothing."""
+    exact_fp32()  # as in main, and in each rank
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, mel = _rank_inputs()
+        L = model.dims.n_text_layer
+        one = _decode_cases(model, mel, halves=True)
+        os.makedirs(os.path.join(tmp, "a"))
+        wall = _launch("--decode-rank", {"out_dir": os.path.join(tmp, "a")},
+                       os.path.join(tmp, "a", "job.json"), 2, tmp)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, "a", f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"decode across ranks (a): world 2 on the one card over gloo, torchrun "
+              f"{wall:.1f} s")
+        for label, n, fields in RANK_CASES:
+            got = [r[label] for r in ranks]
+            if got[0]["tokens"] != got[1]["tokens"]:
+                fail(f"decode across ranks, {label}: the two ranks built different results")
+            differ = sum(a != b for a, b in zip(got[0]["tokens"], one[label]["tokens"]))
+            if fields.get("fp16") is False and differ:
+                fail(f"decode across ranks, {label}: {differ} of {n} rows differ from one "
+                     f"process's at fp32")
+            if got[0]["tokens"] != one[label].get("halves_tokens", got[0]["tokens"]):
+                fail(f"decode across ranks, {label}: the ranks' results differ from one "
+                     f"process's decode of each half of the windows")
+            route = "sc" if fields.get("kv_quant") else "split"
+            _check_decode_counts(f"decode across ranks, {label}, rank 0", got[0]["launches"],
+                                 got[0]["steps"], L, route=route)
+            print(f"  {label}, {n} windows: one process {one[label]['wall_s']:.3f} s "
+                  f"({one[label]['steps']} steps); ranks "
+                  + ", ".join(f"{r['before_gather_s']:.3f} s to the gather ({r['steps']} steps)"
+                              for r in got)
+                  + f"; gather {got[0]['gather_s']:.3f} / {got[1]['gather_s']:.3f} s of "
+                  f"{got[0]['gather_bytes'] / 1e6:.1f} MB; wall {got[0]['wall_s']:.3f} / "
+                  f"{got[1]['wall_s']:.3f} s; "
+                  + ("" if "halves_tokens" not in one[label] else
+                     "equal to one process's decode of each half; ")
+                  + f"rows differing from its decode of the whole batch: {differ} of {n}")
+            out[label] = {"one_process_wall_s": one[label]["wall_s"],
+                          "rank_walls_s": [r["wall_s"] for r in got],
+                          "before_gather_s": [r["before_gather_s"] for r in got],
+                          "gather_s": [r["gather_s"] for r in got],
+                          "gather_bytes": got[0]["gather_bytes"], "rows_differing": differ,
+                          "launches": got[0]["launches"]}
+        out["launches"] = out["greedy bf16"]["launches"]
+
+        ckpt = os.path.join(tmp, "small.en.pt")
+        byte_vocabulary(model)
+        torch.save({"dims": dataclasses.asdict(model.dims),
+                    "model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   ckpt)
+        del model, mel
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(3)  # phase_entry_points' two files
+        wavs = []
+        for name, seconds in (("a", 35), ("b", 50)):
+            wavs.append(os.path.join(tmp, f"{name}.wav"))
+            _write_wav(wavs[-1], seconds, rng)
+        def argv(label, device="cuda"):
+            return [*wavs, "--model", ckpt, "-o", os.path.join(tmp, f"{label}_rank{{rank}}"),
+                    "--temperature_increment_on_fallback", "None", "--batch_size", "2",
+                    "--verbose", "False", "--device", device]
+
+        # the two torchruns and the one-process run (in this process) at once
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = {label: pool.submit(_launch, "--cli-rank",
+                                       {"argv": argv(label, device), "backend": backend},
+                                       os.path.join(tmp, f"cli_{label}.json"), world, tmp)
+                    for label, world, backend, device in (("world1", 1, "nccl", "cuda"),
+                                                          ("world2", 2, "gloo", "cuda:0"))}
+            t0 = time.perf_counter()
+            _cli_fp32([a.replace("{rank}", "0") for a in argv("one")])
+            walls = {"one": time.perf_counter() - t0}
+            walls.update({label: run.result() for label, run in runs.items()})
+        want = os.path.join(tmp, "one_rank0")
+        _same_cli_outputs("CLI, world 1 (NCCL)", os.path.join(tmp, "world1_rank0"), want, True)
+        worst = _same_cli_outputs("CLI, world 2 (gloo)", os.path.join(tmp, "world2_rank0"),
+                                  want, False)
+        if os.path.exists(os.path.join(tmp, "world2_rank1")):
+            fail("CLI, world 2: rank 1 wrote outputs")
+        print(f"decode across ranks (b): the CLI (beam 5, t=0, fp32, --batch_size 2, "
+              f"{RANKS_CLI_SAMPLE_LEN} tokens a window) on 35 s + 50 s, the three runs at once "
+              f"on the card: one process (in this one) {walls['one']:.1f} s, world 1 (NCCL) "
+              f"{walls['world1']:.1f} s, world 2 (gloo) {walls['world2']:.1f} s (process "
+              f"start included); rank 0's outputs equal the one "
+              f"process's (world 2: scores within {worst:.2e}), rank 1 wrote nothing")
+        out["cli_walls_s"], out["cli_score_max_diff"] = walls, worst
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3948,8 +4253,7 @@ def main() -> None:
         import olmoasr_tpu_torch  # noqa: F401
     except ImportError as exc:
         fail(f"run from the root of a checkout of the repository: {exc}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_fp32()
 
     def timed(phase, *args):
         t0 = time.perf_counter()
@@ -3975,11 +4279,12 @@ def main() -> None:
     training_mel.pop("params")
     timed(phase_train_fp32)
     timed(phase_entry_points)
+    decode_ranks = timed(phase_decode_ranks)
     evaluation = timed(phase_eval)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax",
-                                                                   "olmoasr_tpu"))
+                                                                   "olmoasr_tpu", "olmoasr"))
     if leaked:
-        fail(f"imported {leaked}: the port must not load jax or the JAX package")
+        fail(f"imported {leaked}: the port must not load jax, the JAX package or its shim")
 
     # each kernel's sources (its CUDA files, the first its own) and the TPU
     # kernel it replaces
@@ -4039,6 +4344,7 @@ def main() -> None:
             "launches_training_distributed_step":
                 training_dist["world1"]["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
+            "launches_decode_ranks": decode_ranks["launches"][name],
             "launches_eval": {k: v[name] for k, v in evaluation["launches"].items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "ms_spin": main_case["ms_spin"],
@@ -4072,6 +4378,10 @@ if __name__ == "__main__":
             greedy_steps(*sys.argv[2:])
         elif sys.argv[1] == "--train-rank" and len(sys.argv) == 3:
             _train_rank(sys.argv[2])  # one rank of phase_training_distributed, under torchrun
+        elif sys.argv[1] == "--decode-rank" and len(sys.argv) == 3:
+            _decode_rank(sys.argv[2])  # one rank of phase_decode_ranks (a), under torchrun
+        elif sys.argv[1] == "--cli-rank" and len(sys.argv) == 3:
+            _cli_rank(sys.argv[2])  # the CLI of phase_decode_ranks (b)
         else:
             fail(f"usage: {sys.argv[0]} [--ab TREE]")
     else:

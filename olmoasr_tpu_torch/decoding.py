@@ -20,21 +20,30 @@ of ``round(K * patience)``, and an ancestry map that ``decode_step`` reads
 instead of reordering the self rings; the host stops every
 ``EXIT_CHECK_EVERY`` steps once every window's worst finished score beats
 its best live one.
+
+With a mesh registered (``set_infer_mesh``, a ``DeviceMesh`` over the ranks of
+a process group), ``decode`` splits its window batch over every rank of the
+mesh, as the JAX package runs its decode program under ``shard_map``: each
+rank runs the loops above on its own windows, exits at its own checks, and
+the results are gathered to every rank once the loop is done.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from olmoasr_tpu_torch.tokenizer import Tokenizer, get_tokenizer
 from olmoasr_tpu_torch import audio as audio_mod
 from olmoasr_tpu_torch.models import whisper as model_mod
+from olmoasr_tpu_torch.parallel import mesh as mesh_mod
 
 EXIT_CHECK_EVERY = 32  # steps between host reads of the finished flags
 
@@ -440,6 +449,117 @@ def _decode_beam(
     return all_tokens, all_lp, probs_at_sot, audio_features
 
 
+# ---------------------------------------------------------------------------
+# batched decoding split across ranks
+# ---------------------------------------------------------------------------
+
+_INFER_MESH = None
+
+
+def set_infer_mesh(mesh) -> None:
+    """Register (or clear, with None) the mesh that ``decode`` splits its
+    window batch over: a ``DeviceMesh`` over every rank of the process group
+    (``parallel.mesh.make_mesh``), the counterpart of the JAX package's
+    ``set_infer_mesh``.
+
+    With a mesh registered, every rank of the group calls ``decode`` on the
+    same windows (SPMD), and each decodes its shard of them through the
+    one-device loops, model replicated, no collective inside the step loop;
+    each rank stops at its own ``EXIT_CHECK_EVERY`` check, as each chip's
+    ``while_loop`` exits on its own. Then every rank all-gathers the tokens,
+    the summed log-probs, the no-speech probabilities and the audio
+    features, so that every rank builds the same results and stays in step
+    with the others (the fallback ladder of ``transcribe_many``). Without a
+    mesh nothing is split and no collective is issued, also under torchrun.
+    ``decode`` falls back to the whole batch on every rank where the mesh is
+    unusable (``_usable_infer_mesh``)."""
+    global _INFER_MESH
+    if mesh is not None:
+        ranks = mesh_mod.shard_ranks(mesh)
+        if sorted(ranks) != list(range(mesh_mod.world_size())):
+            raise ValueError(f"the mesh's ranks {ranks} are not every rank of the process "
+                             f"group ({mesh_mod.world_size()})")
+    _INFER_MESH = mesh
+
+
+def join_infer_mesh(device) -> bool:
+    """What the command lines (``transcribe.cli``, ``eval.harness.main``) do
+    at their start: under torchrun, or in a process group the caller
+    already made (used as it is), and with ``OLMOASR_INFER_MESH`` unset or
+    ``auto`` (the JAX package's default), join the group
+    (``parallel.mesh.init_distributed``: ``nccl`` for ``cuda``, ``gloo``
+    for the CPU) and register a mesh over every rank. Any other value leaves
+    the process on its own. Returns True if this call created the group,
+    which the caller then leaves (``leave_infer_mesh``)."""
+    if os.environ.get("OLMOASR_INFER_MESH", "auto") != "auto":
+        return False
+    created = mesh_mod.init_distributed(device)
+    if dist.is_initialized():
+        set_infer_mesh(mesh_mod.make_mesh(device_type=mesh_mod.rank_device(device).type))
+    return created
+
+
+def leave_infer_mesh(created: bool) -> None:
+    """Clear the mesh, and leave the process group if ``join_infer_mesh``
+    created it."""
+    set_infer_mesh(None)
+    if created:
+        dist.destroy_process_group()
+
+
+def _usable_infer_mesh(batch: int):
+    """The registered mesh if it can split ``batch`` windows: none when no
+    mesh is registered, when its process group is gone (the counterpart of
+    the JAX stale-device guard), when it has one rank, or when ``batch`` is
+    not a multiple of its rank count (a ragged batch decodes whole on every
+    rank, as in the JAX package)."""
+    mesh = _INFER_MESH
+    if mesh is None:
+        return None
+    n = mesh_mod.shard_count(mesh)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        return None
+    if n <= 1 or batch % n:
+        return None
+    return mesh
+
+
+def _shard_generator(generator: torch.Generator, index: int) -> torch.Generator:
+    """The generator shard ``index`` samples from, the counterpart of the
+    JAX package's ``fold_in(rng, idx)``: a new generator on the caller's
+    device seeded with one 62-bit draw from the caller's generator (the same
+    draw on every rank, whose generators start alike) plus ``index``."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
+    return torch.Generator(device=generator.device).manual_seed(seed + index)
+
+
+def _gather_shards(mesh, tensors) -> List[torch.Tensor]:
+    """Each of ``tensors`` (this rank's shard) from every rank, joined along
+    dim 0 in shard order, on every rank: one ``all_gather`` a tensor."""
+    order = mesh_mod.shard_ranks(mesh)
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in order]
+        dist.all_gather(parts, t)
+        out.append(torch.cat([parts[r] for r in order]))
+    return out
+
+
+def _on_shards(mesh, fn, mel: torch.Tensor, generator: Optional[torch.Generator]):
+    """``fn(mel, generator)`` (a tuple of tensors with rows in window order)
+    on the whole batch without a mesh; with one, on this rank's windows
+    ``[i * B / n, (i + 1) * B / n)`` for its shard index i, sampling from
+    its shard's generator, and gathered from every rank."""
+    if mesh is None:
+        return fn(mel, generator)
+    n, index = mesh_mod.shard_count(mesh), mesh_mod.shard_index(mesh)
+    rows = mel.shape[0] // n
+    if generator is not None:
+        generator = _shard_generator(generator, index)
+    return _gather_shards(mesh, fn(mel[index * rows:(index + 1) * rows], generator))
+
+
 class MaximumLikelihoodRanker:
     """Pick the highest log-prob sequence, normalized by length or the Google
     NMT length penalty ([pip:whisper] decoding.MaximumLikelihoodRanker)."""
@@ -500,7 +620,10 @@ def decode(
     params. Sampling at temperature > 0 draws from ``generator``, a
     ``torch.Generator`` on the model's device, seeded 0 when none is given
     (the JAX package's ``PRNGKey(0)``). ``beam_size`` at temperature 0
-    takes the beam loop, whatever ``best_of`` says."""
+    takes the beam loop, whatever ``best_of`` says. With a mesh registered
+    (``set_infer_mesh``) the windows are split across its ranks, each
+    sampling from a generator derived from ``generator`` and its shard
+    index (``_shard_generator``)."""
     model = model.in_dtype(torch.bfloat16 if options.fp16 else torch.float32)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -532,25 +655,36 @@ def decode(
     sot_index = prompt.index(tokenizer.sot)
     cfg = build_filter_config(tokenizer, options, len(prompt), dims.n_vocab)
 
+    mesh = _usable_infer_mesh(mel.shape[0])
     if options.beam_size is not None and options.temperature == 0:
-        all_tokens, all_lp, probs_at_sot, audio_features = _decode_beam(
-            model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
-            options.beam_size, options.patience,
-        )
+        def beam(mel, _):
+            all_tokens, all_lp, probs_at_sot, audio_features = _decode_beam(
+                model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
+                options.beam_size, options.patience,
+            )
+            return all_tokens, all_lp, probs_at_sot[:, tokenizer.no_speech], audio_features
+
+        all_tokens, all_lp, no_speech, audio_features = _on_shards(mesh, beam, mel, None)
         token_lists, lp_lists = _beam_hypotheses(all_tokens, all_lp, tokenizer.eot)
         return _finalize_results(
-            token_lists, lp_lists, probs_at_sot[:, tokenizer.no_speech].cpu().numpy(),
+            token_lists, lp_lists, no_speech.cpu().numpy(),
             tokenizer, options, audio_features, language, single,
         )
 
     # best_of samples ride as extra token rows over one encode per window
     n_groups = options.best_of if (options.best_of and options.temperature > 0) else 1
-    tokens, sum_logprobs, probs_at_sot, audio_features = _decode_sample(
-        model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
-        options.temperature, n_groups, generator,
-    )
-    # the groups of a window share its audio, so their no-speech probs agree
-    no_speech_probs = probs_at_sot[::n_groups, tokenizer.no_speech].cpu().numpy()
+
+    def sample(mel, generator):
+        tokens, sum_logprobs, probs_at_sot, audio_features = _decode_sample(
+            model, mel, prompt, cfg, sample_len, sot_index, options.kv_quant,
+            options.temperature, n_groups, generator,
+        )
+        # the groups of a window share its audio, so their no-speech probs agree
+        return tokens, sum_logprobs, probs_at_sot[::n_groups, tokenizer.no_speech], audio_features
+
+    tokens, sum_logprobs, no_speech, audio_features = _on_shards(
+        mesh, sample, mel, generator if options.temperature > 0 else None)
+    no_speech_probs = no_speech.cpu().numpy()
     seqs, lps = tokens.cpu().tolist(), sum_logprobs.cpu().tolist()
     token_lists, lp_lists = [], []
     for b in range(mel.shape[0]):

@@ -1,4 +1,5 @@
-"""Short-form and long-form WER evaluation loops on one GPU.
+"""Short-form and long-form WER evaluation loops on one GPU, or split across
+the ranks of a torchrun launch (``main``).
 
 Counterpart of ``olmoasr_tpu/eval/harness.py`` (the reference's
 ``scripts/eval/eval.py:1648-2294``):
@@ -259,10 +260,18 @@ def bootstrap_ci(
 def main(argv: Optional[List[str]] = None):
     """CLI: ``python -m olmoasr_tpu_torch.eval.harness --eval_set ... --ckpt ...``;
     the JAX CLI's flags and defaults plus ``--device`` (the card unless the
-    caller asks for the CPU). Prints the result's json as its last line."""
+    caller asks for the CPU). Prints the result's json as its last line.
+
+    Under torchrun every rank joins the group and each decode batch is split
+    across the ranks (``decoding.join_infer_mesh``; a ragged last batch
+    decodes whole on every rank); a bare ``--device cuda`` is each rank's
+    ``cuda:{LOCAL_RANK}``. Every rank computes; rank 0 alone prints, writes
+    the results and logs."""
     import argparse
 
     from olmoasr_tpu_torch.api import load_model
+    from olmoasr_tpu_torch.decoding import join_infer_mesh, leave_infer_mesh
+    from olmoasr_tpu_torch.parallel import mesh as mesh_mod
 
     p = argparse.ArgumentParser()
     p.add_argument("--eval_set", required=True)
@@ -279,17 +288,25 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--device", default="cuda", help="device to evaluate on")
     args = p.parse_args(argv)
 
-    model = load_model(args.ckpt, device=args.device, inference=True)
-    if args.long_form:
-        result = long_form_eval(
-            model, args.eval_set, args.eval_dir, max_samples=args.max_samples,
-            verbose=True,
-        )
-    else:
-        result = short_form_eval(
-            model, args.eval_set, args.eval_dir, batch_size=args.batch_size,
-            max_samples=args.max_samples, kv_quant=args.kv_quant, verbose=True,
-        )
+    created = join_infer_mesh(args.device)
+    try:
+        writes = mesh_mod.rank() == 0
+        device = mesh_mod.rank_device(args.device) if mesh_mod.world_size() > 1 else args.device
+        model = load_model(args.ckpt, device=device, inference=True)
+        if args.long_form:
+            result = long_form_eval(
+                model, args.eval_set, args.eval_dir, max_samples=args.max_samples,
+                verbose=writes,
+            )
+        else:
+            result = short_form_eval(
+                model, args.eval_set, args.eval_dir, batch_size=args.batch_size,
+                max_samples=args.max_samples, kv_quant=args.kv_quant, verbose=writes,
+            )
+    finally:
+        leave_infer_mesh(created)
+    if not writes:
+        return
     write_results(result, args.out_dir, os.path.basename(args.ckpt))
     if args.wandb:
         from olmoasr_tpu_torch.training.logging_utils import EVAL_TABLE_COLS, MetricsLogger

@@ -5,7 +5,9 @@ The JAX package lays its devices out as a ``Mesh`` with a ``data`` axis (data
 parallelism, the reference's DDP) and an ``fsdp`` axis (parameter and
 optimizer-state sharding, the reference's FSDP); this module builds the same
 layout as a ``DeviceMesh`` over the ranks of the process group, which
-``training.train.shard_train_state`` hands to DDP or FSDP2. The JAX
+``training.train.shard_train_state`` hands to DDP or FSDP2, and over which
+``decoding.set_infer_mesh`` splits a decode batch (``shard_ranks``,
+``shard_index``). The JAX
 package's ``param_spec`` / ``param_shardings`` pick TPU layouts and are not
 ported: FSDP2 shards dim 0 of every parameter, which computes the same
 numbers.
@@ -19,7 +21,7 @@ for ``cuda`` devices, ``gloo`` for the CPU.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
@@ -32,6 +34,20 @@ def launched() -> bool:
     """Whether this process was started by torchrun (or another launcher
     that sets its environment)."""
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+# what torchrun sets in each rank's environment (and TORCHELASTIC_*): a child
+# process that inherits it would join the launcher's group
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                "GROUP_WORLD_SIZE", "ROLE_RANK", "ROLE_NAME", "ROLE_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def without_launcher_env(env) -> dict:
+    """A copy of ``env`` without torchrun's variables, for a child process
+    that must run on its own."""
+    return {k: v for k, v in env.items()
+            if k not in LAUNCHER_ENV and not k.startswith("TORCHELASTIC_")}
 
 
 def rank() -> int:
@@ -82,3 +98,29 @@ def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, *, device_type: str
     if n_data * n_fsdp != world:
         raise ValueError(f"mesh {n_data}x{n_fsdp} != {world} ranks")
     return init_device_mesh(device_type, (n_data, n_fsdp), mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+
+
+def shard_ranks(mesh) -> List[int]:
+    """The ranks of ``mesh`` in the order of the shards a batch split over
+    every axis of it gets: its rank grid flattened in row-major order, as
+    ``shard_map``'s ``P(axes)`` places the blocks of a batch over a JAX
+    mesh. Shard ``i`` holds rows ``[i * B / n, (i + 1) * B / n)``."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def shard_count(mesh) -> int:
+    """The number of shards ``mesh`` splits a batch into: its rank count."""
+    return mesh.mesh.numel()
+
+
+def shard_index(mesh) -> int:
+    """This rank's shard of a batch split over every axis of ``mesh``: its
+    coordinates on the mesh's axes read in row-major order (the JAX
+    package's ``idx = idx * size + axis_index(axis)`` over the axes)."""
+    coordinate = mesh.get_coordinate()
+    if coordinate is None:
+        raise ValueError(f"rank {rank()} is not in the mesh {shard_ranks(mesh)}")
+    index = 0
+    for c, size in zip(coordinate, mesh.mesh.shape):
+        index = index * size + c
+    return index

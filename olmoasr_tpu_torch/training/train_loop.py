@@ -55,13 +55,15 @@ def run_async_eval(eval_ckpt_path: str, eval_set: str, eval_dir: str, out_dir: s
     """Spawn the port's eval harness on ``eval_ckpt_path``
     (train_timestamps.py:2013-2089), on ``device``. The JAX package sends
     this process to the host CPU because a TPU cannot be shared between
-    processes; a GPU can, so it evaluates on the trainer's own device."""
+    processes; a GPU can, so it evaluates on the trainer's own device. The
+    child gets the trainer's environment without torchrun's variables: it
+    runs on its own and does not join the trainer's process group."""
     cmd = [
         sys.executable, "-m", "olmoasr_tpu_torch.eval.harness",
         "--eval_set", eval_set, "--eval_dir", eval_dir,
         "--ckpt", eval_ckpt_path, "--out_dir", out_dir, "--device", str(device),
     ]
-    env = dict(os.environ)
+    env = mesh_mod.without_launcher_env(os.environ)
     # the harness of the checkout this trainer runs from
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = os.pathsep.join(filter(None, (root, env.get("PYTHONPATH"))))

@@ -562,10 +562,20 @@ def cli(argv: Optional[List[str]] = None) -> None:
     """Command line: the JAX package's ``transcribe.cli`` with the same
     arguments and defaults, plus ``--device`` (PyTorch wants an explicit
     device; there is no fall back to the CPU). ``--model`` is a local
-    ``.pt`` or ``.npz`` for the port's ``load_model``."""
+    ``.pt`` or ``.npz`` for the port's ``load_model``.
+
+    Under torchrun (``python -m torch.distributed.run --nproc_per_node=R -m
+    olmoasr_tpu_torch.transcribe ...``) every rank joins the group and each
+    batch of windows is split across the ranks (``decoding.join_infer_mesh``;
+    ``--batch_size`` files a round, so a batch of one window decodes whole
+    on every rank). A bare ``--device cuda`` is each rank's
+    ``cuda:{LOCAL_RANK}``. Every rank computes; rank 0 alone prints and
+    writes the outputs."""
     import argparse
     import os
 
+    from olmoasr_tpu_torch.decoding import join_infer_mesh, leave_infer_mesh
+    from olmoasr_tpu_torch.parallel import mesh as mesh_mod
     from olmoasr_tpu_torch.writers import get_writer
     from olmoasr_tpu_torch.api import load_model
 
@@ -633,7 +643,6 @@ def cli(argv: Optional[List[str]] = None) -> None:
     output_dir = args.pop("output_dir")
     output_format = args.pop("output_format")
     device = args.pop("device")
-    os.makedirs(output_dir, exist_ok=True)
 
     temperature = args.pop("temperature")
     if (increment := args.pop("temperature_increment_on_fallback")) is not None:
@@ -641,22 +650,33 @@ def cli(argv: Optional[List[str]] = None) -> None:
     else:
         temperature = [temperature]
 
-    model = load_model(model_name, device=device, download_root=model_dir)
-    writer = get_writer(output_format, output_dir)
-    word_options = ["highlight_words", "max_line_count", "max_line_width",
-                    "max_words_per_line"]
-    writer_args = {k: args.pop(k) for k in word_options}
-    batch_size = args.pop("batch_size")
-    audio_paths = args.pop("audio")
-    if batch_size > 1 and len(audio_paths) > 1:
-        results = transcribe_many(model, audio_paths, batch_size=batch_size,
-                                  temperature=temperature, **args)
+    created = join_infer_mesh(device)
+    try:
+        writes = mesh_mod.rank() == 0
+        if writes:
+            os.makedirs(output_dir, exist_ok=True)
+        else:
+            args["verbose"] = None
+        if mesh_mod.world_size() > 1:  # each rank on its own card
+            device = mesh_mod.rank_device(device)
+        model = load_model(model_name, device=device, download_root=model_dir)
+        writer = get_writer(output_format, output_dir)
+        word_options = ["highlight_words", "max_line_count", "max_line_width",
+                        "max_words_per_line"]
+        writer_args = {k: args.pop(k) for k in word_options}
+        batch_size = args.pop("batch_size")
+        audio_paths = args.pop("audio")
+        if batch_size > 1 and len(audio_paths) > 1:
+            results = transcribe_many(model, audio_paths, batch_size=batch_size,
+                                      temperature=temperature, **args)
+        else:
+            results = (transcribe(model, audio_path, temperature=temperature, **args)
+                       for audio_path in audio_paths)
         for audio_path, result in zip(audio_paths, results):
-            writer(result, audio_path, **writer_args)
-    else:
-        for audio_path in audio_paths:
-            writer(transcribe(model, audio_path, temperature=temperature, **args),
-                   audio_path, **writer_args)
+            if writes:
+                writer(result, audio_path, **writer_args)
+    finally:
+        leave_infer_mesh(created)
 
 
 if __name__ == "__main__":

@@ -274,3 +274,24 @@ def test_train_loop_under_torchrun_resumes_across_world_sizes(shard_dir, tmp_pat
     assert moments == {torch.bfloat16, torch.float32}  # mu bf16, nu fp32
     out = train_loop.main(**kw, micro_batch_size=4, max_steps_this_run=1)
     assert out["global_step"] == 3 and np.isfinite(out["train/loss"])
+
+
+def test_async_eval_child_runs_without_torchruns_environment(monkeypatch):
+    """The harness that ``run_async_eval`` spawns from rank 0 of a torchrun
+    trainer gets the trainer's environment without torchrun's variables, so
+    it does not join the trainer's process group; the rest passes through."""
+    from olmoasr_tpu_torch.training import train_loop
+
+    launcher = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "2",
+                "GROUP_RANK": "0", "ROLE_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": "29500", "TORCHELASTIC_RUN_ID": "x", "TORCHELASTIC_RESTART_COUNT": "0"}
+    for k, v in {**launcher, "OLMOASR_KEEP": "1"}.items():
+        monkeypatch.setenv(k, v)
+    spawned = []
+    monkeypatch.setattr(train_loop.subprocess, "Popen",
+                        lambda cmd, env: spawned.append((cmd, env)) or "proc")
+    assert train_loop.run_async_eval("e.npz", "set", "dir", "out", "cpu") == "proc"
+    ((cmd, env),) = spawned
+    assert cmd[1:3] == ["-m", "olmoasr_tpu_torch.eval.harness"] and cmd[-2:] == ["--device", "cpu"]
+    assert not set(launcher) & set(env)
+    assert env["OLMOASR_KEEP"] == "1" and REPO in env["PYTHONPATH"].split(os.pathsep)

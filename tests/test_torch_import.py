@@ -1,6 +1,6 @@
 """The port imports torch and never jax, optax, orbax or anything of the JAX
-package (``olmoasr_tpu``); chip_smoke.py refuses to run without a CUDA device
-or outside a checkout."""
+package (``olmoasr_tpu``) or of the top-level ``olmoasr`` shim bound to it;
+chip_smoke.py refuses to run without a CUDA device or outside a checkout."""
 
 from __future__ import annotations
 
@@ -25,8 +25,9 @@ def _port_modules():
 
 
 # the modules the port must never load: jax and its optimizer and checkpoint
-# libraries, and the JAX package itself (even its modules free of jax)
-FORBIDDEN = ("jax", "optax", "orbax", "olmoasr_tpu")
+# libraries, the JAX package itself (even its modules free of jax) and the
+# top-level ``olmoasr`` shim over it (the port's own is ``olmoasr_tpu_torch.olmoasr``)
+FORBIDDEN = ("jax", "optax", "orbax", "olmoasr_tpu", "olmoasr")
 LEAKED = (f"leaked = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
           "assert not leaked, leaked\n")
 
@@ -52,17 +53,20 @@ def test_port_never_imports_jax():
                  "tokenizer", "writers", "utils", "models.dims", "training.validate",
                  "eval.harness", "eval.datasets", "eval.wer", "eval.analysis", "eval.figures",
                  "normalizers", "normalizers.english", "normalizers.basic",
-                 "normalizers.build_spelling"):
+                 "normalizers.build_spelling", "data.segment", "data.align", "olmoasr",
+                 "olmoasr.model", "olmoasr.inf_model", "olmoasr.transcribe",
+                 "olmoasr.preprocess", "olmoasr.utils", "demo.demo", "parallel.mesh"):
         assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 
 
 def test_entry_points_import_no_jax():
-    """The server module, the trainer, the eval harness and ``python -m
-    olmoasr_tpu_torch.transcribe --help``."""
+    """The server module, the trainer, the eval harness, the compat surface,
+    the demo and ``python -m olmoasr_tpu_torch.transcribe --help``."""
     _assert_imports_no_jax(["olmoasr_tpu_torch.serve"])
     _assert_imports_no_jax(["olmoasr_tpu_torch.training.train_loop"])
     _assert_imports_no_jax(["olmoasr_tpu_torch.eval.harness", "olmoasr_tpu_torch.normalizers"])
+    _assert_imports_no_jax(["olmoasr_tpu_torch.olmoasr", "olmoasr_tpu_torch.demo.demo"])
     code = (
         "import runpy, sys\n"
         "sys.argv = ['transcribe', '--help']\n"

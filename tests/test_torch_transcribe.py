@@ -359,7 +359,18 @@ def test_cli_arguments_and_defaults_are_the_jax_clis():
     assert port.replace(" " + device, "").replace(" [--device DEVICE]", "") == orig
 
 
-def test_cli_writes_what_transcribe_many_returns(tmp_path, monkeypatch):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: its bf16 CPU decode gains little
+    from more (alone, 35 s at 8 threads and 48 s at 1), and at 8 it stalls
+    where the suite's workers share the host's cores (671 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_cli_writes_what_transcribe_many_returns(tmp_path, monkeypatch, one_thread):
     """The CLI on two short wavs and a micro .npz written by the JAX package:
     the five writer outputs for each, and JSON equal to the port's own
     transcribe_many with the same arguments (bf16, beam_size=5 and best_of=5,

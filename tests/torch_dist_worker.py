@@ -1,8 +1,12 @@
-"""One rank of the multi-rank training tests (``tests/test_torch_distributed.py``).
+"""One rank of the multi-rank tests (``tests/test_torch_distributed.py``,
+``tests/test_torch_decoding_mesh.py``).
 
 Under torchrun, ``tests/torch_dist_worker.py loop JSON`` calls
 ``train_loop.main(**JSON)`` with ``variant`` the ``ModelDimensions`` of
-JSON's ``dims`` (the CLI takes only a variant's name).
+JSON's ``dims`` (the CLI takes only a variant's name), and
+``tests/torch_dist_worker.py cli JSON`` calls ``transcribe.cli(JSON["argv"])``,
+each ``{rank}`` in it this rank's, with every decode at fp32 and
+``JSON["sample_len"]`` tokens (the CLI has no flag for either).
 
 Run as ``python tests/torch_dist_worker.py JOB RANK WORLD INIT_FILE``: joins a
 ``gloo`` process group through the ``file://`` rendezvous ``INIT_FILE``, then
@@ -11,14 +15,18 @@ spreads it over a (world / fsdp_size, fsdp_size) mesh with
 ``train.shard_train_state`` and takes the job's steps, each on this rank's
 rows of the global batch (rank r holds rows r * m to (r + 1) * m of each
 micro-batch, as the JAX package's batch sharding places them). Rank 0 writes
-every run's metrics, gathered parameters and last gradients to ``JOB.out``. Imports
-torch and the port only, never JAX.
+every run's metrics, gathered parameters and last gradients to ``JOB.out``. A
+job whose ``kind`` is ``"decode"`` instead registers an inference mesh over the
+job's rank grid and decodes each of its cases (``run_decode``), then runs the
+eval harness's command line on the job's eval set; every rank writes its own
+``JOB.out<rank>``. Imports torch and the port only, never JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 
 import torch
@@ -58,6 +66,61 @@ def run(job: dict, rank: int, world: int) -> dict:
     return out
 
 
+def fp32_decode(module, sample_len: int) -> None:
+    """Every ``DecodingOptions`` that ``module`` builds decodes at fp32 and
+    ``sample_len`` tokens."""
+    from olmoasr_tpu_torch.decoding import DecodingOptions
+
+    module.DecodingOptions = lambda **kw: DecodingOptions(
+        **{**kw, "fp16": False, "sample_len": sample_len})
+
+
+def run_decode(job: dict, rank: int, world: int) -> dict:
+    """With an inference mesh over the rank grid ``job["layout"]``: each
+    case's results of ``decode`` (tokens, avg_logprob, no_speech_prob, the
+    audio features) and the collectives it issued; then, if the job has an
+    ``eval`` entry, ``eval.harness.main`` with its arguments (fp32 decodes,
+    this rank's ``out_dir``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from olmoasr_tpu_torch import decoding
+    from olmoasr_tpu_torch.api import _new_model
+
+    dims = ModelDimensions(**job["dims"])
+    model = _new_model(dims, False, "cpu", torch.float32)
+    model.load_state_dict(job["state_dict"])
+    mesh = DeviceMesh("cpu", torch.tensor(job["layout"]), mesh_dim_names=("data", "fsdp"))
+    gathers = []
+    all_gather = dist.all_gather
+
+    def counted(*args, **kwargs):
+        gathers.append(1)
+        return all_gather(*args, **kwargs)
+
+    dist.all_gather = counted
+    out = {"shard_index": mesh_mod.shard_index(mesh), "cases": {}}
+    try:
+        for name, (mel, options, registered) in job["cases"].items():
+            decoding.set_infer_mesh(mesh if registered else None)
+            gathers.clear()
+            results = decoding.decode(model, mel, decoding.DecodingOptions(**options))
+            out["cases"][name] = {
+                "tokens": [r.tokens for r in results],
+                "avg_logprob": [r.avg_logprob for r in results],
+                "no_speech_prob": [r.no_speech_prob for r in results],
+                "audio_features": torch.stack([r.audio_features for r in results]),
+                "gathers": len(gathers)}
+    finally:
+        dist.all_gather = all_gather
+        decoding.set_infer_mesh(None)
+    if "eval" in job:
+        from olmoasr_tpu_torch.eval import harness
+
+        fp32_decode(harness, job["sample_len"])
+        harness.main([*job["eval"], "--out_dir", f"{job['eval_out']}{rank}"])
+    return out
+
+
 def main(argv) -> None:
     if argv[0] == "loop":
         from olmoasr_tpu_torch.training import train_loop
@@ -66,12 +129,23 @@ def main(argv) -> None:
         dims = ModelDimensions(**kwargs.pop("dims"))
         train_loop.main(**kwargs, variant=dims)
         return
+    if argv[0] == "cli":
+        from olmoasr_tpu_torch import transcribe
+
+        job = json.loads(argv[1])
+        fp32_decode(transcribe, job["sample_len"])
+        transcribe.cli([a.replace("{rank}", os.environ["RANK"]) for a in job["argv"]])
+        return
     job_path, rank, world, init_file = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
     try:
-        out = run(torch.load(job_path, weights_only=False), rank, world)
+        job = torch.load(job_path, weights_only=False)
+        if job.get("kind") == "decode":
+            torch.save(run_decode(job, rank, world), f"{job_path}.out{rank}")
+            return
+        out = run(job, rank, world)
         if rank == 0:
             torch.save(out, f"{job_path}.out")
     finally:
