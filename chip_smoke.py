@@ -98,7 +98,11 @@ printed line each (or a few):
    against one process (each rank's windows equal to one process's decode
    of them; at fp32 the whole batch's tokens), each rank's wall and the
    gather's; the transcribe CLI at fp32 under torchrun, world 1 over NCCL
-   and world 2 over gloo, against one process (rank 0's outputs);
+   and world 2 over gloo, against one process (rank 0's outputs); the HTTP
+   server under torchrun the same way (rank 0 batches and broadcasts, every
+   rank decodes its share), 8 concurrent requests at fp32 to each, rank 0's
+   answers against one process's, then the default traffic at world 2, each
+   rank's ``main`` returning on an interrupt;
 8. evaluation: 96 utterances of 3-20 s seeded noise in a LibriSpeech-format
    tree through ``eval.harness.short_form_eval`` at B=64 on small.en (its
    vocabulary cut to the byte tokens), bf16 and int8 cross K/V, each
@@ -121,7 +125,9 @@ for the flash forward and backward, the int8-ring loop's for
 the int8 self pass and the routes' for the whole-layer launch and the
 standalone cross attention (``launches_eval``: the evaluation's short-form
 bf16, int8 and long-form runs; ``launches_decode_ranks``: rank 0's greedy
-bf16 decode across two ranks). Every kernel in that line
+bf16 decode across two ranks; ``launches_serve_ranks``: rank 0's of the
+server across two ranks, its fp32 requests and its default traffic). Every
+kernel in that line
 carries its bound (the least time the card could take for its main case:
 bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
 larger) and ``library_ms``, the time of one PyTorch call computing the same
@@ -150,6 +156,7 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2997,52 +3004,76 @@ def phase_entry_points() -> dict:
     return out
 
 
-def _server_port(server, err, timeout: float = 300) -> int:
-    """The port from the line the server prints once it listens."""
+def _listen(proc, err, timeout: float = 300) -> tuple:
+    """The port from the line the server ``proc`` prints once it listens,
+    and the list of its output's lines, which a thread goes on filling to
+    the output's end."""
     lines: list = []
-    reader = threading.Thread(target=lambda: lines.append(server.stdout.readline()), daemon=True)
-    reader.start()
-    reader.join(timeout)
-    found = re.search(r" on [^ ]*:(\d+) ", lines[0]) if lines else None
-    if found is None:
+    listening = threading.Event()
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving "):
+                listening.set()
+        listening.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    listening.wait(timeout)
+    found = [re.search(r" on [^ ]*:(\d+) ", line) for line in lines
+             if line.startswith("serving ")]
+    if not found or found[0] is None:
         err.seek(0)
         fail(f"server did not start within {timeout} s: {lines} {err.read()[-4000:]}")
-    return int(found.group(1))
+    return int(found[0].group(1)), lines
 
 
-def _drive_server(server, reqs, err, urllib_request) -> dict:
-    base = f"http://127.0.0.1:{_server_port(server, err)}"
-    answers = [None] * len(reqs)
+def _post_all(port: int, wavs, queries, urllib_request) -> tuple:
+    """Every file of ``wavs`` POSTed at once, file k with ``queries[k]``: the
+    answers ((status, result or error) each) and the wall."""
+    answers = [None] * len(wavs)
 
     def post(k):
-        query = "temperature=0" + ("&word_timestamps=true" if k == 0 else "")
-        with open(reqs[k], "rb") as f:
-            req = urllib_request.Request(f"{base}/v1/transcribe?{query}", data=f.read(),
-                                         method="POST", headers={"X-Filename": "req.wav"})
+        with open(wavs[k], "rb") as f:
+            req = urllib_request.Request(f"http://127.0.0.1:{port}/v1/transcribe?{queries[k]}",
+                                         data=f.read(), method="POST",
+                                         headers={"X-Filename": "req.wav"})
         try:
             with urllib_request.urlopen(req, timeout=600) as r:
                 answers[k] = (r.status, json.loads(r.read()))
-        except Exception as exc:  # noqa: BLE001 -- reported below as a failed request
+        except Exception as exc:  # noqa: BLE001 -- reported as a failed request
             answers[k] = (None, repr(exc))
 
-    threads = [threading.Thread(target=post, args=(k,)) for k in range(len(reqs))]
+    threads = [threading.Thread(target=post, args=(k,)) for k in range(len(wavs))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    wall = time.perf_counter() - t0
+    return answers, time.perf_counter() - t0
+
+
+def _answered(label: str, answers) -> list:
+    """The results, each answered 200 with the transcript's schema."""
     for k, (status, body) in enumerate(answers):
         if status != 200:
-            fail(f"server request {k}: {status} {str(body)[:500]}")
-        _check_transcript(f"server request {k}", body)
+            fail(f"{label}, request {k}: {status} {str(body)[:500]}")
+        _check_transcript(f"{label}, request {k}", body)
+    return [body for _, body in answers]
+
+
+def _drive_server(server, reqs, err, urllib_request) -> dict:
+    port, _ = _listen(server, err)
+    queries = ["temperature=0&word_timestamps=true"] + ["temperature=0"] * (len(reqs) - 1)
+    answers, wall = _post_all(port, reqs, queries, urllib_request)
+    bodies = _answered("server", answers)
     # request 0 asked for word timestamps: each of its segments has words (a
     # random model's 12 s may give none); the others' segments have none
-    n_words = _check_words("server request 0 (word timestamps)", [answers[0][1]])
-    if any("words" in seg for _, body in answers[1:] for seg in body["segments"]
+    n_words = _check_words("server request 0 (word timestamps)", bodies[:1])
+    if any("words" in seg for body in bodies[1:] for seg in body["segments"]
            if seg["tokens"]):
         fail("server: words in a request that did not ask for word timestamps")
-    with urllib_request.urlopen(f"{base}/healthz", timeout=30) as r:
+    with urllib_request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
         stats = json.loads(r.read())["stats"]
     print(f"  server (int8 cross K/V, beam_size=5): {len(reqs)} of {len(reqs)} concurrent "
           f"requests answered 200 in {wall:.1f} s, {n_words} words in the one with word "
@@ -3189,11 +3220,10 @@ def _cli_rank(job_path: str) -> None:
             torch.distributed.destroy_process_group()
 
 
-def _launch(flag: str, job: dict, job_path: str, world: int, cwd: str,
-            timeout: float = 600) -> float:
-    """``chip_smoke.py FLAG JOB`` on ``world`` ranks through torchrun, or as
-    one process (``world`` 0), each process given its share of the host's
-    cores (torchrun's default is one); its wall. Fails on a failed rank."""
+def _rank_cmd(flag: str, job: dict, job_path: str, world: int) -> tuple:
+    """(command, environment) of ``chip_smoke.py FLAG JOB`` on ``world`` ranks
+    through torchrun, or as one process (``world`` 0), each process given its
+    share of the host's cores (torchrun's default is one)."""
     with open(job_path, "w") as f:
         json.dump(job, f)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3203,6 +3233,13 @@ def _launch(flag: str, job: dict, job_path: str, world: int, cwd: str,
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, (here, env.get("PYTHONPATH"))))
     env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // max(world, 1)))
+    return cmd, env
+
+
+def _launch(flag: str, job: dict, job_path: str, world: int, cwd: str,
+            timeout: float = 600) -> float:
+    """:func:`_rank_cmd` run to its end; its wall. Fails on a failed rank."""
+    cmd, env = _rank_cmd(flag, job, job_path, world)
     t0 = time.perf_counter()
     _run(cmd, timeout=timeout, cwd=cwd, env=env)
     return time.perf_counter() - t0
@@ -3237,6 +3274,161 @@ def _same_cli_outputs(label: str, got_dir: str, want_dir: str, exact: bool) -> f
     return worst
 
 
+SERVE_RANK_REQUESTS = 8  # each server's concurrent requests, 10-20 s of seeded noise each
+# (label, world, backend, --device) of each server of part (c): one process,
+# torchrun at world 1 (the server joins NCCL) and at world 2 (gloo on the one
+# card: NCCL refuses two ranks on one device)
+SERVE_RANKS = (("one", 0, "nccl", "cuda"), ("world1", 1, "nccl", "cuda"),
+               ("world2", 2, "gloo", "cuda:0"))
+SERVE_STOP_S = 30  # what a stopped server and each of its ranks may take to end
+
+
+def _serve_rank(job_path: str) -> None:
+    """A rank of ``phase_decode_ranks`` (c), or its one process:
+    ``serve.main(job["argv"])`` with the launch counts set to 0 first; with
+    ``backend`` "gloo" it first joins a gloo group on the one card, which
+    ``main`` then uses. Once ``main`` returns (on an interrupt: rank 0 stops
+    and the others return on its stop message) writes the launches and
+    single-token steps to ``out_dir/<label>_rank<r>.json``."""
+    from olmoasr_tpu_torch import serve
+
+    with open(job_path) as f:
+        job = json.load(f)
+    gloo = job["backend"] == "gloo"
+    exact_fp32()
+    if gloo:
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("gloo")
+    try:
+        _reset_counts()
+        serve.main(job["argv"])
+        counts, steps = _read_counts()
+    finally:
+        if gloo:
+            torch.distributed.destroy_process_group()
+    name = f"{job['label']}_rank{os.environ.get('RANK', '0')}.json"
+    with open(os.path.join(job["out_dir"], name), "w") as f:
+        json.dump({"launches": counts, "steps": steps}, f)
+
+
+def _same_answers(label: str, got: list, want: list) -> float:
+    """Each result equal to ``want``'s, its segments' scores within
+    RANKS_SCORE_TOL; returns the largest score difference."""
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        g, w = json.loads(json.dumps(g)), json.loads(json.dumps(w))
+        for a, b in zip(g["segments"], w["segments"]):
+            worst = max([worst] + [abs(a[key] - b[key]) for key in SCORE_KEYS])
+            for key in SCORE_KEYS:
+                a[key] = b[key]
+        if g != w or worst > RANKS_SCORE_TOL:
+            fail(f"{label}, request {k}: differs from the one-process server's (scores up to "
+                 f"{worst}):\n{str(got[k])[:600]}\n--\n{str(want[k])[:600]}")
+    return worst
+
+
+def _serve_ranks(tmp: str, ckpt: str, L: int) -> dict:
+    """Part (c) of :func:`phase_decode_ranks`: ``python -m
+    olmoasr_tpu_torch.serve``'s ``main`` (``chip_smoke.py --serve-rank``) on
+    ``ckpt`` as one process, under torchrun at world 1 (NCCL) and at world 2
+    (gloo), the three at once; each answers SERVE_RANK_REQUESTS concurrent
+    requests at fp32 and t=0, rank 0's answers equal to the one process's
+    (text exact, scores within RANKS_SCORE_TOL), fewer batches than requests
+    on ``/healthz``, one listening line a server (rank 1 prints none); then
+    the world-2 server the same files as the default traffic (int8 cross
+    K/V, the ladder), each answered 200 with a transcript. Then an interrupt
+    to each: every rank's ``main`` must return within SERVE_STOP_S; every
+    rank's single-token steps all on the "sc" route. Rank 0's launches at
+    world 2 are ``launches_serve_ranks``."""
+    import urllib.request
+
+    rng = np.random.default_rng(6)
+    wavs = []
+    for k in range(SERVE_RANK_REQUESTS):
+        wavs.append(os.path.join(tmp, f"serve{k}.wav"))
+        _write_wav(wavs[-1], 10 + (10 * k) // (SERVE_RANK_REQUESTS - 1), rng)
+    servers, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for label, world, backend, device in SERVE_RANKS:
+            job = {"argv": ["--model", ckpt, "--device", device, "--host", "127.0.0.1",
+                            "--port", "0", "--max-wait-ms", "1000"],
+                   "backend": backend, "label": label, "out_dir": tmp}
+            cmd, env = _rank_cmd("--serve-rank", job, os.path.join(tmp, f"serve_{label}.json"),
+                                 world)
+            err = open(os.path.join(tmp, f"serve_{label}.err"), "w+")
+            servers[label] = (subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                               stderr=err, text=True), err)
+        ports, lines = {}, {}
+        for label, (proc, err) in servers.items():
+            ports[label], lines[label] = _listen(proc, err)
+        started = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(len(servers)) as pool:
+            runs = {label: pool.submit(_post_all, ports[label], wavs,
+                                       ["fp16=false&temperature=0"] * len(wavs), urllib.request)
+                    for label in servers}
+            fp32 = {label: run.result() for label, run in runs.items()}
+        answers = {label: _answered(f"server {label}, fp32", a) for label, (a, _) in fp32.items()}
+        worst = {label: _same_answers(f"server {label}, fp32", answers[label], answers["one"])
+                 for label in ("world1", "world2")}
+        stats = {}
+        for label in servers:
+            with urllib.request.urlopen(f"http://127.0.0.1:{ports[label]}/healthz",
+                                        timeout=30) as r:
+                stats[label] = json.loads(r.read())["stats"]
+            if not stats[label]["batches"] < stats[label]["requests"] == SERVE_RANK_REQUESTS:
+                fail(f"server {label}: {stats[label]} for {SERVE_RANK_REQUESTS} requests")
+        default, default_wall = _post_all(ports["world2"], wavs, [""] * len(wavs),
+                                          urllib.request)
+        _answered("server world2, default traffic", default)
+    finally:
+        stopping = time.perf_counter()
+        for proc, _ in servers.values():
+            proc.send_signal(signal.SIGINT)
+        left = []
+        for label, (proc, err) in servers.items():
+            try:
+                proc.wait(timeout=max(0.0, stopping + SERVE_STOP_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                left.append(label)
+                proc.kill()
+                proc.wait()
+            err.close()
+        stop_s = time.perf_counter() - stopping
+    if left:
+        fail(f"servers {left} still running {SERVE_STOP_S} s after the interrupt")
+    for label, world, _, _ in SERVE_RANKS:
+        listening = [line for line in lines[label] if line.startswith("serving ")]
+        if len(listening) != 1 or (world == 2) != (", 2 ranks)" in listening[0]):
+            fail(f"server {label}: listening lines {listening}")
+    ranks = {}
+    for label, world, _, _ in SERVE_RANKS:
+        for r in range(max(world, 1)):
+            path = os.path.join(tmp, f"{label}_rank{r}.json")
+            if not os.path.exists(path):
+                fail(f"server {label}: rank {r}'s main did not return on the interrupt")
+            with open(path) as f:
+                ranks[f"{label} rank {r}"] = json.load(f)
+    for name, got in ranks.items():
+        _check_decode_counts(f"server {name}", got["launches"], got["steps"], L, route="sc")
+    print(f"decode across ranks (c): the server on the byte-vocabulary checkpoint, one process, "
+          f"world 1 (NCCL) and world 2 (gloo) at once, listening after {started:.1f} s; "
+          f"{SERVE_RANK_REQUESTS} requests of 10-20 s at fp32, t=0, to each at once: walls "
+          + ", ".join(f"{label} {w:.2f} s" for label, (_, w) in fp32.items())
+          + "; rank 0's answers equal to the one process's (scores within "
+          + ", ".join(f"{worst[label]:.2e} at {label}" for label in worst)
+          + f"); /healthz {stats}; then the default traffic to world 2 "
+          f"{default_wall:.2f} s; stopped in {stop_s:.1f} s, rank 1 printed no listening line")
+    print("  single-token steps and launches: " + "; ".join(
+        f"{name} {got['steps']} steps, layer_block_decode {got['launches']['layer_block_decode']}"
+        f", mlp_block {got['launches']['mlp_block']}, train_attention_fwd "
+        f"{got['launches']['train_attention_fwd']}" for name, got in ranks.items()))
+    out.update(started_s=started, fp32_walls_s={k: w for k, (_, w) in fp32.items()},
+               default_wall_s=default_wall, score_max_diff=worst, stats=stats, stop_s=stop_s,
+               ranks=ranks, launches=ranks["world2 rank 0"]["launches"])
+    return out
+
+
 def phase_decode_ranks() -> dict:
     """Decoding split across ranks (``decoding.set_infer_mesh``), on the one
     card (NCCL refuses two ranks on one device, so two ranks go over gloo):
@@ -3257,7 +3449,11 @@ def phase_decode_ranks() -> dict:
     byte tokens: one process (this one), world 1 through torchrun (the CLI
     joins NCCL) and world 2 (gloo), the three at once: rank 0's five
     outputs of each file equal the one process's (world 1 exactly), and
-    rank 1 writes nothing."""
+    rank 1 writes nothing.
+    (c) the server across ranks on the same checkpoint (:func:`_serve_ranks`):
+    one process, world 1 (NCCL) and world 2 (gloo), rank 0's answers equal to
+    the one process's at fp32, then the default traffic at world 2; rank 0's
+    launches there (``launches_serve_ranks``)."""
     exact_fp32()  # as in main, and in each rank
     out: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3346,6 +3542,9 @@ def phase_decode_ranks() -> dict:
               f"start included); rank 0's outputs equal the one "
               f"process's (world 2: scores within {worst:.2e}), rank 1 wrote nothing")
         out["cli_walls_s"], out["cli_score_max_diff"] = walls, worst
+        t0 = time.perf_counter()
+        out["serve"] = _serve_ranks(tmp, ckpt, L)
+        print(f"decode across ranks (c): {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4345,6 +4544,7 @@ def main() -> None:
                 training_dist["world1"]["launches"].get(name, 0),
             "launches_routes": {k: v["launches"][name] for k, v in routes.items()},
             "launches_decode_ranks": decode_ranks["launches"][name],
+            "launches_serve_ranks": decode_ranks["serve"]["launches"][name],
             "launches_eval": {k: v[name] for k, v in evaluation["launches"].items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": main_case["ms"], "ms_spin": main_case["ms_spin"],
@@ -4382,6 +4582,8 @@ if __name__ == "__main__":
             _decode_rank(sys.argv[2])  # one rank of phase_decode_ranks (a), under torchrun
         elif sys.argv[1] == "--cli-rank" and len(sys.argv) == 3:
             _cli_rank(sys.argv[2])  # the CLI of phase_decode_ranks (b)
+        elif sys.argv[1] == "--serve-rank" and len(sys.argv) == 3:
+            _serve_rank(sys.argv[2])  # a server of phase_decode_ranks (c)
         else:
             fail(f"usage: {sys.argv[0]} [--ab TREE]")
     else:

@@ -7,7 +7,8 @@ optimizer-state sharding, the reference's FSDP); this module builds the same
 layout as a ``DeviceMesh`` over the ranks of the process group, which
 ``training.train.shard_train_state`` hands to DDP or FSDP2, and over which
 ``decoding.set_infer_mesh`` splits a decode batch (``shard_ranks``,
-``shard_index``). The JAX
+``shard_index``); ``control_group`` carries the server's messages across
+ranks (``serve.follow``). The JAX
 package's ``param_spec`` / ``param_shardings`` pick TPU layouts and are not
 ported: FSDP2 shards dim 0 of every parameter, which computes the same
 numbers.
@@ -20,6 +21,7 @@ for ``cuda`` devices, ``gloo`` for the CPU.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import List, Optional
 
@@ -84,6 +86,19 @@ def init_distributed(device) -> bool:
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return True
+
+
+# how long a rank waits for a control message: as long as a server may sit idle
+CONTROL_TIMEOUT = datetime.timedelta(days=365)
+
+
+def control_group():
+    """A ``gloo`` group over every rank for messages a rank may wait on for
+    as long as the sender is idle (the server's batches and its stop): its
+    own group, so that an NCCL watchdog never aborts that wait, with a
+    timeout of CONTROL_TIMEOUT. Every rank calls it, in the same order as
+    its other group calls."""
+    return dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
 
 
 def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, *, device_type: str = "cuda"):

@@ -1,4 +1,5 @@
-"""Batch-serving daemon for transcription on one GPU.
+"""Batch-serving daemon for transcription on one GPU, or on every GPU of a
+torchrun launch.
 
 Counterpart of ``olmoasr_tpu/serve.py``, copied (the port imports nothing of
 the JAX package; ``tests/test_torch_copies.py`` pins the option list and the
@@ -14,6 +15,54 @@ Two surfaces:
   POST /v1/transcribe (audio file bytes, options as query parameters), GET
   /healthz. Standard library only (``http.server``); audio is decoded by the
   port's ``load_audio``. ``kv_quant`` is on unless ``--no-kv-quant``.
+
+Across ranks. The JAX server shards every decode batch over all the chips of
+its host from one process (``OLMOASR_INFER_MESH=auto``, its default). The
+port needs a process a GPU, so the same server is a torchrun launch
+(``python -m torch.distributed.run --nproc_per_node N -m
+olmoasr_tpu_torch.serve ...``): ``main`` joins the group as the transcribe
+CLI does (``decoding.join_infer_mesh``; ``nccl`` on ``cuda``, each rank on
+``cuda:{LOCAL_RANK}``, ``gloo`` on the CPU) and registers a mesh over every
+rank. Rank 0 loads the model, binds the port, batches the requests and, for
+each options group, broadcasts the group's audio (PCM: a path is read by
+rank 0) and options before it calls ``transcribe_many``. Every other rank
+loads the same model, binds nothing and runs :func:`follow`, which calls
+``transcribe_many`` on each group it receives. The decode splits each round's
+windows across the ranks (``decoding.set_infer_mesh``) and gathers them, so
+every rank builds every result; rank 0 resolves the futures, the others drop
+theirs. ``stats`` and ``/healthz`` are rank 0's. ``stop`` broadcasts a stop
+message, on which every follower returns. With ``OLMOASR_INFER_MESH`` set to
+anything but ``auto`` every process serves on its own: under torchrun each
+rank then binds ``--port`` itself, so ranks on one host need a port each
+(start them as separate processes with distinct ``--port``, or ``--port 0``).
+
+Where trouble is likely, and what the code does about it:
+
+* A follower waits in the batch broadcast for as long as the server is idle.
+  An NCCL collective left waiting past its group's timeout is aborted by the
+  watchdog, so the batches and the stop go over a ``gloo`` group of their own
+  with a timeout of a year (``parallel.mesh.control_group``); the decode's
+  gathers stay on the mesh's group.
+* Rank 0 calls its collectives from the worker thread, a follower from its
+  main thread; the HTTP threads only enqueue and never touch a group. Every
+  rank runs the same sequence: the broadcast, then ``transcribe_many`` with
+  its gathers, group after group.
+* An error that the input causes (a bad option value, such as
+  ``beam_size=abc``) raises in ``transcribe_many`` on every rank alike: the
+  group's futures fail with it, the followers go on to the next group and
+  the server keeps answering.
+* A rank that fails alone (say, out of memory on its card) leaves the others
+  waiting in the decode's gather until the mesh group's timeout (by default
+  10 minutes under NCCL, 30 under gloo), where their collective fails, as a
+  failed chip stalls the JAX server's collective. Nothing here hides that.
+* A round whose window count the rank count does not divide decodes whole on
+  every rank, as in the JAX package (``decoding._usable_infer_mesh``); the
+  default ``--max-batch 32`` splits a full batch over 2, 4 or 8 ranks.
+* There is no fallback: a rank that cannot reach its device fails, it never
+  serves on the CPU.
+* torchrun passes an interrupt (SIGINT) to every rank. Rank 0 stops as the
+  one-process server does and broadcasts the stop; a follower ignores the
+  interrupt and returns on that message.
 """
 
 from __future__ import annotations
@@ -22,6 +71,7 @@ import argparse
 import json
 import os
 import queue
+import signal
 import tempfile
 import threading
 import time
@@ -30,7 +80,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-__all__ = ["ALLOWED_OPTIONS", "BatchingService", "make_handler", "serve", "main"]
+__all__ = ["ALLOWED_OPTIONS", "BatchingService", "follow", "make_handler", "serve", "main"]
 
 _SENTINEL = object()
 
@@ -53,6 +103,11 @@ class BatchingService:
     for up to ``max_batch`` jobs, groups them by decode-options signature,
     and decodes each group as one batch. One worker = one GPU owner; kernel
     launches stay single-threaded by construction.
+
+    With ``group`` (rank 0's ``parallel.mesh.control_group()`` in a process
+    group whose other ranks run :func:`follow`), the worker broadcasts each
+    options group's PCM audio, options and batch size before decoding it,
+    and the stop message when it stops.
     """
 
     def __init__(
@@ -62,8 +117,10 @@ class BatchingService:
         max_batch: int = 32,
         max_wait_ms: float = 100.0,
         default_options: Optional[Dict[str, Any]] = None,
+        group=None,
     ):
         self.model = model
+        self.group = group
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.default_options = dict(default_options or {})
@@ -91,6 +148,8 @@ class BatchingService:
         if self._started:
             self._queue.put(_SENTINEL)
             self._worker.join(timeout=30)
+        else:  # no worker thread to send the stop: this thread is the only one
+            self._release()
         # jobs enqueued behind the sentinel (or while the worker was dying)
         # would otherwise hang their callers in .result() forever
         self._drain_queue(RuntimeError("BatchingService stopped"))
@@ -106,6 +165,11 @@ class BatchingService:
             fut = item[2]
             if not fut.done():
                 fut.set_exception(exc)
+
+    def _release(self) -> None:
+        """Send the followers the stop message."""
+        if self.group is not None:
+            _broadcast(self.group, None)
 
     def __enter__(self):
         return self.start()
@@ -166,6 +230,7 @@ class BatchingService:
             jobs = self._collect()
             if not jobs:
                 self._drain_queue(RuntimeError("BatchingService stopped"))
+                self._release()
                 return
             # group by options signature: different options cannot share a
             # decode batch (different filter configs / fallback ladders)
@@ -177,11 +242,13 @@ class BatchingService:
                 audios = [jobs[i][0] for i in idxs]
                 opts = jobs[idxs[0]][1]
                 futs = [jobs[i][2] for i in idxs]
+                batch_size = min(self.max_batch, len(audios))
                 try:
+                    if self.group is not None:
+                        audios = [_pcm(a) for a in audios]
+                        _broadcast(self.group, (audios, opts, batch_size))
                     results = transcribe_many(
-                        self.model, audios,
-                        batch_size=min(self.max_batch, len(audios)),
-                        verbose=None, **opts,
+                        self.model, audios, batch_size=batch_size, verbose=None, **opts,
                     )
                     for f, r in zip(futs, results):
                         f.set_result(r)
@@ -192,6 +259,48 @@ class BatchingService:
                 self.stats["batches"] += 1
                 self.stats["batched_jobs"] += len(idxs)
 
+
+def _pcm(audio):
+    """``audio`` as samples: a path is read with the port's ``load_audio``,
+    so that no follower opens a file."""
+    if isinstance(audio, str):
+        from olmoasr_tpu_torch.audio import load_audio
+
+        return load_audio(audio)
+    return audio
+
+
+def _broadcast(group, message=None):
+    """Rank 0's ``message`` on every rank of ``group`` (pickled)."""
+    import torch.distributed as dist
+
+    box = [message]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def follow(model, group) -> Dict[str, Any]:
+    """The loop of every rank but 0 of a server across ranks: take each
+    options group that rank 0's :class:`BatchingService` broadcasts over
+    ``group`` and call ``transcribe_many`` on it as rank 0 does (the decode
+    splits its windows across the ranks of the registered mesh), dropping
+    the results; return on the stop message. An error in a group is kept
+    and the loop goes on, as rank 0's service fails that group's futures
+    and goes on. Returns ``{"batches": n, "errors": [...]}``, each error as
+    ``"Type: message"``."""
+    from olmoasr_tpu_torch.transcribe import transcribe_many
+
+    stats: Dict[str, Any] = {"batches": 0, "errors": []}
+    while True:
+        message = _broadcast(group)
+        if message is None:
+            return stats
+        audios, opts, batch_size = message
+        try:
+            transcribe_many(model, audios, batch_size=batch_size, verbose=None, **opts)
+        except Exception as e:  # noqa: BLE001 -- rank 0 fails the group's futures alike
+            stats["errors"].append(f"{type(e).__name__}: {e}")
+        stats["batches"] += 1
 
 
 def _parse_option(key: str, raw: str):
@@ -292,24 +401,46 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = p.parse_args(argv)
 
     from olmoasr_tpu_torch.api import load_model
+    from olmoasr_tpu_torch.decoding import join_infer_mesh, leave_infer_mesh
+    from olmoasr_tpu_torch.parallel import mesh as mesh_mod
 
-    model = load_model(args.model, device=args.device)
-    defaults: Dict[str, Any] = {"kv_quant": not args.no_kv_quant}
-    if args.beam_size:
-        defaults["beam_size"] = args.beam_size
-    service = BatchingService(model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                              default_options=defaults)
-    server = serve(service, args.host, args.port)
-    host, port = server.server_address[:2]
-    print(f"serving {args.model} on {host}:{port} "
-          f"(max_batch={args.max_batch}, max_wait={args.max_wait_ms}ms, {defaults})", flush=True)
+    created = join_infer_mesh(args.device)
+    group = None
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        device = args.device
+        if mesh_mod.world_size() > 1:  # each rank on its own card
+            device = mesh_mod.rank_device(device)
+            group = mesh_mod.control_group()
+        model = load_model(args.model, device=device)
+        if mesh_mod.rank() > 0:
+            signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0's stop ends the loop
+            follow(model, group)
+            return
+        defaults: Dict[str, Any] = {"kv_quant": not args.no_kv_quant}
+        if args.beam_size:
+            defaults["beam_size"] = args.beam_size
+        service = BatchingService(model, max_batch=args.max_batch,
+                                  max_wait_ms=args.max_wait_ms, default_options=defaults,
+                                  group=group)
+        server = serve(service, args.host, args.port)
+        host, port = server.server_address[:2]
+        ranks = f", {mesh_mod.world_size()} ranks" if group is not None else ""
+        print(f"serving {args.model} on {host}:{port} "
+              f"(max_batch={args.max_batch}, max_wait={args.max_wait_ms}ms, {defaults}{ranks})",
+              flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+            service.stop()
     finally:
-        server.server_close()
-        service.stop()
+        if group is not None and not created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group(group)
+        leave_infer_mesh(created)
 
 
 if __name__ == "__main__":

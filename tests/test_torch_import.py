@@ -55,7 +55,9 @@ def test_port_never_imports_jax():
                  "normalizers", "normalizers.english", "normalizers.basic",
                  "normalizers.build_spelling", "data.segment", "data.align", "olmoasr",
                  "olmoasr.model", "olmoasr.inf_model", "olmoasr.transcribe",
-                 "olmoasr.preprocess", "olmoasr.utils", "demo.demo", "parallel.mesh"):
+                 "olmoasr.preprocess", "olmoasr.utils", "demo.demo", "parallel.mesh",
+                 "data.jsonl", "data.sampling", "data.filtering", "data.tagging",
+                 "data.audio_lang", "data.qa_video", "data.yodas", "eval.get_eval_set"):
         assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 

@@ -6,7 +6,9 @@ Under torchrun, ``tests/torch_dist_worker.py loop JSON`` calls
 JSON's ``dims`` (the CLI takes only a variant's name), and
 ``tests/torch_dist_worker.py cli JSON`` calls ``transcribe.cli(JSON["argv"])``,
 each ``{rank}`` in it this rank's, with every decode at fp32 and
-``JSON["sample_len"]`` tokens (the CLI has no flag for either).
+``JSON["sample_len"]`` tokens (the CLI has no flag for either), and
+``tests/torch_dist_worker.py serve JSON`` calls ``serve.main(JSON["argv"])``
+alike, then writes ``JSON["out"]<rank>`` once ``main`` has returned.
 
 Run as ``python tests/torch_dist_worker.py JOB RANK WORLD INIT_FILE``: joins a
 ``gloo`` process group through the ``file://`` rendezvous ``INIT_FILE``, then
@@ -19,11 +21,16 @@ every run's metrics, gathered parameters and last gradients to ``JOB.out``. A
 job whose ``kind`` is ``"decode"`` instead registers an inference mesh over the
 job's rank grid and decodes each of its cases (``run_decode``), then runs the
 eval harness's command line on the job's eval set; every rank writes its own
-``JOB.out<rank>``. Imports torch and the port only, never JAX.
+``JOB.out<rank>``. A job whose ``kind`` is ``"serve"`` registers a mesh over
+every rank and makes the control group; rank 0 submits each of the job's
+rounds of requests to a ``serve.BatchingService`` over that group and stops
+it, every other rank runs ``serve.follow`` (``run_serve``). Imports torch and
+the port only, never JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -66,6 +73,24 @@ def run(job: dict, rank: int, world: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counted_gathers():
+    """A list that gets one entry for each ``dist.all_gather`` call made
+    inside the block."""
+    gathers = []
+    all_gather = dist.all_gather
+
+    def counted(*args, **kwargs):
+        gathers.append(1)
+        return all_gather(*args, **kwargs)
+
+    dist.all_gather = counted
+    try:
+        yield gathers
+    finally:
+        dist.all_gather = all_gather
+
+
 def fp32_decode(module, sample_len: int) -> None:
     """Every ``DecodingOptions`` that ``module`` builds decodes at fp32 and
     ``sample_len`` tokens."""
@@ -90,28 +115,20 @@ def run_decode(job: dict, rank: int, world: int) -> dict:
     model = _new_model(dims, False, "cpu", torch.float32)
     model.load_state_dict(job["state_dict"])
     mesh = DeviceMesh("cpu", torch.tensor(job["layout"]), mesh_dim_names=("data", "fsdp"))
-    gathers = []
-    all_gather = dist.all_gather
-
-    def counted(*args, **kwargs):
-        gathers.append(1)
-        return all_gather(*args, **kwargs)
-
-    dist.all_gather = counted
     out = {"shard_index": mesh_mod.shard_index(mesh), "cases": {}}
     try:
-        for name, (mel, options, registered) in job["cases"].items():
-            decoding.set_infer_mesh(mesh if registered else None)
-            gathers.clear()
-            results = decoding.decode(model, mel, decoding.DecodingOptions(**options))
-            out["cases"][name] = {
-                "tokens": [r.tokens for r in results],
-                "avg_logprob": [r.avg_logprob for r in results],
-                "no_speech_prob": [r.no_speech_prob for r in results],
-                "audio_features": torch.stack([r.audio_features for r in results]),
-                "gathers": len(gathers)}
+        with counted_gathers() as gathers:
+            for name, (mel, options, registered) in job["cases"].items():
+                decoding.set_infer_mesh(mesh if registered else None)
+                gathers.clear()
+                results = decoding.decode(model, mel, decoding.DecodingOptions(**options))
+                out["cases"][name] = {
+                    "tokens": [r.tokens for r in results],
+                    "avg_logprob": [r.avg_logprob for r in results],
+                    "no_speech_prob": [r.no_speech_prob for r in results],
+                    "audio_features": torch.stack([r.audio_features for r in results]),
+                    "gathers": len(gathers)}
     finally:
-        dist.all_gather = all_gather
         decoding.set_infer_mesh(None)
     if "eval" in job:
         from olmoasr_tpu_torch.eval import harness
@@ -119,6 +136,42 @@ def run_decode(job: dict, rank: int, world: int) -> dict:
         fp32_decode(harness, job["sample_len"])
         harness.main([*job["eval"], "--out_dir", f"{job['eval_out']}{rank}"])
     return out
+
+
+def run_serve(job: dict, rank: int, world: int) -> dict:
+    """Rank 0: each of ``job["rounds"]`` (lists of (audio, options)) submitted
+    at once to a ``BatchingService`` over the control group, every outcome
+    ``("ok", result)`` or ``("error", "Type: message")``, then ``stop`` and the
+    service's stats. The other ranks: what ``serve.follow`` returns. Each
+    rank also counts the ``all_gather`` calls it made."""
+    from olmoasr_tpu_torch import decoding, serve
+    from olmoasr_tpu_torch.api import _new_model
+
+    model = _new_model(ModelDimensions(**job["dims"]), False, "cpu", torch.float32)
+    model.load_state_dict(job["state_dict"])
+    decoding.set_infer_mesh(mesh_mod.make_mesh(device_type="cpu"))
+    group = mesh_mod.control_group()
+    try:
+        with counted_gathers() as gathers:
+            if rank > 0:
+                return {"follow": serve.follow(model, group), "gathers": len(gathers)}
+            service = serve.BatchingService(model, group=group, **job["service"])
+            out = {"rounds": []}
+            for requests in job["rounds"]:
+                futures = [service.submit(audio, **options) for audio, options in requests]
+                outcomes = []
+                for f in futures:
+                    try:
+                        outcomes.append(("ok", f.result(timeout=300)))
+                    except Exception as e:  # noqa: BLE001 -- the test reads the error
+                        outcomes.append(("error", f"{type(e).__name__}: {e}"))
+                out["rounds"].append(outcomes)
+            service.stop()
+            out["stats"] = dict(service.stats)
+            out["gathers"] = len(gathers)
+            return out
+    finally:
+        decoding.set_infer_mesh(None)
 
 
 def main(argv) -> None:
@@ -136,14 +189,24 @@ def main(argv) -> None:
         fp32_decode(transcribe, job["sample_len"])
         transcribe.cli([a.replace("{rank}", os.environ["RANK"]) for a in job["argv"]])
         return
+    if argv[0] == "serve":
+        from olmoasr_tpu_torch import serve, transcribe
+
+        job = json.loads(argv[1])
+        fp32_decode(transcribe, job["sample_len"])
+        serve.main(job["argv"])
+        with open(f"{job['out']}{os.environ['RANK']}", "w") as f:
+            f.write("returned\n")
+        return
     job_path, rank, world, init_file = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)  # the ranks share the host's cores
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
     try:
         job = torch.load(job_path, weights_only=False)
-        if job.get("kind") == "decode":
-            torch.save(run_decode(job, rank, world), f"{job_path}.out{rank}")
+        if job.get("kind") in ("decode", "serve"):
+            run_job = run_decode if job["kind"] == "decode" else run_serve
+            torch.save(run_job(job, rank, world), f"{job_path}.out{rank}")
             return
         out = run(job, rank, world)
         if rank == 0:
