@@ -46,7 +46,13 @@ printed line each (or a few):
    best_of=5 above it (random weights fail the gates, so every window climbs
    the whole ladder); wall time, audio-seconds per second, windows per
    temperature, single-token steps, every kernel's launches, the results'
-   schema; then 4 of its files again with ``word_timestamps=True`` (beam 5
+   schema; the files stream (``_StreamedMelGroup``: f32 chunks, the noise
+   is not int16-exact), and every window a round gathers is bit-equal to
+   the window of its file's whole-file log-mel; the blocking prefix (the
+   first round's windows ready) streamed against the per-file log-mels;
+   the stale-max guard: three int16-exact files at fp32, t=0, one quiet
+   then loud, which must run again through the per-file path and equal
+   ``transcribe`` of it alone; then 4 of its files again with ``word_timestamps=True`` (beam 5
    at t=0) and 2 of those also with ``hallucination_silence_threshold=2.0`` (the vocabulary's
    text rows cut to the byte tokens, which alone the offline tokenizer
    decodes, so that segments have words): words per file, the alignment's
@@ -87,7 +93,10 @@ printed line each (or a few):
    backward launches a step); then an fp32 ``loss_fn`` and backward of a
    narrow model on the card against the CPU twins, on both routes;
 7. the entry points: the seeded small.en written as a reference ``.pt``;
-   the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
+   ``load_model`` of a released name whose link is a ``file://`` URL of it
+   (downloaded once, then reused), ``gen_inf_ckpt`` of it, the native BPE
+   built here and held to the Python tokenizer (the HF export is not run:
+   the machine has no ``transformers``); the command line (``python -m olmoasr_tpu_torch.transcribe``) on two
    files with ``--word_timestamps True --highlight_words True
    --max_line_width 40``, and the HTTP server (``python -m
    olmoasr_tpu_torch.serve``, int8 cross K/V and ``beam_size=5``) answering
@@ -110,7 +119,9 @@ printed line each (or a few):
    the written per-sample CSV, the wall split into decode, the card's
    log-mel and the host's parts; ``long_form_eval`` (beam 5, best_of 5) of
    35 s + 50 s; the harness's command line in its own process on 16 of
-   them, equal to the same run here; fp32 ``training.validate`` on the card
+   them, equal to the same run here, and beside it the parity harness
+   (``eval.parity --allow_fallback_tokenizer``) on the same 16; fp32
+   ``training.validate`` on the card
    against the CPU, small.en's bf16 ``validate``; ``train_loop.main``'s
    sync eval with the profiler's trace of a step (the row 3 and row 9
    kernels named in it), async eval (the harness spawned on the card), and
@@ -152,6 +163,7 @@ either is printed; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -1601,6 +1613,7 @@ def _long_form_audios():
 
 def phase_long_form() -> dict:
     from olmoasr_tpu_torch import build_model, transcribe_many
+    from olmoasr_tpu_torch import transcribe as tr
     from olmoasr_tpu_torch.transcribe import DEFAULT_TEMPERATURES
 
     n_files, best_of, beam_size = LONG_FORM_FILES, 5, 5  # the CLI's defaults
@@ -1621,19 +1634,25 @@ def phase_long_form() -> dict:
         return decode(mel, options)
 
     model.decode = counting_decode
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = transcribe_many(model, audios, batch_size=n_files, best_of=best_of,
-                              beam_size=beam_size)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts, steps = _read_counts()
+    reruns = tr.transcribe_many.stale_max_reruns
+    with _recorded_stream() as rec:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = transcribe_many(model, audios, batch_size=n_files, best_of=best_of,
+                                  beam_size=beam_size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, steps = _read_counts()
     del model.decode
     print(f"long-form: small.en bf16, {n_files} files, {audio_s:.0f} s of audio, "
           f"batch_size={n_files}, beam_size={beam_size}, best_of={best_of}: wall {wall:.3f} s, "
           f"{audio_s / wall:.1f} audio-s/s, {steps} single-token steps")
     print(f"  windows per temperature {windows_at}; launches {counts}")
+    reruns = tr.transcribe_many.stale_max_reruns - reruns
+    # every window decodes at t=0 first; a file run again decodes its own
+    gathered = _check_streamed("long-form", rec, audios, dims.n_mels, "float32",
+                               None if reruns else windows_at[0.0])
     ladder = sorted(windows_at)
     if ladder != list(DEFAULT_TEMPERATURES) or len(set(windows_at.values())) != 1:
         fail(f"long-form: the ladder did not run whole for every window: {windows_at}")
@@ -1656,10 +1675,307 @@ def phase_long_form() -> dict:
                   "temperature")
         if seeks != sorted(seeks) or not all(np.isfinite(s[f]) for s in segs for f in fields):
             fail(f"long-form: file {k}: seeks {seeks} or non-finite segment fields")
+    prefix = _blocking_prefix(model, audios)
+    guard = _long_form_guard(model)
     return {"files": n_files, "audio_s": audio_s, "wall_s": wall,
             "audio_s_per_s": audio_s / wall, "single_steps": steps,
             "windows_per_temperature": windows_at, "decode_calls": len(calls),
-            "launches": counts}
+            "launches": counts, "windows_gathered": gathered, "stale_max_reruns": reruns,
+            "blocking_prefix": prefix,
+            "guard": guard}
+
+
+@contextlib.contextmanager
+def _recorded_stream():
+    """Records, while open, every window a ``transcribe_many`` round gathers
+    from a streamed group, with its (seek, size, file), the transport dtype
+    of every chunk of samples sent to the card (not the tail's halo), and
+    after each round's ``poll`` the chunks whose log-mel is enqueued."""
+    from olmoasr_tpu_torch import transcribe as tr
+
+    rec = {"windows": [], "transports": [], "polled": []}
+    gather, put, poll = tr._gather_round, tr._StreamedMelGroup._put, tr._StreamedMelGroup.poll
+
+    def recording_gather(specs, groups, gather_w, guards):
+        out = gather(specs, groups, gather_w, guards)
+        rec["windows"].extend(zip([s[2:5] for s in specs], out))
+        return out
+
+    def recording_put(self, s, chunk):
+        if s < self.n_real:  # the tail's halo goes as int16 whenever it is exact (zeros)
+            rec["transports"].append(str(chunk.dtype))
+        return put(self, s, chunk)
+
+    def recording_poll(self):
+        poll(self)
+        rec["polled"].append(self.done)
+
+    tr._gather_round, tr._StreamedMelGroup._put = recording_gather, recording_put
+    tr._StreamedMelGroup.poll = recording_poll
+    try:
+        yield rec
+    finally:
+        tr._gather_round, tr._StreamedMelGroup._put = gather, put
+        tr._StreamedMelGroup.poll = poll
+
+
+def _check_streamed(label: str, rec: dict, audios, n_mels: int, transport: str,
+                    n_windows=None, rerun=()) -> int:
+    """Every recorded window bit-equal on the card to the window of its
+    file's whole-file log-mel (``transcribe``'s per-file path), but those of
+    the files in ``rerun``, which the stale-max guard ran again; every
+    file's first window and, given ``n_windows``, that many windows gathered
+    from the streamed groups; every chunk sent as ``transport``."""
+    from olmoasr_tpu_torch.audio import N_FRAMES, N_SAMPLES, log_mel_spectrogram
+
+    whole, unequal = {}, []
+    for (seek, size, i), got in rec["windows"]:
+        if i in rerun:
+            continue
+        if i not in whole:
+            whole[i] = log_mel_spectrogram(audios[i], n_mels, padding=N_SAMPLES, device="cuda")
+        want = torch.nn.functional.pad(whole[i][:, seek:seek + size], (0, N_FRAMES - size))
+        if not torch.equal(got, want):
+            unequal.append((i, seek, size, max_err(got, want)))
+    first = sum(1 for (seek, _, _), _ in rec["windows"] if seek == 0)
+    print(f"  {label}: {len(rec['windows'])} windows gathered from streamed groups, "
+          f"{len(unequal)} unequal to the whole-file windows (files run again, not held: "
+          f"{sorted(rerun)}); chunks sent as "
+          f"{sorted(set(rec['transports']))} ({len(rec['transports'])} chunks); chunks in "
+          f"after each round's poll {rec['polled']}")
+    if unequal or first != len(audios) or n_windows not in (None, len(rec["windows"])) \
+            or set(rec["transports"]) != {transport}:
+        fail(f"{label}: streamed windows unequal to the whole-file ones {unequal[:5]}, "
+             f"{len(rec['windows'])} gathered ({n_windows} expected), {first} first windows "
+             f"of {len(audios)} files, transports {rec['transports']}")
+    return len(rec["windows"])
+
+
+PREFIX_RUNS = 3  # timed runs of each blocking prefix, alternating
+
+
+def _blocking_prefix(model, audios) -> dict:
+    """The time to the first round's windows of ``audios`` (one round of
+    all of them), each behind a synchronize, after a warm-up of each,
+    alternating: the per-file log-mels of the whole files that the per-file
+    path computes before its first round, then each file's first window;
+    and streamed, with the card's float32 chunks and with the int16
+    transport, on the files as they are (noise that is not exact PCM: the
+    int16 attempt fails and chunk 0 is built again in f32) and rounded to
+    exact PCM. A streamed run's span ends once the gathered windows are on
+    the card: the groups built (chunk 0 built on the host, pinned, its copy
+    enqueued, the builder thread started), then ``_gather_round`` (chunk
+    0's log-mel, one gather) and a synchronize. ``close``, which stops the
+    builder and waits for it, runs after the span and is timed on its own.
+    Chunk 0's host build and its pinning are also timed alone. All give the
+    same windows bit for bit."""
+    from olmoasr_tpu_torch import transcribe as tr
+    from olmoasr_tpu_torch.audio import N_FRAMES, N_SAMPLES, log_mel_spectrogram
+
+    n_mels = model.dims.n_mels
+    pcm = [torch.from_numpy(np.round(a.numpy() * 32768).clip(-32768, 32767) / 32768)
+           .float() for a in audios]
+    parts = {}
+
+    def streamed(files, int16):
+        tr._StreamedMelGroup.int16_transport = int16
+        try:
+            t0 = time.perf_counter()
+            wavs = [tr._host_samples(a) for a in files]
+            groups, stack_row, mel_frames, gather_w = tr._stream_groups(model, wavs, len(wavs))
+            t1 = time.perf_counter()
+            specs = [(*stack_row[i], 0, min(N_FRAMES, mel_frames[i] - N_FRAMES), i)
+                     for i in range(len(wavs))]
+            out = tr._gather_round(specs, groups, gather_w, [])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for grp in groups:
+                grp.close()
+            t3 = time.perf_counter()
+        finally:
+            tr._StreamedMelGroup.int16_transport = None
+        parts.setdefault(int16, []).append((t1 - t0, t2 - t1, t3 - t2))
+        return out
+
+    def per_file(files):
+        windows = []
+        for a in files:
+            mel = log_mel_spectrogram(a, n_mels, padding=N_SAMPLES, device="cuda")
+            size = min(N_FRAMES, mel.shape[-1] - N_FRAMES)
+            windows.append(torch.nn.functional.pad(mel[:, :size], (0, N_FRAMES - size)))
+        out = torch.stack(windows)
+        torch.cuda.synchronize()
+        return out
+
+    runs = {}
+    for label, files in (("noise", audios), ("exact PCM", pcm)):
+        fns = {"per_file": lambda f=files: per_file(f),
+               "streamed f32": lambda f=files: streamed(f, False),
+               "streamed int16": lambda f=files: streamed(f, True)}
+        want = fns["per_file"]()
+        for name in ("streamed f32", "streamed int16"):
+            if not torch.equal(fns[name](), want):
+                fail(f"blocking prefix ({label}): the {name} first windows differ from the "
+                     f"per-file ones")
+        parts.clear()
+        times = {k: [] for k in fns}
+        for _ in range(PREFIX_RUNS):
+            for name, fn in fns.items():
+                t0 = time.perf_counter()
+                fn()
+                times[name].append(time.perf_counter() - t0)
+        # a streamed run's span: the groups built, then the gather; close after it
+        for int16, ps in parts.items():
+            name = "streamed int16" if int16 else "streamed f32"
+            times[name] = [b + g for b, g, _ in ps]
+            times[name + " build"] = [b for b, _, _ in ps]
+            times[name + " close"] = [c for _, _, c in ps]
+        rows = [tr._host_samples(a) for a in files]
+        grp = tr._StreamedMelGroup.__new__(tr._StreamedMelGroup)
+        grp.n_real = -(-max(len(r) for r in rows) // N_SAMPLES)
+        for name, int16 in (("chunk 0 host f32", False), ("chunk 0 host int16", True)):
+            grp._int16 = int16
+            times[name] = []
+            for _ in range(PREFIX_RUNS):
+                t0 = time.perf_counter()
+                chunk = grp._build_chunk(rows, 0)
+                times[name].append(time.perf_counter() - t0)
+        times["chunk 0 pin"] = []
+        for _ in range(PREFIX_RUNS):
+            t0 = time.perf_counter()
+            torch.from_numpy(chunk).pin_memory()
+            times["chunk 0 pin"].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"  blocking prefix, {label} (the first round's {len(files)} windows ready on "
+              f"the card, medians of {PREFIX_RUNS}): per-file log-mels "
+              f"{med['per_file'] * 1e3:.2f} ms; streamed f32 {med['streamed f32'] * 1e3:.2f} "
+              f"ms (groups built {med['streamed f32 build'] * 1e3:.2f}), streamed int16 "
+              f"{med['streamed int16'] * 1e3:.2f} ms (built "
+              f"{med['streamed int16 build'] * 1e3:.2f}); close after the span: f32 "
+              f"{med['streamed f32 close'] * 1e3:.2f}, int16 "
+              f"{med['streamed int16 close'] * 1e3:.2f} ms; chunk 0 alone on the host: f32 "
+              f"{med['chunk 0 host f32'] * 1e3:.2f}, int16 attempt "
+              f"{med['chunk 0 host int16'] * 1e3:.2f} ms ({chunk.dtype}, {chunk.nbytes} B), "
+              f"pinned in {med['chunk 0 pin'] * 1e3:.2f} ms")
+        print("    runs (ms): " + "; ".join(f"{k} " + ", ".join(f"{t * 1e3:.2f}" for t in v)
+                                            for k, v in times.items()))
+        runs[label] = {"median_s": med, "runs_s": times}
+    return runs
+
+
+GUARD_SAMPLE_LEN = 16  # the guard run's depth: tokens a window
+
+
+def _pcm_noise(rng, seconds: int, scale: float) -> np.ndarray:
+    """Seeded noise whose samples are exact int16 PCM values."""
+    w = np.round(rng.standard_normal(seconds * 16000) * scale * 32768).clip(-32768, 32767)
+    return (w / 32768).astype(np.float32)
+
+
+def _long_form_guard(model) -> dict:
+    """The stale-max guard on the card: three int16-exact files streamed
+    together at fp32, t=0, greedy, GUARD_SAMPLE_LEN tokens a window, as
+    int16 (the transport the CPU takes by default); the first quiet
+    (digital silence) over its first 30 s and loud after, so that its first
+    window, gathered before the rest of it is in, holds frames below its
+    file's max - 8. It must run again through the per-file path, and its
+    result equal ``transcribe`` of it alone. Then the rerun rate of
+    recordings that start with digital silence (``_leading_zeros``)."""
+    from olmoasr_tpu_torch import transcribe as tr
+
+    rng = np.random.default_rng(9)
+    quiet = _pcm_noise(rng, 30, 0.0005)
+    quiet[16000 * 2:16000 * 20] = 0.0
+    guard = np.concatenate([quiet, _pcm_noise(rng, 35, 0.3)])
+    wavs = [guard, _pcm_noise(rng, 50, 0.05), _pcm_noise(rng, 40, 0.05)]
+    opts = dict(temperature=0.0, sample_len=GUARD_SAMPLE_LEN, fp16=False)
+    with _timed_reruns() as reruns, _recorded_stream() as rec:
+        tr._StreamedMelGroup.int16_transport = True
+        try:
+            before = tr.transcribe_many.stale_max_reruns
+            t0 = time.perf_counter()
+            results = tr.transcribe_many(model, wavs, batch_size=len(wavs), **opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tr._StreamedMelGroup.int16_transport = None
+    n_reruns = tr.transcribe_many.stale_max_reruns - before
+    alone = tr.transcribe(model, guard, **opts)
+    rerun_guard = any(a is guard for a, _ in reruns)
+    print(f"  stale-max guard: 3 int16-exact files (65 s quiet then loud, 50 s, 40 s) at fp32, "
+          f"t=0, greedy, {GUARD_SAMPLE_LEN} tokens a window, int16 chunks: wall {wall:.3f} s; "
+          f"stale_max_reruns {n_reruns} (the quiet-then-loud file among them: {rerun_guard}); "
+          f"its result equal to transcribe of it alone: {results[0] == alone}")
+    if n_reruns < 1 or not rerun_guard or results[0] != alone:
+        fail(f"stale-max guard: {n_reruns} reruns, the guard file rerun {rerun_guard}, "
+             f"result {str(results[0])[:300]} against {str(alone)[:300]}")
+    windows = _check_streamed("stale-max guard", rec, wavs, model.dims.n_mels, "int16",
+                              rerun={i for i, w in enumerate(wavs)
+                                     if any(a is w for a, _ in reruns)})
+    return {"wall_s": wall, "stale_max_reruns": n_reruns, "windows_gathered": windows,
+            "leading_zeros": _leading_zeros(model, opts)}
+
+
+@contextlib.contextmanager
+def _timed_reruns():
+    """A list that gets (audio, seconds) for each ``transcribe`` call that
+    ``transcribe_many`` makes while the block runs: the stale-max guard's
+    reruns."""
+    from olmoasr_tpu_torch import transcribe as tr
+
+    calls = []
+    transcribe = tr.transcribe
+
+    def timed(m, audio, **kw):
+        t0 = time.perf_counter()
+        out = transcribe(m, audio, **kw)
+        torch.cuda.synchronize()
+        calls.append((audio, time.perf_counter() - t0))
+        return out
+
+    tr.transcribe = timed
+    try:
+        yield calls
+    finally:
+        tr.transcribe = transcribe
+
+
+LEADING_ZEROS_MS = 300  # digital silence before the first sample of each file
+
+
+def _leading_zeros(model, opts: dict) -> dict:
+    """How often the stale-max guard re-runs recordings that start with
+    digital silence, and what it costs: the long-form slice's 16 noise files
+    with LEADING_ZEROS_MS of zeros before each, streamed at the guard run's
+    settings. Round 0's windows are normalized with chunk 0's max; a file
+    whose max lies past its first 30 s then holds the zeros' -10 frames
+    below its max - 8 and runs again."""
+    from olmoasr_tpu_torch import transcribe as tr
+
+    _, audios = _long_form_audios()
+    lead = np.zeros(LEADING_ZEROS_MS * 16, np.float32)
+    wavs = [np.concatenate([lead, a.numpy()]) for a in audios]
+    before = tr.transcribe_many.stale_max_reruns
+    with _timed_reruns() as reruns:
+        t0 = time.perf_counter()
+        results = tr.transcribe_many(model, wavs, batch_size=len(wavs), **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_reruns = tr.transcribe_many.stale_max_reruns - before
+    rerun_s = sum(t for _, t in reruns)
+    late_max = 0
+    for w in wavs:  # files whose loudest 30 s is not their first
+        whole = tr.log_mel_spectrogram(w, model.dims.n_mels, device="cuda")
+        late_max += int(whole[:, 3000:].max() > whole[:, :3000].max())
+    print(f"  leading zeros: the long-form slice's {len(wavs)} files after "
+          f"{LEADING_ZEROS_MS} ms of digital silence, streamed at the guard run's settings: "
+          f"stale_max_reruns {n_reruns} of {len(wavs)} files ({late_max} have their max past "
+          f"their first 30 s); wall {wall:.3f} s, of which the reruns {rerun_s:.3f} s "
+          f"({rerun_s / wall:.1%})")
+    if n_reruns != len(reruns):
+        fail(f"leading zeros: {n_reruns} counted, {len(reruns)} transcribe calls")
+    return {"files": len(wavs), "stale_max_reruns": n_reruns, "max_past_first_30s": late_max,
+            "wall_s": wall, "rerun_s": rerun_s}
 
 
 def phase_server_traffic() -> dict:
@@ -2949,6 +3265,7 @@ def phase_entry_points() -> dict:
                    ckpt)
         del model
         torch.cuda.empty_cache()
+        out.update(_entry_extras(tmp, ckpt))
         wavs = []
         for name, seconds in (("a", 35), ("b", 50)):
             wavs.append(os.path.join(tmp, f"{name}.wav"))
@@ -3002,6 +3319,137 @@ def phase_entry_points() -> dict:
                     server.kill()
                     server.wait()
     return out
+
+
+BPE_TEXTS = (" hello world", "hello", "  double  spaces ", "it's a test", "numbers 12345 mixed",
+             "punct!?.,;", " hello hello hello", "", " ", "I'll we've don't", " café hello",
+             "日本 hello 日本語", "emoji \U0001f44d test", "mixed１２３digits", "číslo ٣٤٥",
+             "ideographic　space", "«quotes»—dash…", "ß sharp", "ｆｕｌｌ")
+
+
+def _entry_extras(tmp: str, ckpt: str) -> dict:
+    """The entry points that load, convert and tokenize: ``load_model`` of
+    a released name whose link is a ``file://`` URL of ``ckpt`` (downloaded
+    once, reused the second time, the same weights as ``ckpt``);
+    ``gen_inf_ckpt`` of ``ckpt`` to an ``.npz`` (loads to the same weights);
+    the native BPE built here from the checkout's sources with the host's
+    C++ compiler, its ids equal to the Python tokenizer's on fixed and 200
+    fuzzed texts over a rank file with multi-byte merges. The HF export
+    (``integrations/hf.py``) is not run: this machine has no
+    ``transformers``."""
+    import base64
+    import filecmp
+    import random
+
+    import olmoasr_tpu_torch
+    from olmoasr_tpu_torch import load_model, tokenizer, tokenizer_native
+    from olmoasr_tpu_torch.models.gen_inf_ckpt import gen_inf_ckpt
+
+    by_path = load_model(ckpt, device="cuda").state_dict()
+
+    def same_weights(label, model):
+        sd = model.state_dict()
+        bad = [k for k, v in by_path.items() if not torch.equal(sd[k].to(v.dtype), v)]
+        if bad or sd.keys() != by_path.keys():
+            fail(f"{label}: weights differ from {ckpt}'s: {bad[:5]}")
+
+    root = os.path.join(tmp, "cache")
+    link = olmoasr_tpu_torch.MODEL2LINK["small.en"]
+    olmoasr_tpu_torch.MODEL2LINK["small.en"] = "file://" + ckpt
+    try:
+        t0 = time.perf_counter()
+        same_weights("load_model by name", load_model("small.en", device="cuda",
+                                                      download_root=root))
+        download_s = time.perf_counter() - t0
+        cached = os.path.join(root, os.path.basename(ckpt))
+        stamp = os.stat(cached).st_mtime_ns
+        same_weights("load_model by name, again", load_model("small.en", device="cuda",
+                                                             download_root=root))
+    finally:
+        olmoasr_tpu_torch.MODEL2LINK["small.en"] = link
+    if os.listdir(root) != [os.path.basename(ckpt)] or not filecmp.cmp(cached, ckpt, False) \
+            or os.stat(cached).st_mtime_ns != stamp:
+        fail(f"load_model by name: the download root holds {os.listdir(root)}")
+
+    t0 = time.perf_counter()
+    npz = gen_inf_ckpt(ckpt, os.path.join(tmp, "inference.npz"))
+    gen_s = time.perf_counter() - t0
+    same_weights("gen_inf_ckpt", load_model(  # the .npz holds fp32: the checkpoint's dtype
+        npz, device="cuda", dtype=by_path["decoder.token_embedding.weight"].dtype))
+    torch.cuda.empty_cache()
+
+    ranks_path = os.path.join(tmp, "ranks.tiktoken")
+    extra = [b" h", b"el", b"lo", b" he", b" hel", b" hell", b" hello", b"ll", "é".encode(),
+             b" caf", " café".encode(), "日".encode(), "本".encode(), "日本".encode(),
+             "\U0001f44d".encode()[:2], "\U0001f44d".encode()]
+    with open(ranks_path, "wb") as f:
+        for rank, tok in enumerate([bytes([b]) for b in range(256)] + extra):
+            f.write(base64.b64encode(tok) + b" " + str(rank).encode() + b"\n")
+    rng = random.Random(42)
+    pools = ["abcdefghij ", "\t\n  　", "0123456789٠١٢", "àéîöüß", "日本語中文", "!?.,;:—…«»",
+             "\U0001f600\U0001f44d\U0001f680", "'s't're've'm'll'd'"]
+    texts = list(BPE_TEXTS) + ["".join(rng.choice(rng.choice(pools))
+                                       for _ in range(rng.randrange(0, 40))) for _ in range(200)]
+    t0 = time.perf_counter()
+    native = tokenizer_native.NativeBPE(ranks_path)  # built here at first use
+    build_s = time.perf_counter() - t0
+    python = tokenizer.BytePairEncoder(tokenizer.load_tiktoken_ranks(ranks_path), {})
+    differ = [t for t in texts if native.encode(t) != python.encode(t)]
+    fallback = tokenizer_native.NativeBPE(None).encode("hello world") == list(b"hello world")
+    print(f"entry points: load_model of a released name through a file:// link "
+          f"{download_s:.1f} s (downloaded once, reused, the checkpoint's weights); "
+          f"gen_inf_ckpt to .npz {gen_s:.1f} s (the same weights); the native BPE built in "
+          f"{build_s:.1f} s, {len(texts) - len(differ)} of {len(texts)} texts give the Python "
+          f"tokenizer's ids, byte fallback {fallback}")
+    if differ or not fallback:
+        fail(f"native BPE: ids differ from the Python tokenizer's on {differ[:5]}, byte "
+             f"fallback {fallback}")
+    return {"download_s": download_s, "gen_inf_ckpt_s": gen_s, "native_bpe_build_s": build_s,
+            "native_bpe_texts": len(texts), "bpe_throughput": _bpe_throughput(tmp)}
+
+
+BPE_CUES = 4000  # cue texts of the throughput corpus
+
+
+def _bpe_throughput(tmp: str) -> dict:
+    """The native BPE against the Python engine on the data pipeline's
+    tokenizer work: ``training.dataset``'s ``encode(" " + text)`` of each
+    cue of a transcript, over BPE_CUES cues of 1-8 of the training shards'
+    WORDS (``_vtt``'s), with a rank file in which every word, bare and after
+    a space, merges to one token through its prefixes (as GPT-2's merges
+    make a common word one token): the medians of 3 passes each, on the
+    host. The ids must agree."""
+    import base64
+
+    from olmoasr_tpu_torch import tokenizer, tokenizer_native
+
+    merged = sorted({w[:k] for word in WORDS for w in (word, " " + word)
+                     for k in range(2, len(w) + 1)}, key=lambda t: (len(t), t))
+    path = os.path.join(tmp, "words.tiktoken")
+    with open(path, "wb") as f:
+        for rank, tok in enumerate([bytes([b]) for b in range(256)]
+                                   + [t.encode() for t in merged]):
+            f.write(base64.b64encode(tok) + b" " + str(rank).encode() + b"\n")
+    rng = np.random.default_rng(6)
+    cues = [" " + " ".join(rng.choice(WORDS, int(rng.integers(1, 9)))) for _ in range(BPE_CUES)]
+    engines = {"python": tokenizer.BytePairEncoder(tokenizer.load_tiktoken_ranks(path), {}),
+               "native": tokenizer_native.NativeBPE(path)}
+    ids, times = {}, {}
+    for name, enc in engines.items():
+        times[name] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ids[name] = [enc.encode(c) for c in cues]
+            times[name].append(time.perf_counter() - t0)
+    if ids["python"] != ids["native"]:
+        fail("native BPE: the throughput corpus's ids differ from the Python engine's")
+    us = {k: statistics.median(v) / BPE_CUES * 1e6 for k, v in times.items()}
+    n_ids = sum(map(len, ids["python"]))
+    print(f"  BPE throughput ({BPE_CUES} cues, {n_ids} ids, {len(merged)} merges, host): "
+          f"python {us['python']:.2f} us a cue, native {us['native']:.2f} us a cue "
+          f"({us['python'] / us['native']:.2f}x); runs (s) "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) for k, v in times.items()))
+    return {"cues": BPE_CUES, "ids": n_ids, "us_per_cue": us, "runs_s": times}
 
 
 def _listen(proc, err, timeout: float = 300) -> tuple:
@@ -3090,6 +3538,8 @@ def _drive_server(server, reqs, err, urllib_request) -> dict:
 # (label, windows, DecodingOptions fields) of each decode across ranks: the
 # short-form slice's greedy bf16 and int8 and its beam search, and fp32 greedy
 # and beam search, whose tokens must equal one process's
+# the decodes' depth: tokens a window, cut from 224 to keep the script in its time
+RANKS_SAMPLE_LEN = 112
 RANK_CASES = (("greedy bf16", 64, {}), ("greedy int8", 64, {"kv_quant": True}),
               ("beam5 bf16", BEAM_WINDOWS, {"beam_size": BEAM_SIZE}),
               ("greedy fp32", 8, {"fp16": False}),
@@ -3138,7 +3588,8 @@ def _decode_cases(model, mel, halves: bool = False) -> dict:
     out = {}
     try:
         for label, n, fields in RANK_CASES:
-            options = decoding.DecodingOptions(language="en", **fields)
+            options = decoding.DecodingOptions(language="en", sample_len=RANKS_SAMPLE_LEN,
+                                               **fields)
             model.decode(mel[:n], dataclasses.replace(options, sample_len=4))  # warm-up
             timing.clear()
             _reset_counts()
@@ -3433,8 +3884,8 @@ def phase_decode_ranks() -> dict:
     """Decoding split across ranks (``decoding.set_infer_mesh``), on the one
     card (NCCL refuses two ranks on one device, so two ranks go over gloo):
 
-    (a) the short-form slice's seeded small.en and windows, RANK_CASES in
-    this process, then on two ranks through torchrun (``--decode-rank``,
+    (a) the short-form slice's seeded small.en and windows, RANK_CASES
+    (RANKS_SAMPLE_LEN tokens a window) in this process, then on two ranks through torchrun (``--decode-rank``,
     gloo, a mesh over both): both ranks must build the same results, in
     bf16 equal to this process's decode of each half of the windows (what
     each rank decodes), at fp32 to its decode of the whole batch; rows that
@@ -3982,28 +4433,56 @@ def phase_eval() -> dict:
         ckpt_mod.save_eval_checkpoint(npz, train_mod.TrainState(model, None), model.dims)
         del model
         torch.cuda.empty_cache()
-        cli_out = os.path.join(tmp, "cli")
-        t0 = time.perf_counter()
-        proc = _run([sys.executable, "-m", "olmoasr_tpu_torch.eval.harness", "--eval_set",
-                     "librispeech_clean", "--eval_dir", tree, "--ckpt", npz, "--out_dir",
-                     cli_out, "--max_samples", str(EVAL_CLI_SAMPLES), "--batch_size",
-                     str(EVAL_CLI_SAMPLES), "--device", "cuda"], 600)
-        cli_s = time.perf_counter() - t0
+        cli_out, parity_out = os.path.join(tmp, "cli"), os.path.join(tmp, "parity")
+        # the parity harness in a process of its own, beside the harness CLI's
+        parity = subprocess.Popen(
+            [sys.executable, "-m", "olmoasr_tpu_torch.eval.parity", "--ckpt", npz,
+             "--eval_dir", tree, "--allow_fallback_tokenizer", "--max_samples",
+             str(EVAL_CLI_SAMPLES), "--batch_size", str(EVAL_CLI_SAMPLES), "--out_dir",
+             parity_out, "--device", "cuda"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            t0 = time.perf_counter()
+            proc = _run([sys.executable, "-m", "olmoasr_tpu_torch.eval.harness", "--eval_set",
+                         "librispeech_clean", "--eval_dir", tree, "--ckpt", npz, "--out_dir",
+                         cli_out, "--max_samples", str(EVAL_CLI_SAMPLES), "--batch_size",
+                         str(EVAL_CLI_SAMPLES), "--device", "cuda"], 600)
+            cli_s = time.perf_counter() - t0
+            parity_stdout, parity_stderr = parity.communicate(timeout=600)
+            parity_s = time.perf_counter() - t0
+        finally:
+            if parity.poll() is None:
+                parity.kill()
+                parity.wait()
+        if parity.returncode != 0:
+            fail(f"parity harness exited {parity.returncode}:\n{parity_stdout[-2000:]}\n"
+                 f"{parity_stderr[-4000:]}")
         last = json.loads(proc.stdout.strip().splitlines()[-1])
         mine = harness.short_form_eval(load_model(npz, device="cuda"), "librispeech_clean", tree,
                                        batch_size=EVAL_CLI_SAMPLES, max_samples=EVAL_CLI_SAMPLES)
         harness.write_results(mine, os.path.join(tmp, "mine"), "eval.npz")
         csvs = []
-        for d in (cli_out, os.path.join(tmp, "mine")):
-            with open(os.path.join(d, "librispeech_clean_eval.npz_per_sample.csv")) as f:
+        for path in (os.path.join(cli_out, "librispeech_clean_eval.npz_per_sample.csv"),
+                     os.path.join(tmp, "mine", "librispeech_clean_eval.npz_per_sample.csv"),
+                     os.path.join(parity_out, "librispeech_clean_?_per_sample.csv")):
+            with open(path) as f:
                 csvs.append(f.read())
+        parity_line = next((line for line in parity_stdout.splitlines()
+                            if line.startswith("parity: short-form")), "")
         print(f"eval: the harness CLI in its own process on {EVAL_CLI_SAMPLES} utterances: "
               f"{cli_s:.1f} s, WER {last['wer']:.4f}; per-sample rows equal to this "
               f"process's: {csvs[0] == csvs[1]}")
+        print(f"eval: the parity harness (python -m olmoasr_tpu_torch.eval.parity "
+              f"--allow_fallback_tokenizer) in its own process, beside the harness CLI: "
+              f"{parity_s:.1f} s; {parity_line!r}; per-sample rows equal to this process's: "
+              f"{csvs[2] == csvs[1]}")
         if csvs[0] != csvs[1] or last["wer"] != mine.wer or last["n_samples"] != mine.n_samples:
             fail(f"harness CLI: {last} against {mine.to_dict()}, per-sample rows equal: "
                  f"{csvs[0] == csvs[1]}")
-        out["cli_s"] = cli_s
+        if csvs[2] != csvs[1] or f"WER {mine.wer * 100:.2f}% " not in parity_line:
+            fail(f"parity harness: {parity_line!r} against WER {mine.wer}, per-sample rows "
+                 f"equal: {csvs[2] == csvs[1]}")
+        out["cli_s"], out["parity_s"] = cli_s, parity_s
 
         out["validate_fp32"] = _validate_fp32()
         shards = write_shards(tmp, n=64)

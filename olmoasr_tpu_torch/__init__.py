@@ -14,8 +14,8 @@ from olmoasr_tpu_torch.version import __version__
 __all__ = ["ModelDimensions", "VARIANT_TO_DIMS", "load_model", "available_models", "build_model",
            "transcribe_many", "__version__"]
 
-# Released OLMoASR checkpoints (olmoasr/__init__.py:23-30). The port does not
-# download: ``load_model`` reads the file a download would leave in its cache.
+# Released OLMoASR checkpoints (olmoasr/__init__.py:23-30): ``load_model``
+# downloads one into its cache at first use (``api._download``).
 MODEL2LINK = {
     "tiny.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-tiny.en.pt",
     "base.en": "https://huggingface.co/allenai/OLMoASR/resolve/main/models/OLMoASR-base.en.pt",

@@ -9,6 +9,7 @@ or ``.npz``.
 from __future__ import annotations
 
 import os
+import urllib.request
 from typing import Optional
 
 import torch
@@ -79,14 +80,71 @@ class OLMoASR(model_mod.Whisper):
         return decoding.detect_language(self, mel)
 
 
+def _download(url: str, root: str) -> str:
+    """``url``'s file under ``root`` (the JAX package's ``_download``): a file
+    already there is used as it is, else it is fetched in 8 KiB reads. No
+    checksum is checked, as there. The bytes go to a file of this process's
+    own beside the target, moved into place once whole, so that no reader
+    ever sees a part of the file and a cut download leaves no target."""
+    os.makedirs(root, exist_ok=True)
+    target = os.path.join(root, os.path.basename(url))
+    if os.path.isfile(target):
+        return target
+    part = f"{target}.{os.getpid()}.part"
+    try:
+        with urllib.request.urlopen(url) as source, open(part, "wb") as output:
+            while True:
+                buffer = source.read(8192)
+                if not buffer:
+                    break
+                output.write(buffer)
+        os.replace(part, target)
+    finally:
+        if os.path.exists(part):
+            os.remove(part)
+    return target
+
+
+def _download_released(url: str, root: str) -> str:
+    """:func:`_download` of a released checkpoint. Under a process group of
+    more than one rank (every rank loads the model), rank 0 downloads while
+    the others wait, then learn whether it succeeded (rank 0 raises its
+    error, the others a RuntimeError that names it); a rank that still
+    finds no file (a ``root`` of its own host) downloads it itself. The wait
+    is on a ``gloo`` group of its own with the server's control timeout,
+    since a download may outlast a collective's."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return _download(url, root)
+    from olmoasr_tpu_torch.parallel.mesh import CONTROL_TIMEOUT
+
+    group = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+    failed, error = None, [None]
+    try:
+        if dist.get_rank() == 0:
+            try:
+                _download(url, root)
+            except Exception as e:  # raised here once the others know
+                failed, error = e, [f"{type(e).__name__}: {e}"]
+        dist.broadcast_object_list(error, src=0, group=group)
+    finally:
+        dist.destroy_process_group(group)
+    if failed is not None:
+        raise failed
+    if error[0] is not None:
+        raise RuntimeError(f"rank 0 could not download {url}: {error[0]}")
+    return _download(url, root)
+
+
 def _new_model(dims, include_padding_token, device, dtype) -> OLMoASR:
     return model_mod.empty_model(dims, include_padding_token, device, dtype, cls=OLMoASR)
 
 
 def _released_path(name: str, download_root: Optional[str]) -> str:
-    """Where the JAX package's ``_download`` leaves a released checkpoint:
-    the URL's file name under ``download_root``, by default
-    ``$XDG_CACHE_HOME/olmoasr`` (``~/.cache/olmoasr``)."""
+    """Where :func:`_download` leaves a released checkpoint: the URL's file
+    name under ``download_root``, by default ``$XDG_CACHE_HOME/olmoasr``
+    (``~/.cache/olmoasr``)."""
     from olmoasr_tpu_torch import MODEL2LINK
 
     if download_root is None:
@@ -103,23 +161,20 @@ def load_model(name: str, device="cuda", download_root: Optional[str] = None,
     unless the caller asks for the CPU; no fallback). The signature is the
     JAX package's and the reference's, with ``dtype`` after it.
 
-    A released name reads the file that a download leaves under
-    ``download_root`` (see :func:`_released_path`); the port does not
-    download, so a missing file raises FileNotFoundError with its URL. A
-    name that is neither a released model nor a file raises RuntimeError,
-    as in the JAX package. ``inference`` drops the training vocabulary's
-    padding row. ``in_memory`` is accepted and ignored, as the JAX package
-    does: the weights are read into memory either way. ``dtype`` defaults to
-    the checkpoint's."""
+    A released name is downloaded from its ``MODEL2LINK`` URL into
+    ``download_root`` (see :func:`_released_path`) unless the file is
+    already there, as in the JAX package; under a process group rank 0
+    downloads it and the others wait (:func:`_download_released`). A name
+    that is neither a released model nor a file raises RuntimeError.
+    ``inference`` drops the training vocabulary's padding row. ``in_memory``
+    is accepted and ignored, as the JAX package does: the weights are read
+    into memory either way. ``dtype`` defaults to the checkpoint's."""
     from olmoasr_tpu_torch import MODEL2LINK
 
     path = name
     if name in MODEL2LINK:
-        path = _released_path(name, download_root)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f"{path}: released model {name} is not in the cache; fetch "
-                f"{MODEL2LINK[name]} there (the port does not download)")
+        path = _download_released(MODEL2LINK[name],
+                                  os.path.dirname(_released_path(name, download_root)))
     elif not os.path.isfile(path):
         raise RuntimeError(f"Model {name} not found; available models = {list(MODEL2LINK)}")
     if path.endswith(".npz"):

@@ -4,7 +4,9 @@ Counterpart of ``olmoasr_tpu/audio.py``. The port imports nothing of the JAX
 package, so the constants, ``mel_filters_np``, ``pad_or_trim``,
 ``load_audio`` and the training loader's host-side ``log_mel_spectrogram_np``
 are copied here (tests pin them against the originals);
-``log_mel_spectrogram`` runs in torch on the input tensor's device.
+``log_mel_spectrogram`` runs in torch on the input tensor's device, and
+``log_mel_chunk_unnorm`` gives the same frames chunk by chunk for the
+streamed long-form transport (``transcribe._StreamedMelGroup``).
 
 Contract: sample rate 16000, n_fft 400, hop 160, periodic Hann window,
 centered reflect-padded frames, |stft|^2 with the last frame dropped, Slaney
@@ -155,13 +157,41 @@ def log_mel_spectrogram(
         audio = torch.nn.functional.pad(audio, (0, padding))
     window = torch.hann_window(N_FFT, device=audio.device)
     stft = torch.stft(audio, N_FFT, HOP_LENGTH, window=window, return_complex=True)
-    magnitudes = stft[..., :-1].abs() ** 2  # (B, n_fft//2 + 1, frames)
-    filters = torch.from_numpy(mel_filters_np(n_mels)).to(audio.device)
-    mel_spec = filters @ magnitudes
-    log_spec = torch.clamp(mel_spec, min=1e-10).log10()
+    log_spec = _log10_mel(stft[..., :-1], n_mels)  # the last frame dropped
     log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
     return log_spec[0] if squeeze else log_spec
+
+
+def _log10_mel(stft: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """``log10(max(mel, 1e-10))`` of an STFT (B, n_fft//2 + 1, frames): the
+    power spectrum through the Slaney filterbank."""
+    magnitudes = stft.abs() ** 2
+    filters = torch.from_numpy(mel_filters_np(n_mels)).to(stft.device)
+    return torch.clamp(filters @ magnitudes, min=1e-10).log10()
+
+
+def log_mel_chunk_unnorm(chunk: torch.Tensor, n_mels: int = 80):
+    """The unnormalized log-mel of one self-contained chunk of a streamed
+    row, on the chunk's device.
+
+    ``chunk`` is (B, L) int16 PCM (rescaled by 1/32768 here) or float
+    samples, where frame t reads ``chunk[:, t*HOP : t*HOP + N_FFT]``: the
+    caller supplies the reflect head, the halo between chunks and the zero
+    tail, so nothing is padded here, and consecutive chunks give the frames
+    of one whole-row :func:`log_mel_spectrogram` (the same window, framing
+    and filterbank). Returns ``(log_spec (B, n_mels, (L - (N_FFT - HOP)) //
+    HOP), rowmax (B,))`` with ``log_spec = log10(max(mel, 1e-10))`` before the
+    whole-row clamp ``(max(x, rowmax - 8) + 4) / 4``, which
+    ``transcribe._gather_windows_norm`` applies once the row's max is known."""
+    if chunk.dtype == torch.int16:
+        chunk = chunk.float() / 32768.0
+    chunk = chunk.float()
+    window = torch.hann_window(N_FFT, device=chunk.device)
+    stft = torch.stft(chunk, N_FFT, HOP_LENGTH, window=window, center=False,
+                      return_complex=True)
+    log_spec = _log10_mel(stft, n_mels)
+    return log_spec, log_spec.amax(dim=(-2, -1))
 
 
 def load_audio(path: str, sr: int = SAMPLE_RATE) -> np.ndarray:

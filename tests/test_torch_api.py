@@ -1,6 +1,7 @@
 """The port's public API surface against the JAX package's, on the CPU:
 ``load_model`` by released name (the file a download leaves under
-``download_root``; nothing touches the network), the command line's
+``download_root``, or a download from a ``file://`` link; nothing touches
+the network), the command line's
 ``--model NAME --model_dir DIR``, ``OLMoASR.forward`` (``model(mel,
 tokens, padding_mask)``), ``half()`` (bf16, as the JAX package casts),
 ``astype``, ``num_params`` and ``device``.
@@ -14,6 +15,7 @@ magnitude (a few bf16 steps).
 from __future__ import annotations
 
 import os
+import shutil
 import sys
 
 import jax
@@ -66,9 +68,16 @@ def test_released_name_loads_the_cached_file(released, monkeypatch):
     monkeypatch.setenv("XDG_CACHE_HOME", os.path.dirname(root))
     os.rename(root, os.path.join(os.path.dirname(root), "olmoasr"))
     assert olmoasr_tpu_torch.load_model("small.en", device="cpu").dims == by_name.dims
-    # a released name whose file is missing names the URL; the port does not download
-    with pytest.raises(FileNotFoundError, match="OLMoASR-tiny.en.pt"):
-        load_model("tiny.en", device="cpu")
+    # a released name whose file is missing is downloaded from its link (a
+    # file:// URL here) into the cache, as the JAX package's _download does
+    source = os.path.join(os.path.dirname(root), "source")
+    os.makedirs(source)
+    shutil.copy(os.path.join(os.path.dirname(root), "olmoasr", "OLMoASR-small.en.pt"),
+                os.path.join(source, "OLMoASR-tiny.en.pt"))
+    monkeypatch.setitem(olmoasr_tpu_torch.MODEL2LINK, "tiny.en",
+                        "file://" + os.path.join(source, "OLMoASR-tiny.en.pt"))
+    assert load_model("tiny.en", device="cpu").dims == by_name.dims
+    assert os.path.isfile(os.path.join(os.path.dirname(root), "olmoasr", "OLMoASR-tiny.en.pt"))
     # a name that is neither released nor a file: the JAX package's RuntimeError
     with pytest.raises(RuntimeError, match="available models"):
         load_model("no-such-model", device="cpu")

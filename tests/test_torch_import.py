@@ -57,7 +57,9 @@ def test_port_never_imports_jax():
                  "olmoasr.model", "olmoasr.inf_model", "olmoasr.transcribe",
                  "olmoasr.preprocess", "olmoasr.utils", "demo.demo", "parallel.mesh",
                  "data.jsonl", "data.sampling", "data.filtering", "data.tagging",
-                 "data.audio_lang", "data.qa_video", "data.yodas", "eval.get_eval_set"):
+                 "data.audio_lang", "data.qa_video", "data.yodas", "eval.get_eval_set",
+                 "models.gen_inf_ckpt", "integrations.hf", "eval.parity", "tokenizer_native",
+                 "cpp", "cpp.build"):
         assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 
@@ -84,6 +86,42 @@ def test_entry_points_import_no_jax():
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     assert "--beam_size" in proc.stdout and "--device" in proc.stdout
+
+
+def test_extra_entry_points_run_without_jax(tmp_path):
+    """``gen_inf_ckpt``, the HF export's state dict, the parity harness's
+    ``--help``, the demo's checkpoint flow and the native BPE (built and
+    run) load nothing of jax or of the JAX package."""
+    code = (
+        "import runpy, sys, torch\n"
+        "from olmoasr_tpu_torch.models.dims import VARIANT_TO_DIMS\n"
+        "from olmoasr_tpu_torch.api import _new_model\n"
+        "from olmoasr_tpu_torch.models import convert\n"
+        "from olmoasr_tpu_torch.models.gen_inf_ckpt import gen_inf_ckpt\n"
+        "from olmoasr_tpu_torch.integrations.hf import params_to_hf_state_dict\n"
+        "from olmoasr_tpu_torch.demo.demo import ensure_checkpoint, export_hf\n"
+        "from olmoasr_tpu_torch import tokenizer_native\n"
+        "dims = VARIANT_TO_DIMS['tiny.en']\n"
+        "model = _new_model(dims, True, 'cpu', torch.float32)\n"
+        f"path = {str(tmp_path / 'tiny.pt')!r}\n"
+        "torch.save({'dims': dims.to_dict(), 'model_state_dict': model.state_dict()}, path)\n"
+        "gen_inf_ckpt(path, path[:-3] + '.npz')\n"
+        "assert len(params_to_hf_state_dict(model.state_dict(), dims)) > 100\n"
+        "if tokenizer_native.native_available():\n"
+        "    assert tokenizer_native.NativeBPE(None).encode('ab') == [97, 98]\n"
+        "sys.argv = ['parity', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('olmoasr_tpu_torch.eval.parity', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        + LEAKED
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, timeout=120,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert "--allow_fallback_tokenizer" in proc.stdout and "--device" in proc.stdout
 
 
 def test_long_form_entry_points_import_no_jax():

@@ -24,8 +24,10 @@ eval harness's command line on the job's eval set; every rank writes its own
 ``JOB.out<rank>``. A job whose ``kind`` is ``"serve"`` registers a mesh over
 every rank and makes the control group; rank 0 submits each of the job's
 rounds of requests to a ``serve.BatchingService`` over that group and stops
-it, every other rank runs ``serve.follow`` (``run_serve``). Imports torch and
-the port only, never JAX.
+it, every other rank runs ``serve.follow`` (``run_serve``). A job whose
+``kind`` is ``"load"`` loads released names through ``api.load_model`` as
+every rank of a CLI does (``run_load``). Imports torch and the port only,
+never JAX.
 """
 
 from __future__ import annotations
@@ -174,6 +176,47 @@ def run_serve(job: dict, rank: int, world: int) -> dict:
         decoding.set_infer_mesh(None)
 
 
+def run_load(job: dict, rank: int, world: int) -> list:
+    """``api.load_model`` of the released name ``job["name"]`` with each of
+    ``job["links"]`` as its ``MODEL2LINK`` URL, into ``job["root"]``: per
+    link, the URLs this rank opened and its error (``"Type: message"``), or
+    the loaded state dict. Rank 0's reads are slowed (``job["read_delay"]``
+    seconds a read), so that a rank that did not wait would find the file
+    in the making."""
+    import time
+    import urllib.request
+
+    import olmoasr_tpu_torch
+    from olmoasr_tpu_torch import api
+
+    urlopen = urllib.request.urlopen
+    opened = []
+
+    def slow_urlopen(url):
+        opened.append(url)
+        source = urlopen(url)
+        if rank == 0:
+            read = source.read
+            source.read = lambda n: time.sleep(job["read_delay"]) or read(n)
+        return source
+
+    urllib.request.urlopen = slow_urlopen
+    out = []
+    try:
+        for link in job["links"]:
+            olmoasr_tpu_torch.MODEL2LINK[job["name"]] = link
+            opened.clear()
+            try:
+                model = api.load_model(job["name"], device="cpu", download_root=job["root"])
+                got = {"state_dict": model.state_dict()}
+            except Exception as e:  # noqa: BLE001 -- the test reads the error
+                got = {"error": f"{type(e).__name__}: {e}"}
+            out.append({**got, "opened": list(opened)})
+    finally:
+        urllib.request.urlopen = urlopen
+    return out
+
+
 def main(argv) -> None:
     if argv[0] == "loop":
         from olmoasr_tpu_torch.training import train_loop
@@ -204,8 +247,8 @@ def main(argv) -> None:
                             world_size=world)
     try:
         job = torch.load(job_path, weights_only=False)
-        if job.get("kind") in ("decode", "serve"):
-            run_job = run_decode if job["kind"] == "decode" else run_serve
+        if job.get("kind") in ("decode", "serve", "load"):
+            run_job = {"decode": run_decode, "serve": run_serve, "load": run_load}[job["kind"]]
             torch.save(run_job(job, rank, world), f"{job_path}.out{rank}")
             return
         out = run(job, rank, world)
