@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from olmoasr_tpu_torch.tokenizer import Tokenizer, get_tokenizer
 from olmoasr_tpu_torch import audio as audio_mod
+from olmoasr_tpu_torch.tracing import span
 from olmoasr_tpu_torch.models import whisper as model_mod
 from olmoasr_tpu_torch.parallel import mesh as mesh_mod
 
@@ -279,34 +280,39 @@ def _decode_sample(
     cache; returns the sampled token ring (B * n_groups, sample_len), the
     summed log-probs, the probabilities at the sot position and the (B, ...)
     audio features."""
-    audio_features = model_mod.encode_audio(model, mel)
+    with span("decode.encode"):
+        audio_features = model_mod.encode_audio(model, mel)
     rows = audio_features.shape[0] * n_groups
     dev = audio_features.device
-    cache = model_mod.init_cache(
-        model, audio_features, max_len=len(prompt) + sample_len, quantize_cross=kv_quant,
-        self_batch=rows,
-    )
-    prompt_t = torch.tensor([prompt] * rows, dtype=torch.long, device=dev)
-    logits_all = model_mod.decode_step(model, prompt_t, cache)
-    # no-speech probability at the sot position ([pip:whisper] _main_loop)
-    probs_at_sot = torch.softmax(logits_all[:, sot_index], dim=-1)
-    logits = logits_all[:, -1]
+    with span("decode.cross_cache"):
+        cache = model_mod.init_cache(
+            model, audio_features, max_len=len(prompt) + sample_len, quantize_cross=kv_quant,
+            self_batch=rows,
+        )
+    with span("decode.prefill"):
+        prompt_t = torch.tensor([prompt] * rows, dtype=torch.long, device=dev)
+        logits_all = model_mod.decode_step(model, prompt_t, cache)
+        # no-speech probability at the sot position ([pip:whisper] _main_loop)
+        probs_at_sot = torch.softmax(logits_all[:, sot_index], dim=-1)
+        logits = logits_all[:, -1]
 
     tokens = torch.full((rows, sample_len), cfg.eot, dtype=torch.long, device=dev)
     finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
     sum_logprobs = torch.zeros((rows,), dtype=torch.float32, device=dev)
     for i in range(sample_len):
-        filt = apply_filters(logits, tokens, i, cfg)
-        tok = torch.where(finished, cfg.eot, _next_tokens(filt, temperature, generator))
-        tok_logprob = torch.log_softmax(filt, dim=-1).gather(1, tok[:, None])[:, 0]
-        sum_logprobs += torch.where(finished, 0.0, tok_logprob)
-        tokens[:, i] = tok
-        finished |= tok == cfg.eot
-        if i == sample_len - 1:
-            break
-        if (i + 1) % EXIT_CHECK_EVERY == 0 and bool(finished.all()):
-            break
-        logits = model_mod.decode_step(model, tok[:, None], cache)[:, 0]
+        with span("decode.select"):
+            filt = apply_filters(logits, tokens, i, cfg)
+            tok = torch.where(finished, cfg.eot, _next_tokens(filt, temperature, generator))
+            tok_logprob = torch.log_softmax(filt, dim=-1).gather(1, tok[:, None])[:, 0]
+            sum_logprobs += torch.where(finished, 0.0, tok_logprob)
+            tokens[:, i] = tok
+            finished |= tok == cfg.eot
+            if i == sample_len - 1:
+                break
+            if (i + 1) % EXIT_CHECK_EVERY == 0 and bool(finished.all()):
+                break
+        with span("decode.step"):
+            logits = model_mod.decode_step(model, tok[:, None], cache)[:, 0]
     return tokens, sum_logprobs, probs_at_sot, audio_features
 
 
@@ -684,21 +690,22 @@ def decode(
 
     tokens, sum_logprobs, no_speech, audio_features = _on_shards(
         mesh, sample, mel, generator if options.temperature > 0 else None)
-    no_speech_probs = no_speech.cpu().numpy()
-    seqs, lps = tokens.cpu().tolist(), sum_logprobs.cpu().tolist()
-    token_lists, lp_lists = [], []
-    for b in range(mel.shape[0]):
-        group_tokens = []
-        for seq in seqs[b * n_groups:(b + 1) * n_groups]:
-            if tokenizer.eot in seq:
-                seq = seq[: seq.index(tokenizer.eot)]
-            group_tokens.append(seq)
-        token_lists.append(group_tokens)
-        lp_lists.append(lps[b * n_groups:(b + 1) * n_groups])
-    return _finalize_results(
-        token_lists, lp_lists, no_speech_probs, tokenizer, options,
-        audio_features, language, single,
-    )
+    with span("decode.results"):
+        no_speech_probs = no_speech.cpu().numpy()
+        seqs, lps = tokens.cpu().tolist(), sum_logprobs.cpu().tolist()
+        token_lists, lp_lists = [], []
+        for b in range(mel.shape[0]):
+            group_tokens = []
+            for seq in seqs[b * n_groups:(b + 1) * n_groups]:
+                if tokenizer.eot in seq:
+                    seq = seq[: seq.index(tokenizer.eot)]
+                group_tokens.append(seq)
+            token_lists.append(group_tokens)
+            lp_lists.append(lps[b * n_groups:(b + 1) * n_groups])
+        return _finalize_results(
+            token_lists, lp_lists, no_speech_probs, tokenizer, options,
+            audio_features, language, single,
+        )
 
 
 def _beam_hypotheses(all_tokens: torch.Tensor, all_lp: torch.Tensor, eot: int):

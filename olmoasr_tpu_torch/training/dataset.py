@@ -39,6 +39,7 @@ from olmoasr_tpu_torch.audio import load_audio, log_mel_spectrogram_np, pad_or_t
 from olmoasr_tpu_torch.data.transcripts import TranscriptReader
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
 from olmoasr_tpu_torch.tokenizer import Tokenizer, get_tokenizer
+from olmoasr_tpu_torch.tracing import span
 from olmoasr_tpu_torch.utils import convert_to_milliseconds, convert_to_timestamp
 
 
@@ -447,13 +448,14 @@ class BatchLoader:
             mapper = map
 
         for s in range(n_steps):
-            rows = list(mapper(fetch, idx[s * per_step : (s + 1) * per_step]))
-            batch = {
-                k: np.stack([r[k] for r in rows]).reshape(
-                    self.accum_steps, self.micro_batch_size, *rows[0][k].shape
-                )
-                for k in ("mel", "text_input", "text_target", "padding_mask")
-            }
+            with span("loader.batch"):
+                rows = list(mapper(fetch, idx[s * per_step : (s + 1) * per_step]))
+                batch = {
+                    k: np.stack([r[k] for r in rows]).reshape(
+                        self.accum_steps, self.micro_batch_size, *rows[0][k].shape
+                    )
+                    for k in ("mel", "text_input", "text_target", "padding_mask")
+                }
             yield batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

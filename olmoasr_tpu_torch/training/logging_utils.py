@@ -9,7 +9,8 @@ persisted to ``run_ids/<exp>.txt`` (2196-2205), NaN alerts (1484-1490).
 wandb is optional — everything degrades to JSONL lines on disk.
 
 A copy of ``olmoasr_tpu/training/logging_utils.py`` (the port imports nothing
-of the JAX package).
+of the JAX package), but for ``StepTimer``'s step time: the log window's
+wall, not the host's call of an asynchronous step.
 """
 
 from __future__ import annotations
@@ -130,27 +131,45 @@ class MetricsLogger:
 
 class StepTimer:
     """Wall-clock phase timing -> efficiency/* metrics
-    (train_timestamps.py:1402-1541)."""
+    (train_timestamps.py:1402-1541).
+
+    ``efficiency/step_time`` is the log window's wall over its steps: from
+    the first step's start, or from the last :meth:`metrics` call, to this
+    one. The loop calls :meth:`metrics` right after it reads the window's
+    loss, its one wait for the device, so that the time is the device's
+    steps and not the host's asynchronous calls that queue them. Every other
+    phase (``dataloader``) reads the host's time in it on the last step."""
 
     def __init__(self, batch_seconds_of_audio: float):
         self.batch_audio_s = batch_seconds_of_audio
         self._t: Dict[str, float] = {}
         self._acc: Dict[str, float] = {}
+        self._window_t0: Optional[float] = None
+        self._steps = 0
 
     def start(self, phase: str):
         self._t[phase] = time.perf_counter()
+        if phase == "step" and self._window_t0 is None:
+            self._window_t0 = self._t[phase]
 
     def stop(self, phase: str):
-        self._acc[phase] = time.perf_counter() - self._t.pop(phase)
+        elapsed = time.perf_counter() - self._t.pop(phase)
+        if phase == "step":
+            self._steps += 1
+        else:
+            self._acc[phase] = elapsed
 
     def metrics(self) -> Dict[str, float]:
+        now = time.perf_counter()
         out = {f"efficiency/{k}_time": v for k, v in self._acc.items()}
-        step_time = self._acc.get("step")
-        if step_time:
+        if self._steps:
+            step_time = (now - self._window_t0) / self._steps
+            out["efficiency/step_time"] = step_time
             # audio minutes processed per chip-second (reference's
             # audio_min_per_GPU_second, train_timestamps.py:1525-1538)
             out["efficiency/audio_min_per_chip_second"] = (
                 self.batch_audio_s / 60.0
             ) / step_time
         self._acc = {}
+        self._window_t0, self._steps = now, 0
         return out

@@ -53,6 +53,7 @@ from olmoasr_tpu_torch.models import whisper as model_mod
 from olmoasr_tpu_torch.models.dims import ModelDimensions
 from olmoasr_tpu_torch.models.whisper import PADDING_TOKEN
 from olmoasr_tpu_torch.parallel.mesh import DATA_AXIS, FSDP_AXIS
+from olmoasr_tpu_torch.tracing import span
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -301,7 +302,7 @@ def make_train_step(dims: ModelDimensions, config: TrainConfig, mesh=None):
             dist.all_reduce(counts)
         loss_sum = acc_sum = 0.0
         for i in range(n_accum):
-            with _grad_sync(model, i == n_accum - 1):
+            with span("train.micro"), _grad_sync(model, i == n_accum - 1):
                 loss, aux = loss_fn(
                     model, batch["mel"][i], batch["text_input"][i], batch["text_target"][i],
                     None if batch.get("padding_mask") is None else batch["padding_mask"][i],
@@ -311,21 +312,22 @@ def make_train_step(dims: ModelDimensions, config: TrainConfig, mesh=None):
                 loss.backward()  # sums into the fp32 .grad of each parameter
             loss_sum = loss_sum + loss.detach()
             acc_sum = acc_sum + aux["accuracy"]
-        grads = [p.grad for p in params]
-        if world > 1:
-            sums = torch.stack([loss_sum, acc_sum])
-            dist.all_reduce(sums)
-            loss_sum, acc_sum = sums[0], sums[1]
-            for g in grads:
-                g.mul_(world)
-        if n_accum > 1:
-            for g in grads:
-                g.div_(n_accum)
-        norm = clip_by_global_norm(grads, config.max_grad_norm, norm_group)
-        lr = schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with span("train.update"):
+            grads = [p.grad for p in params]
+            if world > 1:
+                sums = torch.stack([loss_sum, acc_sum])
+                dist.all_reduce(sums)
+                loss_sum, acc_sum = sums[0], sums[1]
+                for g in grads:
+                    g.mul_(world)
+            if n_accum > 1:
+                for g in grads:
+                    g.div_(n_accum)
+            norm = clip_by_global_norm(grads, config.max_grad_norm, norm_group)
+            lr = schedule(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         metrics = {"loss": loss_sum / n_accum, "accuracy": acc_sum / n_accum,
                    "grad_norm": norm, "lr": lr}
         state.step += 1

@@ -22,7 +22,8 @@ train_timestamps.py main/train orchestration):
     rank only), ``async`` saves ``eval_<step>.npz`` and spawns the port's
     eval harness on it from rank 0 (train_timestamps.py:1835-2089)
   * ``profile_dir``: a ``torch.profiler`` trace of rank 0's steps
-    ``profile_steps[0]`` to ``profile_steps[1]`` of this run
+    ``profile_steps[0]`` to ``profile_steps[1]`` of this run, with the
+    port's ``olmoasr.train.*`` spans (``tracing``)
 
 Runs on ``cuda`` unless the caller asks for another device (the tests run it
 on the CPU at micro dims). ``device_mel`` ships each sample's 30 s PCM
@@ -48,6 +49,7 @@ from olmoasr_tpu_torch.training import checkpoint as ckpt_mod
 from olmoasr_tpu_torch.training import train as train_mod
 from olmoasr_tpu_torch.training.dataset import AudioTextDataset, BatchLoader, load_jsonl_samples
 from olmoasr_tpu_torch.training.logging_utils import MetricsLogger, StepTimer
+from olmoasr_tpu_torch.tracing import span
 
 
 def run_async_eval(eval_ckpt_path: str, eval_set: str, eval_dir: str, out_dir: str,
@@ -215,8 +217,9 @@ def main(
                     _stop_profile(prof, profile_dir, profile_steps)
                     prof = None
                 timer.start("step")
-                state, metrics = step_fn(
-                    state, {k: torch.from_numpy(v).to(rank_device) for k, v in batch.items()})
+                with span("train.h2d"):
+                    batch = {k: torch.from_numpy(v).to(rank_device) for k, v in batch.items()}
+                state, metrics = step_fn(state, batch)
                 # no per-step host read: metrics are fetched (and NaN-checked) once
                 # per log window, so the host queues the next step meanwhile
                 timer.stop("step")
@@ -224,6 +227,7 @@ def main(
 
                 if global_step % log_every == 0:
                     loss = float(metrics["loss"])  # device sync, once per window
+                    window = timer.metrics()  # the window's wall ends at that sync
                     if not np.isfinite(loss) and logger:
                         logger.alert("NaN loss", f"step {global_step}: loss={loss}")
                     final_metrics = {
@@ -232,7 +236,7 @@ def main(
                         "train/grad_norm": float(metrics["grad_norm"]),
                         "train/lr": float(metrics["lr"]),
                         "train/epoch": epoch,
-                        **timer.metrics(),
+                        **window,
                     }
                     if logger:
                         logger.log(final_metrics, step=global_step)

@@ -59,7 +59,7 @@ def test_port_never_imports_jax():
                  "data.jsonl", "data.sampling", "data.filtering", "data.tagging",
                  "data.audio_lang", "data.qa_video", "data.yodas", "eval.get_eval_set",
                  "models.gen_inf_ckpt", "integrations.hf", "eval.parity", "tokenizer_native",
-                 "cpp", "cpp.build"):
+                 "cpp", "cpp.build", "tracing"):
         assert f"olmoasr_tpu_torch.{name}" in names, name
     _assert_imports_no_jax(names)
 

@@ -42,6 +42,8 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -417,6 +419,38 @@ ENTRY = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=1, n_au
              n_vocab=51864, n_text_ctx=448, n_text_state=64, n_text_head=1, n_text_layer=1)
 
 
+def test_step_timer_reads_the_log_window_wall(monkeypatch):
+    """``efficiency/step_time`` is the log window's wall over its steps, from
+    the first step's start to the read after the last (then from that read
+    to the next), not the host's asynchronous calls; the loader's time is
+    the host's on the last step."""
+    from olmoasr_tpu_torch.training import logging_utils
+
+    now = [0.0]
+    monkeypatch.setattr(logging_utils, "time", types.SimpleNamespace(
+        perf_counter=lambda: now[0], time=time.time))
+    timer = logging_utils.StepTimer(120.0)
+
+    def at(t, call, phase):
+        now[0] = t
+        call(phase)
+
+    at(0.0, timer.start, "dataloader"), at(0.5, timer.stop, "dataloader")
+    at(1.0, timer.start, "step"), at(1.1, timer.stop, "step")  # a call of 0.1 s
+    at(1.2, timer.start, "dataloader"), at(1.3, timer.stop, "dataloader")
+    at(1.4, timer.start, "step"), at(1.5, timer.stop, "step")
+    now[0] = 3.0  # the loss read waited for both steps
+    first = timer.metrics()
+    assert first["efficiency/step_time"] == pytest.approx(1.0)
+    assert first["efficiency/audio_min_per_chip_second"] == pytest.approx(2.0)
+    assert first["efficiency/dataloader_time"] == pytest.approx(0.1)
+    at(3.1, timer.start, "step"), at(3.2, timer.stop, "step")
+    now[0] = 3.8
+    second = timer.metrics()
+    assert second == {"efficiency/step_time": pytest.approx(0.8),
+                      "efficiency/audio_min_per_chip_second": pytest.approx(2.5)}
+
+
 def test_train_loop_resumes_and_writes_an_npz_both_packages_read(shard_dir, tmp_path,
                                                                  monkeypatch):
     from olmoasr_tpu.models.convert import load_npz_checkpoint
@@ -428,10 +462,21 @@ def test_train_loop_resumes_and_writes_an_npz_both_packages_read(shard_dir, tmp_
     kwargs = dict(variant=dims, train_shards=str(shard_dir / "*.jsonl.gz"), exp_name="micro",
                   train_steps=10, eff_batch_size=4, micro_batch_size=2, ckpt_dir="ckpt",
                   ckpt_every=2, log_every=1, max_steps_this_run=2, device="cpu")
+    t0 = time.perf_counter()
     metrics = train_loop.main(**kwargs)
+    wall = time.perf_counter() - t0
     assert metrics["global_step"] == 2 and np.isfinite(metrics["train/loss"])
     assert metrics["train/lr"] > 0 and "efficiency/audio_min_per_chip_second" in metrics
-    assert os.path.isfile("logs/micro_metrics.jsonl")
+    # efficiency/*: each log window's wall (one step at log_every=1) over its
+    # steps; a step is 4 samples of 30 s, 2 audio minutes
+    with open("logs/micro_metrics.jsonl") as f:
+        windows = [r for r in map(json.loads, f) if "efficiency/step_time" in r]
+    assert [r["step"] for r in windows] == [1, 2]
+    for r in windows:
+        assert r["efficiency/step_time"] > 0
+        assert r["efficiency/audio_min_per_chip_second"] == pytest.approx(
+            2.0 / r["efficiency/step_time"], rel=1e-12)
+    assert sum(r["efficiency/step_time"] for r in windows) <= wall
     mgr = checkpoint.CheckpointManager("ckpt/micro")
     assert mgr.latest_step() == 2
     cfg = ttrain.TrainConfig(train_steps=10)
@@ -615,7 +660,11 @@ def test_train_loop_sync_eval_profile_and_cast_moments(shard_dir, tmp_path, monk
     assert got.per_sample == want.per_sample and all(r["hyp"] for r in want.per_sample)
     (trace,) = os.listdir("prof")
     with open(os.path.join("prof", trace)) as f:
-        assert "aten::" in f.read()
+        text = f.read()
+    # the port's spans of the traced step (olmoasr_tpu_torch.tracing) beside torch's ops
+    assert "aten::" in text
+    assert all(f'"olmoasr.{name}"' in text for name in ("train.h2d", "train.micro",
+                                                        "train.update"))
     dims = ModelDimensions(**ENTRY)
     cfg = ttrain.TrainConfig(train_steps=10, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16)
     state, _ = checkpoint.CheckpointManager("ckpt/real").restore(
